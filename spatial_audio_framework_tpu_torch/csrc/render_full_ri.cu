@@ -1,0 +1,337 @@
+// One-kernel TF-matrix renderer for Hopper (sm_90a): afSTFT analysis,
+// hybrid-band decode and afSTFT synthesis of a block of hops.
+//
+// Replaces: the TPU kernel `_render_full_kernel`
+//   (spatial_audio_framework_tpu/ops/pallas_afstft.py:674, launched by
+//   `render_full_ri` through pl.pallas_call at :778).  It computes the same
+//   function; the plain PyTorch version is `render_full_ri_reference` in
+//   spatial_audio_framework_tpu_torch/ops/afstft_kernels.py.
+//
+// What it computes, per stream s (hop = 128, 129 uniform bands):
+//   1. fold the H+6 frames of [in_tail | x] (15 + H hops) with the 10-hop
+//      analysis window into 256-point frames (two parity accumulators);
+//   2. rDFT of each frame as products with the C/S matrices (256 x 129);
+//   3. direct taps d = s[h+3]; hybrid context
+//      g = c1(s[h+6]-s[h]) + c2(s[h+4]-s[h+2]) on bands 0..15 only;
+//   4. per ear, summed over cin: A.d + B.(j g), j g = (-g_im, g_re);
+//   5. irDFT against A/B (129 x 256);
+//   6. synthesis window, overlap-add over 10 hops, merge of the 9-hop tail.
+//
+// What bounds it on the H100: at the flagship shape (S = 64 streams,
+// cin = 16, cout = 2, H = 64) the rDFT alone is 64*16*70 frames x 256x258
+// x 2 = 9.5 GFLOP per chunk, against ~41 MB of input and tails, i.e.
+// ~230 FLOP per byte of device memory traffic: fp32 compute bounds it
+// (67 TFLOP/s of fp32 FMA without tensor cores), not the 3.35 TB/s HBM.
+//
+// What the design does about it:
+//   * the spectra never leave the SM: a block owns (stream, tile of 32
+//     output hops), loops over the cin channels, and keeps the fold, the
+//     38-frame spectrum and the per-ear decode accumulators in shared
+//     memory and registers; only the irDFT frames (S, cout, H, 256) go to
+//     a scratch buffer that is mostly L2-resident;
+//   * the rDFT is a register-tiled product: each thread owns one band and
+//     19 frames, so every C/S value it loads (through L1/L2; the two
+//     matrices are 264 KB, above the 227 KB a block may hold in shared
+//     memory) feeds 19 x 2 FMAs, and the frame samples come from shared
+//     memory as 16-byte broadcasts;
+//   * all arithmetic is fp32 FMA, no TF32, for every precision mode
+//     (ops/precision.py); the sums differ from the plain version only in
+//     their order.
+// A second, light launch does step 6, one thread per output sample.
+// Making the rDFT a tensor-core product (3xTF32 or a split-bf16 scheme as
+// on the TPU) is later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int HOP = 128;
+constexpr int NB = HOP + 1;           // uniform bands
+constexpr int NB_PAD = NB + 1;        // A/B rows and decode rows, even count
+constexpr int FRAME = 2 * HOP;        // folded frame length
+constexpr int TOTAL_HOPS = 10;        // prototype length in hops
+constexpr int NT = TOTAL_HOPS - 1;    // overlap-add tail hops
+constexpr int TAIL_HOPS = 15;         // carried input hops (9 + 6)
+constexpr int G_BANDS = 16;           // bands carrying the hybrid context
+constexpr int TILE = 32;              // output hops per block
+constexpr int NF = TILE + 6;          // frames per block (6-hop context)
+constexpr int NHOPS_IN = NF + NT;     // input hops the frames span
+constexpr int GROUPS = 2;             // frame groups per band
+constexpr int FPG = NF / GROUPS;      // rDFT frames per thread
+constexpr int HPG = TILE / GROUPS;    // decoded hops per thread
+constexpr int EC = 2;                 // ears per pass over the channels
+constexpr int THREADS = 288;          // >= GROUPS * NB, whole warps
+constexpr float COEFF1 = 0.031273141818515176604f;
+constexpr float COEFF2 = 0.28127313041521179171f;
+
+static_assert(NF % GROUPS == 0 && TILE % GROUPS == 0, "even split");
+static_assert(THREADS >= GROUPS * NB && THREADS >= FRAME, "threads");
+static_assert(THREADS >= EC * TILE, "threads");
+
+// shared memory carve-up, in floats (each part a multiple of 4)
+constexpr int SM_HOPS = NHOPS_IN * HOP;
+constexpr int SM_WIN = TOTAL_HOPS * HOP;
+constexpr int SM_FOLD = NF * FRAME;
+constexpr int SM_SPEC = NF * NB * 2;
+constexpr int SM_OUT = EC * TILE * NB_PAD * 2;
+constexpr int SM_FLOATS = SM_HOPS + SM_WIN + SM_FOLD + SM_SPEC + SM_OUT;
+static_assert(SM_HOPS % 4 == 0 && SM_WIN % 4 == 0 && SM_FOLD % 4 == 0 &&
+              SM_SPEC % 4 == 0, "16-byte aligned parts");
+static_assert(SM_FLOATS * 4 <= 232448, "fits a block's shared memory");
+
+// Launch (a): analysis, decode and irDFT of one (stream, hop tile).
+__global__ void __launch_bounds__(THREADS)
+analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
+                      const float* __restrict__ x,        // (S, cin, H*HOP)
+                      const float* __restrict__ taps,     // (cin, cout, 4, NB)
+                      const float* __restrict__ w_ana,    // (10*HOP)
+                      const float* __restrict__ Cm,       // (FRAME, NB)
+                      const float* __restrict__ Sm,       // (FRAME, NB)
+                      const float* __restrict__ Am,       // (NB_PAD, FRAME)
+                      const float* __restrict__ Bm,       // (NB_PAD, FRAME)
+                      float* __restrict__ frames,         // (S, cout, H, FRAME)
+                      int cin, int cout, int H, int n_tiles) {
+  extern __shared__ float4 smem4[];
+  float* hop_s = reinterpret_cast<float*>(smem4);
+  float* win_s = hop_s + SM_HOPS;
+  float* fold_s = win_s + SM_WIN;
+  float2* spec_s = reinterpret_cast<float2*>(fold_s + SM_FOLD);
+  float* out_s = fold_s + SM_FOLD + SM_SPEC;
+
+  const int tid = threadIdx.x;
+  const int s = blockIdx.x / n_tiles;
+  const int h0 = (blockIdx.x % n_tiles) * TILE;
+  const int k = tid % NB;             // band of this thread
+  const int grp = tid / NB;           // frame/hop group; >= GROUPS: idle
+  const bool band_thread = grp < GROUPS;
+  const bool hyb = k < G_BANDS;
+  const int n_in = TAIL_HOPS + H;     // hops in [in_tail | x]
+
+  for (int i = tid; i < SM_WIN; i += THREADS) win_s[i] = w_ana[i];
+
+  for (int e0 = 0; e0 < cout; e0 += EC) {
+    const int ne = min(EC, cout - e0);
+    float acc_re[EC][HPG], acc_im[EC][HPG];
+#pragma unroll
+    for (int e = 0; e < EC; ++e)
+#pragma unroll
+      for (int hh = 0; hh < HPG; ++hh) acc_re[e][hh] = acc_im[e][hh] = 0.f;
+
+    for (int c = 0; c < cin; ++c) {
+      // 1. input hops h0 .. h0+NHOPS_IN-1 of [in_tail | x]; zeros past the end
+      const float* tail_c = in_tail + ((size_t)s * cin + c) * (TAIL_HOPS * HOP);
+      const float* x_c = x + ((size_t)s * cin + c) * ((size_t)H * HOP);
+      for (int i = tid; i < SM_HOPS / 4; i += THREADS) {
+        const int q = h0 + (4 * i) / HOP;
+        const int off = (4 * i) % HOP;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < TAIL_HOPS)
+          v = *reinterpret_cast<const float4*>(tail_c + q * HOP + off);
+        else if (q < n_in)
+          v = *reinterpret_cast<const float4*>(
+              x_c + (size_t)(q - TAIL_HOPS) * HOP + off);
+        reinterpret_cast<float4*>(hop_s)[i] = v;
+      }
+      __syncthreads();
+
+      // 2. window fold: parity p accumulates window hops p, p+2, ..., p+8
+      if (tid < FRAME) {
+        const int p = tid / HOP, i = tid % HOP;
+        float w[TOTAL_HOPS / 2];
+#pragma unroll
+        for (int m = 0; m < TOTAL_HOPS / 2; ++m)
+          w[m] = win_s[(2 * m + p) * HOP + i];
+        for (int j = 0; j < NF; ++j) {
+          float a = 0.f;
+#pragma unroll
+          for (int m = 0; m < TOTAL_HOPS / 2; ++m)
+            a += hop_s[(j + 2 * m + p) * HOP + i] * w[m];
+          fold_s[j * FRAME + tid] = a;
+        }
+      }
+      __syncthreads();
+
+      // 3. rDFT: this thread's band k for frames grp*FPG .. grp*FPG+FPG-1
+      if (band_thread) {
+        const float* frow = fold_s + grp * FPG * FRAME;
+        float sr[FPG], si[FPG];
+#pragma unroll
+        for (int jj = 0; jj < FPG; ++jj) sr[jj] = si[jj] = 0.f;
+#pragma unroll 2
+        for (int t = 0; t < FRAME; t += 4) {
+          const float c0 = __ldg(Cm + (t + 0) * NB + k);
+          const float c1 = __ldg(Cm + (t + 1) * NB + k);
+          const float c2 = __ldg(Cm + (t + 2) * NB + k);
+          const float c3 = __ldg(Cm + (t + 3) * NB + k);
+          const float s0 = __ldg(Sm + (t + 0) * NB + k);
+          const float s1 = __ldg(Sm + (t + 1) * NB + k);
+          const float s2 = __ldg(Sm + (t + 2) * NB + k);
+          const float s3 = __ldg(Sm + (t + 3) * NB + k);
+#pragma unroll
+          for (int jj = 0; jj < FPG; ++jj) {
+            const float4 f =
+                *reinterpret_cast<const float4*>(frow + jj * FRAME + t);
+            sr[jj] = fmaf(f.w, c3, fmaf(f.z, c2, fmaf(f.y, c1,
+                     fmaf(f.x, c0, sr[jj]))));
+            si[jj] = fmaf(f.w, s3, fmaf(f.z, s2, fmaf(f.y, s1,
+                     fmaf(f.x, s0, si[jj]))));
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < FPG; ++jj)
+          spec_s[(grp * FPG + jj) * NB + k] = make_float2(sr[jj], si[jj]);
+      }
+      __syncthreads();
+
+      // 4. decode this channel into hops grp*HPG .. grp*HPG+HPG-1, band k
+      if (band_thread) {
+        const float* tp = taps + ((size_t)c * cout + e0) * 4 * NB + k;
+        float are[EC], aim[EC], bre[EC], bim[EC];
+#pragma unroll
+        for (int e = 0; e < EC; ++e) {
+          const bool on = e < ne;
+          are[e] = on ? __ldg(tp + (4 * e + 0) * NB) : 0.f;
+          aim[e] = on ? __ldg(tp + (4 * e + 1) * NB) : 0.f;
+          bre[e] = (on && hyb) ? __ldg(tp + (4 * e + 2) * NB) : 0.f;
+          bim[e] = (on && hyb) ? __ldg(tp + (4 * e + 3) * NB) : 0.f;
+        }
+#pragma unroll
+        for (int hh = 0; hh < HPG; ++hh) {
+          const int h = grp * HPG + hh;
+          const float2 d = spec_s[(h + 3) * NB + k];
+          float wre = 0.f, wim = 0.f;
+          if (hyb) {
+            const float2 f0 = spec_s[h * NB + k];
+            const float2 f2 = spec_s[(h + 2) * NB + k];
+            const float2 f4 = spec_s[(h + 4) * NB + k];
+            const float2 f6 = spec_s[(h + 6) * NB + k];
+            const float gre = COEFF1 * (f6.x - f0.x) + COEFF2 * (f4.x - f2.x);
+            const float gim = COEFF1 * (f6.y - f0.y) + COEFF2 * (f4.y - f2.y);
+            wre = -gim;
+            wim = gre;
+          }
+#pragma unroll
+          for (int e = 0; e < EC; ++e) {
+            acc_re[e][hh] += (are[e] * d.x - aim[e] * d.y)
+                             + (bre[e] * wre - bim[e] * wim);
+            acc_im[e][hh] += (are[e] * d.y + aim[e] * d.x)
+                             + (bre[e] * wim + bim[e] * wre);
+          }
+        }
+      }
+    }
+
+    // 5. decoded spectra to shared memory as (re, im) pairs, band NB zeroed
+    if (band_thread) {
+#pragma unroll
+      for (int e = 0; e < EC; ++e)
+#pragma unroll
+        for (int hh = 0; hh < HPG; ++hh) {
+          const int row = e * TILE + grp * HPG + hh;
+          out_s[(row * NB_PAD + k) * 2 + 0] = acc_re[e][hh];
+          out_s[(row * NB_PAD + k) * 2 + 1] = acc_im[e][hh];
+        }
+    }
+    if (tid < EC * TILE) {
+      out_s[(tid * NB_PAD + NB) * 2 + 0] = 0.f;
+      out_s[(tid * NB_PAD + NB) * 2 + 1] = 0.f;
+    }
+    __syncthreads();
+
+    // 6. irDFT: thread n computes sample n of every (ear, hop) frame
+    if (tid < FRAME) {
+      const int n = tid;
+      float fr[EC][TILE];
+#pragma unroll
+      for (int e = 0; e < EC; ++e)
+#pragma unroll
+        for (int h = 0; h < TILE; ++h) fr[e][h] = 0.f;
+      for (int kk = 0; kk < NB_PAD; kk += 2) {
+        const float a0 = __ldg(Am + kk * FRAME + n);
+        const float a1 = __ldg(Am + (kk + 1) * FRAME + n);
+        const float b0 = __ldg(Bm + kk * FRAME + n);
+        const float b1 = __ldg(Bm + (kk + 1) * FRAME + n);
+#pragma unroll
+        for (int e = 0; e < EC; ++e)
+#pragma unroll
+          for (int h = 0; h < TILE; ++h) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                out_s + ((e * TILE + h) * NB_PAD + kk) * 2);
+            fr[e][h] = fmaf(v.w, b1, fmaf(v.z, a1, fmaf(v.y, b0,
+                       fmaf(v.x, a0, fr[e][h]))));
+          }
+      }
+#pragma unroll
+      for (int e = 0; e < EC; ++e)
+#pragma unroll
+        for (int h = 0; h < TILE; ++h)
+          if (e < ne && h0 + h < H)
+            frames[(((size_t)s * cout + e0 + e) * H + h0 + h) * FRAME + n] =
+                fr[e][h];
+    }
+    __syncthreads();  // out_s is rewritten by the next ear pass
+  }
+}
+
+// Launch (b): synthesis window, overlap-add over 10 hops and the tail
+// merge; one thread per sample of the H + 9 output hops (y, then new tail).
+__global__ void overlap_add(const float* __restrict__ frames,   // (S, cout, H, FRAME)
+                            const float* __restrict__ w_syn,    // (10*HOP)
+                            const float* __restrict__ ola_tail, // (S, cout, NT, HOP)
+                            float* __restrict__ y,              // (S, cout, H*HOP)
+                            float* __restrict__ new_tail,       // (S, cout, NT, HOP)
+                            int H, long long total) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int i = (int)(idx % HOP);
+  const long long r = idx / HOP;
+  const int p = (int)(r % (H + NT));
+  const long long se = r / (H + NT);  // stream * cout + ear
+  const float* fr = frames + se * (long long)H * FRAME;
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < TOTAL_HOPS; ++k) {
+    const int h = p - k;
+    if (h >= 0 && h < H)
+      acc += fr[(long long)h * FRAME + (k & 1) * HOP + i] * w_syn[k * HOP + i];
+  }
+  if (p < NT) acc += ola_tail[(se * NT + p) * HOP + i];
+  if (p < H)
+    y[(se * H + p) * HOP + i] = acc;
+  else
+    new_tail[(se * NT + (p - H)) * HOP + i] = acc;
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes.  Launches both kernels on `stream` and
+// returns the first CUDA error code (0 = success); allocates nothing.
+extern "C" int saf_render_full_ri(const float* in_tail, const float* x,
+                                  const float* ola_tail, const float* taps,
+                                  const float* w_ana, const float* w_syn,
+                                  const float* Cm, const float* Sm,
+                                  const float* Am, const float* Bm,
+                                  float* frames, float* y, float* new_tail,
+                                  int n_streams, int cin, int cout, int H,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (H + TILE - 1) / TILE;
+  const int smem = SM_FLOATS * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      analysis_decode_irdft, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  analysis_decode_irdft<<<n_streams * n_tiles, THREADS, smem, st>>>(
+      in_tail, x, taps, w_ana, Cm, Sm, Am, Bm, frames, cin, cout, H, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)n_streams * cout * (H + NT) * HOP;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  overlap_add<<<(unsigned)blocks, threads, 0, st>>>(frames, w_syn, ola_tail, y,
+                                                    new_tail, H, total);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* saf_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,112 @@
+"""HRIR/HRTF processing for the design stack (counterpart of
+``spatial_audio_framework_tpu/modules/hrir.py``).  Host numpy/scipy.
+
+The default dataset (``default_hrirs()``) is the JAX package's synthesised
+rigid-sphere set of 836 dirs × 2 ears × 256 taps @48 kHz, read by path.
+SOFA loading and resampling are not ported yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from spatial_audio_framework_tpu_torch import data_path
+from spatial_audio_framework_tpu_torch.ops import afstft as _afstft
+
+
+@functools.lru_cache(maxsize=None)
+def default_hrirs() -> tuple[np.ndarray, np.ndarray, int]:
+    """Returns (hrirs (836, 2, 256) float32, dirs_deg (836, 2), fs)."""
+    with np.load(data_path("default_hrirs.npz")) as z:
+        return z["hrirs"].copy(), z["dirs_deg"].copy(), int(z["fs"])
+
+
+def load_hrirs(sofa_filepath=None):
+    """The default HRIR set → (hrirs (N, 2, len) f32, dirs_deg (N, 2), fs,
+    used_default_flag).  A SOFA path raises: SOFA loading is not ported."""
+    if sofa_filepath is not None:
+        raise NotImplementedError(
+            "SOFA loading is not ported yet (ROADMAP.md, Queue 1: "
+            "'modules/sofa.py'); pass hrirs/dirs/fs or use the default set")
+    h, d, fs = default_hrirs()
+    return h, d, fs, True
+
+
+def resample_hrirs(hrirs: np.ndarray, fs_in: int, fs_out: int):
+    """Identity when fs_in == fs_out; resampling itself needs the speex
+    resampler, which is not ported."""
+    if fs_in == fs_out:
+        return hrirs.astype(np.float32), hrirs.shape[-1]
+    raise NotImplementedError(
+        f"HRIR resampling {fs_in} -> {fs_out} Hz is not ported yet "
+        "(ROADMAP.md, Queue 1: 'utils/speex.py')")
+
+
+def estimate_itds(hrirs: np.ndarray, fs: float) -> np.ndarray:
+    """Estimate inter-aural time differences per direction
+    (saf_hrir.c:40-108 ``estimateITDs``): 750 Hz 2nd-order Butterworth-style
+    LPF, then the lag of the L/R cross-correlation peak, clamped to
+    ±sqrt(2)/2000 s.  hrirs: (nDirs, 2, len) → (nDirs,) seconds."""
+    from scipy.signal import lfilter
+
+    n_dirs, _, hrir_len = hrirs.shape
+    fc, Q = 750.0, 0.7071
+    K = np.tan(np.pi * fc / fs)
+    KK = K * K
+    D = KK * Q + K + Q
+    b = np.array([KK * Q / D, 2.0 * KK * Q / D, KK * Q / D])
+    a = np.array([1.0, 2.0 * Q * (KK - 1.0) / D, (KK * Q - K + Q) / D])
+    lpf = lfilter(b, a, hrirs.astype(np.float64), axis=-1)
+    itd_bounds = np.sqrt(2.0) / 2e3
+    itds = np.zeros(n_dirs)
+    for i in range(n_dirs):
+        xc = np.correlate(lpf[i, 0], lpf[i, 1], "full")
+        itds[i] = (hrir_len - 1.0 - np.argmax(xc)) / fs
+    return np.clip(itds, -itd_bounds, itd_bounds).astype(np.float32)
+
+
+def hrirs_to_hrtfs_afstft(hrirs: np.ndarray, hop: int = 128,
+                          low_delay: bool = False,
+                          hybrid: bool = True) -> np.ndarray:
+    """HRIRs → afSTFT filterbank coefficients (saf_hrir.c ``HRIRs2HRTFs_afSTFT``).
+    hrirs: (nDirs, 2, len) → (nBands, 2, nDirs) complex64."""
+    return _afstft.fir_to_filterbank_coeffs(hrirs, hop, low_delay, hybrid)
+
+
+def diffuse_field_equalise_hrtfs(hrtfs: np.ndarray, itds_s=None,
+                                 centre_freqs=None, weights=None,
+                                 apply_eq: bool = True,
+                                 apply_phase: bool = False) -> np.ndarray:
+    """Diffuse-field EQ and/or phase simplification
+    (saf_hrir.c:175-244 ``diffuseFieldEqualiseHRTFs``).
+
+    hrtfs: (nBands, 2, nDirs) complex; weights: (nDirs,) summing to 4π.
+    Phase simplification replaces measured phase with ±IPD/2 from the ITDs.
+    """
+    H = np.array(hrtfs, np.complex128, copy=True)
+    n_bands, _, n_dirs = H.shape
+    if apply_eq:
+        w = (np.asarray(weights, np.float64) if weights is not None
+             else np.full(n_dirs, 4.0 * np.pi / n_dirs))
+        diff = np.sqrt(np.maximum(
+            np.einsum("bed,d->be", np.abs(H) ** 2, w / (4.0 * np.pi)), 1e-5))
+        H = H / (diff[..., None] + 2.23e-8)
+    if apply_phase:
+        ipd = _ipd_f32(itds_s, centre_freqs)   # C f32 wrap (saf_hrir.c:228)
+        H = np.abs(H) * np.exp(1j * np.stack([ipd, -ipd], axis=1))
+    return H.astype(np.complex64)
+
+
+def _ipd_f32(itds_s, freq_vector) -> np.ndarray:
+    """ipd = (matlab_fmodf(2π·f·itd + π, 2π) − π)/2 in the C's exact f32
+    arithmetic and op order (saf_hrir.c:224-231 and :302-303): near a wrap
+    boundary the last f32 ULP decides the sign.  → (nBands, nDirs) float64."""
+    f32 = np.float32
+    PI, TWO_PI = f32(np.pi), f32(2.0) * f32(np.pi)
+    fx = (np.asarray(freq_vector, np.float32)[:, None]
+          * np.asarray(itds_s, np.float32)[None, :])    # sgemm, f32
+    x = TWO_PI * fx + PI
+    m = np.fmod(x, TWO_PI)
+    m = np.where(m >= 0.0, m, m + TWO_PI)               # matlab_fmodf
+    return ((m - PI) / f32(2.0)).astype(np.float64)

@@ -1,0 +1,175 @@
+"""Spherical-harmonic core for the design stack (counterpart of
+``spatial_audio_framework_tpu/modules/sh.py``).  Host numpy only.
+
+Conventions match the reference (saf_sh.h):
+
+* ``get_sh_real(order, dirs)`` — orthonormal real SH, ACN ordering,
+  (azimuth, inclination) in radians, shape (nSH, nDirs) (saf_sh.c:190-253);
+* ``get_rsh(order, dirs_deg)`` — (azi, elev) degrees, scaled by sqrt(4π)
+  (saf_hoa.c:118-150);
+* ``get_sh_rot_mtx_real`` — Ivanic & Ruedenberg recursion
+  (saf_sh.c:506-590).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+def order2nsh(order: int) -> int:
+    return (order + 1) * (order + 1)
+
+
+def norm_legendre_all(order: int, x):
+    """Fully-normalised associated Legendre functions, no Condon–Shortley.
+
+    N_n^m(x) = sqrt((2n+1)/(4π) (n-m)!/(n+m)!) P_n^m(x) for 0 ≤ m ≤ n ≤ order.
+    x: (...,) → (order+1, order+1, ...) indexed [n, m]; entries with m > n
+    are zero.  Stable m-diagonal + upward-n recursion.
+    """
+    x = np.asarray(x)
+    s = np.sqrt(np.maximum(1.0 - x * x, 0.0))
+    out = np.zeros((order + 1, order + 1) + x.shape, dtype=x.dtype)
+    nmm = np.full(x.shape, 1.0 / math.sqrt(4.0 * math.pi), dtype=x.dtype)
+    out[0, 0] = nmm
+    for m in range(1, order + 1):
+        nmm = nmm * math.sqrt((2.0 * m + 1.0) / (2.0 * m)) * s
+        out[m, m] = nmm
+    for m in range(0, order + 1):
+        if m + 1 <= order:
+            out[m + 1, m] = x * math.sqrt(2.0 * m + 3.0) * out[m, m]
+        for n in range(m + 2, order + 1):
+            a = math.sqrt((4.0 * n * n - 1.0) / (n * n - m * m))
+            b = math.sqrt(((2.0 * n + 1.0) * (n - 1.0 - m) * (n - 1.0 + m))
+                          / ((2.0 * n - 3.0) * (n * n - m * m)))
+            out[n, m] = a * x * out[n - 1, m] - b * out[n - 2, m]
+    return out
+
+
+def unnorm_legendre(n: int, x):
+    """Unnormalised P_n^m with Condon–Shortley phase (saf_sh.c:53-128
+    ``unnorm_legendreP``).  x: (...,) → (n+1, ...)."""
+    x = np.asarray(x, dtype=np.float64)
+    N = norm_legendre_all(n, x)[n]  # (n+1, ...), no CS phase
+    out = []
+    for m in range(n + 1):
+        scale = math.sqrt(4.0 * math.pi / (2.0 * n + 1.0)
+                          * math.factorial(n + m) / math.factorial(n - m))
+        out.append(((-1.0) ** m) * scale * N[m])
+    return np.stack(out, axis=0)
+
+
+def get_sh_real(order: int, dirs_rad):
+    """Orthonormal real SH.  dirs_rad: (nDirs, 2) [azi, inclination] →
+    (nSH, nDirs)  (saf_sh.c:190 ``getSHreal``)."""
+    dirs_rad = np.asarray(dirs_rad)
+    azi, incl = dirs_rad[..., 0], dirs_rad[..., 1]
+    N = norm_legendre_all(order, np.cos(incl))  # (order+1, order+1, nDirs)
+    rows = []
+    for n in range(order + 1):
+        for m in range(-n, n + 1):
+            am = abs(m)
+            base = N[n, am]
+            if m < 0:
+                rows.append(math.sqrt(2.0) * base * np.sin(am * azi))
+            elif m == 0:
+                rows.append(base)
+            else:
+                rows.append(math.sqrt(2.0) * base * np.cos(am * azi))
+    return np.stack(rows, axis=0)
+
+
+def get_rsh(order: int, dirs_deg):
+    """Real SH for (azi, elev) in degrees, scaled by sqrt(4π)
+    (saf_hoa.c:118 ``getRSH``).  → (nSH, nDirs)."""
+    dirs_deg = np.asarray(dirs_deg)
+    d = math.pi / 180.0
+    dirs_rad = np.stack([dirs_deg[..., 0] * d,
+                         math.pi / 2.0 - dirs_deg[..., 1] * d], axis=-1)
+    return get_sh_real(order, dirs_rad) * math.sqrt(4.0 * math.pi)
+
+
+def get_sh_rot_mtx_real(R, order: int):
+    """Real-SH rotation matrix from a 3×3 rotation matrix
+    (saf_sh.c:506 ``getSHrotMtxReal``; Ivanic & Ruedenberg 1996/1998),
+    vectorised per order band.  R: (3, 3) → (nSH, nSH) in R's dtype.
+    """
+    R = np.asarray(R)
+    dtype = R.dtype
+    # band-1 permutation of R (saf_sh.c:533-543); rows/cols ordered m=-1,0,1
+    R1 = np.stack([
+        np.stack([R[1, 1], R[1, 2], R[1, 0]], -1),
+        np.stack([R[2, 1], R[2, 2], R[2, 0]], -1),
+        np.stack([R[0, 1], R[0, 2], R[0, 0]], -1),
+    ], -2)
+    blocks = [np.ones((1, 1), dtype=dtype), R1]
+    R_lm1 = R1
+    for l in range(2, order + 1):
+        ms = np.arange(-l, l + 1)
+        d = (ms == 0).astype(np.float64)
+        denom = np.empty((2 * l + 1, 2 * l + 1))
+        for j, n in enumerate(ms):
+            denom[:, j] = (2 * l) * (2 * l - 1) if abs(n) == l else (l * l - n * n)
+        am = np.abs(ms)[:, None].astype(np.float64)
+        u_c = np.sqrt((l * l - ms[:, None] ** 2) / denom)
+        v_c = (np.sqrt((1 + d[:, None]) * (l + am - 1) * (l + am) / denom)
+               * (1 - 2 * d[:, None]) * 0.5)
+        w_c = (np.sqrt(np.maximum((l - am - 1) * (l - am), 0.0) / denom)
+               * (1 - d[:, None]) * (-0.5))
+
+        # P_i(a, b) built from R_lm1 (saf_sh_internal.c:151-179 ``getP``)
+        def P(i):
+            ri1, ri0, rim1 = R1[i + 1, 2], R1[i + 1, 1], R1[i + 1, 0]
+            left = ri1 * R_lm1[:, :1] + rim1 * R_lm1[:, -1:]
+            right = ri1 * R_lm1[:, -1:] - rim1 * R_lm1[:, :1]
+            mid = ri0 * R_lm1
+            return np.concatenate([left, mid, right], axis=1)  # (2l-1, 2l+1)
+
+        P0, P1, Pm1 = P(0), P(1), P(-1)
+
+        def row(Pmat, a_vals):
+            idx = np.clip(np.asarray(a_vals) + l - 1, 0, 2 * l - 2)
+            return Pmat[idx, :]
+
+        # U (saf_sh_internal.c:182): P0 at a=m
+        U = row(P0, ms)
+        # V (saf_sh_internal.c:197-233)
+        d1 = (np.abs(ms) == 1).astype(np.float64)[:, None]
+        v_pos = (row(P1, ms - 1) * np.sqrt(1 + d1) - row(Pm1, -ms + 1) * (1 - d1))
+        v_neg = (row(P1, ms + 1) * (1 - d1) + row(Pm1, -ms - 1) * np.sqrt(1 + d1))
+        v_zero = row(P1, np.ones_like(ms)) + row(Pm1, -np.ones_like(ms))
+        mpos = (ms > 0)[:, None]
+        mzero = (ms == 0)[:, None]
+        V = np.where(mzero, v_zero, np.where(mpos, v_pos, v_neg))
+        # W (saf_sh_internal.c:236-263)
+        w_pos = row(P1, ms + 1) + row(Pm1, -ms - 1)
+        w_neg = row(P1, ms - 1) - row(Pm1, -ms + 1)
+        W = np.where(mpos, w_pos, w_neg)
+
+        R_l = (u_c.astype(dtype) * U + v_c.astype(dtype) * V
+               + w_c.astype(dtype) * W)
+        blocks.append(R_l)
+        R_lm1 = R_l
+
+    nsh = order2nsh(order)
+    out = np.zeros((nsh, nsh), dtype=dtype)
+    i0 = 0
+    for b in blocks:
+        k = b.shape[0]
+        out[i0:i0 + k, i0:i0 + k] = b
+        i0 += k
+    return out
+
+
+def beam_weights_max_ev(order: int) -> np.ndarray:
+    """Max energy-vector weights (saf_sh.c ``beamWeightsMaxEV``)."""
+    N = order
+    x = math.cos(2.4068 / (N + 1.51))
+    b = np.zeros(N + 1)
+    norm = 0.0
+    for n in range(N + 1):
+        Pn = unnorm_legendre(n, np.array([x]))[0, 0]
+        b[n] = math.sqrt((2 * n + 1) / (4.0 * math.pi)) * Pn
+        norm += math.sqrt((2 * n + 1) / (4.0 * math.pi)) * b[n]
+    return (b / norm).astype(np.float32)

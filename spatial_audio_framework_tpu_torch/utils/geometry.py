@@ -1,0 +1,187 @@
+"""Geometry for the design stack (counterpart of
+``spatial_audio_framework_tpu/utils/geometry.py``): spherical/cartesian
+conversion, Euler rotations and spherical Voronoi weights.  Host numpy.
+
+Conventions match the reference (saf_utility_geometry.c): spherical
+triplets are (azimuth, elevation, radius) with elevation up from the
+horizontal plane; ``euler2rotation_matrix`` composes R = R3 @ R2 @ R1 from
+row-vector style Rz/Ry/Rx.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# Euler conventions (saf_utility_geometry.h:77-90)
+EULER_ROTATION_Y_CONVENTION = 0     # Rz(a) Ry(b) Rz(g)
+EULER_ROTATION_X_CONVENTION = 1     # Rz(a) Rx(b) Rz(g)
+EULER_ROTATION_YAW_PITCH_ROLL = 2   # Rz(yaw) Ry(pitch) Rx(roll)
+EULER_ROTATION_ROLL_PITCH_YAW = 3   # Rx(roll) Ry(pitch) Rz(yaw)
+
+
+def sph2cart(sph, degrees: bool = False):
+    """(..., 3) [azi, elev, r] → (..., 3) [x, y, z]  (saf_utility_geometry.c:272)."""
+    azi, elev, r = sph[..., 0], sph[..., 1], sph[..., 2]
+    if degrees:
+        azi = azi * (np.pi / 180.0)
+        elev = elev * (np.pi / 180.0)
+    ce = np.cos(elev)
+    return np.stack([r * ce * np.cos(azi), r * ce * np.sin(azi),
+                     r * np.sin(elev)], axis=-1)
+
+
+def unit_sph2cart(dirs, degrees: bool = False):
+    """(..., 2) [azi, elev] → unit vectors (..., 3)."""
+    dirs = np.asarray(dirs)
+    r = np.ones_like(dirs[..., :1])
+    return sph2cart(np.concatenate([dirs, r], axis=-1), degrees=degrees)
+
+
+def _rot_x(theta):
+    c, s = np.cos(theta), np.sin(theta)
+    one, zero = np.ones_like(c), np.zeros_like(c)
+    return np.stack([np.stack([one, zero, zero], -1),
+                     np.stack([zero, c, s], -1),
+                     np.stack([zero, -s, c], -1)], -2)
+
+
+def _rot_y(theta):
+    c, s = np.cos(theta), np.sin(theta)
+    one, zero = np.ones_like(c), np.zeros_like(c)
+    return np.stack([np.stack([c, zero, -s], -1),
+                     np.stack([zero, one, zero], -1),
+                     np.stack([s, zero, c], -1)], -2)
+
+
+def _rot_z(theta):
+    c, s = np.cos(theta), np.sin(theta)
+    one, zero = np.ones_like(c), np.zeros_like(c)
+    return np.stack([np.stack([c, s, zero], -1),
+                     np.stack([-s, c, zero], -1),
+                     np.stack([zero, zero, one], -1)], -2)
+
+
+def euler2rotation_matrix(alpha, beta, gamma, degrees: bool = False,
+                          convention: int = EULER_ROTATION_YAW_PITCH_ROLL):
+    """R = R3(gamma) @ R2(beta) @ R1(alpha)  (saf_utility_geometry.c:213-255).
+    Scalars or batched angle arrays; returns (..., 3, 3)."""
+    alpha, beta, gamma = np.asarray(alpha), np.asarray(beta), np.asarray(gamma)
+    if degrees:
+        d = np.pi / 180.0
+        alpha, beta, gamma = alpha * d, beta * d, gamma * d
+    if convention == EULER_ROTATION_Y_CONVENTION:
+        R1, R2, R3 = _rot_z(alpha), _rot_y(beta), _rot_z(gamma)
+    elif convention == EULER_ROTATION_X_CONVENTION:
+        R1, R2, R3 = _rot_z(alpha), _rot_x(beta), _rot_z(gamma)
+    elif convention == EULER_ROTATION_YAW_PITCH_ROLL:
+        R1, R2, R3 = _rot_z(alpha), _rot_y(beta), _rot_x(gamma)
+    elif convention == EULER_ROTATION_ROLL_PITCH_YAW:
+        R1, R2, R3 = _rot_x(alpha), _rot_y(beta), _rot_z(gamma)
+    else:
+        raise ValueError(convention)
+    return R3 @ R2 @ R1
+
+
+def yaw_pitch_roll2_rzyx(yaw, pitch, roll, roll_pitch_yaw: bool = False):
+    """saf_utility_geometry.c:257-270 (radians)."""
+    conv = (EULER_ROTATION_ROLL_PITCH_YAW if roll_pitch_yaw
+            else EULER_ROTATION_YAW_PITCH_ROLL)
+    return euler2rotation_matrix(yaw, pitch, roll, degrees=False,
+                                 convention=conv)
+
+
+def sph_delaunay(dirs_deg):
+    """Delaunay triangulation of points on the sphere == their convex hull
+    (saf_utility_geometry.c ``sphDelaunay``).  dirs_deg: (nDirs, 2) [azi, elev]
+    → (faces (nF, 3) int, vertices (nDirs, 3))."""
+    from scipy.spatial import ConvexHull
+
+    verts = unit_sph2cart(np.asarray(dirs_deg, np.float64), degrees=True)
+    hull = ConvexHull(verts)
+    return hull.simplices.astype(int), verts
+
+
+def sph_voronoi(faces, vertices):
+    """Spherical Voronoi diagram from a spherical Delaunay triangulation
+    (saf_utility_geometry.c:693-868 ``sphVoronoi``): each triangle's
+    circumcentre on the unit sphere — its outward unit normal — is a
+    Voronoi vertex; each input direction's cell is the ring of its incident
+    triangles' vertices, ordered by angle in the direction's tangent plane.
+
+    faces: (nF, 3) int; vertices: (nDirs, 3) unit →
+    (vor_verts (nF, 3), cells: list of nDirs index lists into vor_verts)."""
+    faces = np.asarray(faces, int)
+    verts = np.asarray(vertices, np.float64)
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    normal = np.cross(v1 - v0, v2 - v0)
+    vor = normal / np.linalg.norm(normal, axis=-1, keepdims=True)
+    # orient outward, judged against an interior point of the hull (its
+    # vertex centroid): scipy's simplices have arbitrary winding
+    centroid = verts.mean(axis=0)
+    flip = (vor * (v0 - centroid)).sum(-1) < 0.0
+    vor[flip] = -vor[flip]
+    # global duplicate canonicalisation (C:731-746): an unclaimed vertex n
+    # claims every m within 1e-5 componentwise; index 0 doubles as "not a
+    # duplicate" in the C, so vertices claimed by vertex 0 are not remapped
+    n_vert = vor.shape[0]
+    dup = np.zeros(n_vert, int)
+    for n in range(n_vert):
+        if dup[n] == 0:
+            close = (np.abs(vor - vor[n]) < 1e-5).all(axis=1)
+            close[n] = False
+            dup[close] = n
+    cells = []
+    for m in range(verts.shape[0]):
+        inc = np.nonzero((faces == m).any(axis=1))[0]
+        d = verts[m]
+        a = np.array([1.0, 0.0, 0.0]) if abs(d[0]) < 0.9 \
+            else np.array([0.0, 1.0, 0.0])
+        t1 = np.cross(d, a)
+        t1 /= np.linalg.norm(t1)
+        t2 = np.cross(d, t1)
+        ang = np.arctan2(vor[inc] @ t2, vor[inc] @ t1)
+        ring = inc[np.argsort(ang)]
+        # remap to canonical vertices, keep first occurrences in ring order
+        # (C:842-858)
+        keep, seen = [], set()
+        for i in ring:
+            i = int(dup[i]) if dup[i] != 0 else int(i)
+            if i not in seen:
+                seen.add(i)
+                keep.append(i)
+        cells.append(keep)
+    return vor, cells
+
+
+def sph_voronoi_areas(vor_verts, cells):
+    """Areas of spherical Voronoi polygons via the spherical excess
+    Σ interior angles − (N−2)π (saf_utility_geometry.c:870-945
+    ``sphVoronoiAreas``).  → (nDirs,) float32, summing to 4π."""
+    vor = np.asarray(vor_verts, np.float64)
+    areas = np.empty(len(cells), np.float32)
+    for m, cell in enumerate(cells):
+        N = len(cell)
+        if N < 3:
+            areas[m] = 0.0
+            continue
+        theta = 0.0
+        for n in range(N):
+            p0 = vor[cell[n - 1]]
+            p1 = vor[cell[n]]
+            p2 = vor[cell[(n + 1) % N]]
+            # tangents at p1 toward p0 and p2 along the great circles
+            t10 = np.cross(np.cross(p1, p0), p1)
+            t12 = np.cross(np.cross(p1, p2), p1)
+            t10 /= np.linalg.norm(t10)
+            t12 /= np.linalg.norm(t12)
+            theta += np.arccos(np.clip(t10 @ t12, -1.0, 1.0))
+        areas[m] = theta - (N - 2) * np.pi
+    return areas
+
+
+def get_voronoi_weights(dirs_deg):
+    """Spherical Voronoi cell areas per direction, summing to 4π
+    (saf_utility_geometry.c:930-990 ``getVoronoiWeights``):
+    sphDelaunay → sphVoronoi → sphVoronoiAreas.  → (nDirs,)."""
+    faces, verts = sph_delaunay(dirs_deg)
+    vor, cells = sph_voronoi(faces, verts)
+    return sph_voronoi_areas(vor, cells)

@@ -1,0 +1,37 @@
+"""The PyTorch port imports and renders with jax unavailable."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = """
+import sys
+sys.modules["jax"] = None          # any 'import jax' now raises ImportError
+import numpy as np
+import torch
+from spatial_audio_framework_tpu_torch.models import ambi_bin
+
+cfg = ambi_bin.AmbiBinConfig(order=1)
+rng = np.random.default_rng(0)
+w = ambi_bin.weights_from_numpy(
+    rng.standard_normal((133, 2, 4)), rng.standard_normal((133, 2, 4)))
+st = ambi_bin.init_state_batched(cfg, 2)
+x = torch.from_numpy(rng.uniform(-1, 1, (2, 4, 4 * 128)).astype(np.float32))
+y, st = ambi_bin.process_ri_batched(cfg, w, st, x)
+assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
+assert st.in_tail.shape == (2, 4, 15 * 128) and st.ola_tail.shape == (2, 2, 9 * 128)
+leaked = [m for m in sys.modules
+          if m == "spatial_audio_framework_tpu"
+          or m.startswith("spatial_audio_framework_tpu.")]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

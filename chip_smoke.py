@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path, the flagship ambi_bin render (order 3, MagLS,
-64 streams, chunks of 8192 samples = 64 hops of 128, state carried from
-chunk to chunk), through ``spatial_audio_framework_tpu_torch`` on the card:
+Drives the port's two main paths through ``spatial_audio_framework_tpu_torch``
+on the card, 64 streams in chunks of 8192 samples (64 hops of 128) with
+state carried from chunk to chunk:
+
+* the flagship ambi_bin render (order 3, MagLS, 2 ears): cout·cin = 32, so
+  one pass of the ``render_full_ri`` kernel per chunk;
+* the ambi_dec render (order 3 → the 22.x layout, 22 loudspeakers):
+  cout·cin = 352, so per chunk the ``analysis_front_ri`` kernel, the
+  hybrid forward and the per-band einsum in plain torch, then the
+  ``synthesis_back_ri`` kernel.
+
+Phases:
 
 1. card and build: the card's name and power limit, and the build of the
    CUDA kernels from ``spatial_audio_framework_tpu_torch/csrc``;
-2. each kernel vs its plain PyTorch version on the card, at a small shape
-   and at the flagship shape, two chained calls carrying both tails;
-3. the slice: host design, 8 chunks through ``process_ri_batched`` with the
-   launch counters reset just before, held against the plain path, then
-   timed with CUDA events against the plain path;
-4. parity with the compiled C reference (tests/goldens/c_goldens.npz):
-   order 4, MagLS, N3D, yaw = π, one stream in 512-sample blocks.
+2. each kernel vs its plain PyTorch version on the card, at small shapes
+   (rows not a multiple of 8, H < 9, low-delay and non-hybrid banks) and at
+   its main path's shape, two chained calls carrying the tails; then both
+   timed with CUDA events at the main path's shape;
+3. the flagship ambi_bin slice: host design, 8 chunks through
+   ``process_ri_batched`` with the launch counters reset just before, held
+   against the plain path, then both paths timed;
+4. ambi_bin parity with the compiled C reference (tests/goldens/c_goldens.npz):
+   order 4, MagLS, N3D, yaw = π, one stream in 512-sample blocks;
+5. the ambi_dec slice, as phase 3;
+6. ambi_dec parity with the compiled C reference: order 3 → 9 loudspeakers,
+   dual-band AllRAD, one stream in 128-sample blocks.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -35,10 +49,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_TOL = 2e-5   # kernel vs plain, both fp32: only the sum order differs
+KERNEL_TOL = 2e-5   # kernel vs plain, both fp32: only the order of sums differs
 C_TOL = 1e-4        # vs the compiled C reference (tests/test_c_goldens.py)
-N_STREAMS, ORDER, HOPS, N_CHUNKS = 64, 3, 64, 8
+N_STREAMS, HOPS, N_CHUNKS = 64, 64, 8
 FS = 48000.0
+# analysis inputs at half full scale keep the spectra below |X| ~ 14, where
+# KERNEL_TOL is ~10 float32 ulps (tests/test_torch_afstft_kernels.py)
+ANA_AMP = 0.5
 
 
 def fail(msg: str) -> None:
@@ -70,118 +87,207 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def uniform(rng, shape) -> np.ndarray:
-    return rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+def ab_times(fns: dict, n: int, warmup: int = 3) -> dict:
+    """Times the two callables of ``fns`` ({"kernel": f, "plain": g}) in
+    turns kernel, plain, plain, kernel, after a warm-up; returns
+    {name: (mean ms, [ms per run])}."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    runs = {name: [] for name in fns}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        runs[name].append(cuda_ms(fns[name], n))
+    return {name: (float(np.mean(r)), r) for name, r in runs.items()}
 
 
-def phase_kernel_vs_plain(ak, dev, rng, card):
+def uniform(rng, shape, dev, amp: float = 1.0) -> torch.Tensor:
+    return torch.from_numpy(
+        (amp * rng.uniform(-1.0, 1.0, shape)).astype(np.float32)).to(dev)
+
+
+def chained_err(step, carry_k, carry_p, make_x, what: str) -> float:
+    """Two chained calls of ``step(x, carry, kernel)`` → (outputs, carry)
+    on both routes; returns the max |kernel − plain| over outputs and
+    carries, after checking the kernel's outputs are finite and shaped as
+    the plain version's."""
+    err = 0.0
+    for _ in range(2):
+        x = make_x()
+        ko, carry_k = step(x, carry_k, True)
+        po, carry_p = step(x, carry_p, False)
+        torch.cuda.synchronize()
+        for k, p in zip(ko + (carry_k,), po + (carry_p,)):
+            check(k.shape == p.shape and bool(torch.isfinite(k).all()),
+                  f"{what}: kernel output not finite or misshapen")
+            err = max(err, (k - p).abs().max().item())
+    return err
+
+
+def report_times(name: str, t: dict, card: str, shape: str) -> None:
+    print(f"phase 2: {name} at {shape} [{card}]: kernel {t['kernel'][0]:.4f}"
+          f" ms, plain {t['plain'][0]:.4f} ms per call (runs "
+          f"{ {k: ['%.4f' % r for r in v[1]] for k, v in t.items()} })")
+
+
+def phase_render_full(ak, dev, rng, card):
     """render_full_ri vs render_full_ri_reference; returns the max error and
-    the flagship-shape times (ms) of both."""
+    the flagship-shape times."""
     worst = 0.0
-    flagship = None
     for S, cin, cout, H in ((3, 4, 2, 4), (N_STREAMS, 16, 2, HOPS)):
-        M = uniform(rng, (2, 133, cout, cin))
+        M = rng.uniform(-1.0, 1.0, (2, 133, cout, cin)).astype(np.float32)
         taps = ak.decode_taps(torch.from_numpy(M[0]),
                               torch.from_numpy(M[1])).contiguous().to(dev)
-        kt = rt = torch.from_numpy(uniform(rng, (S, cin, 15 * 128))).to(dev)
-        ko = ro = torch.from_numpy(uniform(rng, (S, cout, 9, 128))).to(dev)
-        err = 0.0
-        for _ in range(2):
-            x = torch.from_numpy(uniform(rng, (S, cin, H * 128))).to(dev)
-            ky, ko = ak.render_full_ri(kt, x, ko, taps)
-            ry, ro = ak.render_full_ri_reference(rt, x, ro, taps)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(ky).all()) and ky.shape == ry.shape,
-                  f"kernel output not finite or misshapen at {(S, cin, cout, H)}")
-            err = max(err, (ky - ry).abs().max().item(),
-                      (ko - ro).abs().max().item())
-            kt = rt = torch.cat([kt, x], dim=-1)[..., H * 128:].contiguous()
+        in_tail = uniform(rng, (S, cin, 15 * 128), dev)
+        state = {True: in_tail, False: in_tail}
+
+        def step(x, tail, kernel):
+            fn = ak.render_full_ri if kernel else ak.render_full_ri_reference
+            y, new_tail = fn(state[kernel], x, tail, taps)
+            state[kernel] = torch.cat([state[kernel], x],
+                                      dim=-1)[..., H * 128:].contiguous()
+            return (y,), new_tail
+
+        ola = uniform(rng, (S, cout, 9, 128), dev)
+        err = chained_err(step, ola, ola,
+                          lambda: uniform(rng, (S, cin, H * 128), dev),
+                          "render_full_ri")
         print(f"phase 2: render_full_ri vs plain at (S, cin, cout, H) = "
               f"{(S, cin, cout, H)}: max |err| = {err:.3e} (tol {KERNEL_TOL})")
-        check(err <= KERNEL_TOL, f"kernel disagrees with plain: {err}")
+        check(err <= KERNEL_TOL, f"render_full_ri disagrees with plain: {err}")
         worst = max(worst, err)
-        flagship = (kt, x, ko, taps)
-    kt, x, ko, taps = flagship
-    for _ in range(3):  # warm-up
-        ak.render_full_ri(kt, x, ko, taps)
-        ak.render_full_ri_reference(kt, x, ko, taps)
-    times = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        fn = ak.render_full_ri if name == "kernel" else ak.render_full_ri_reference
-        times[name].append(cuda_ms(lambda: fn(kt, x, ko, taps), 20))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
-    print(f"phase 2: render_full_ri at the flagship shape [{card}]: kernel "
-          f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms per call "
-          f"(runs {times})")
-    return worst, ms
+    x = uniform(rng, (S, cin, H * 128), dev)
+    t = ab_times({"kernel": lambda: ak.render_full_ri(in_tail, x, ola, taps),
+                  "plain": lambda: ak.render_full_ri_reference(
+                      in_tail, x, ola, taps)}, 20)
+    report_times("render_full_ri", t, card, "the flagship shape")
+    return worst, t
 
 
-def phase_slice(ambi_bin, ak, dev, rng, card):
-    """The flagship render through process_ri_batched; returns the kernel's
-    launch count during the main-path run."""
-    t0 = time.perf_counter()
-    cfg = ambi_bin.AmbiBinConfig(order=ORDER, method="magls")
-    w = ambi_bin.design_ri(cfg, device=dev)
-    print(f"phase 3: design (order {ORDER}, MagLS) on the host in "
-          f"{time.perf_counter() - t0:.2f} s")
+def phase_analysis_front(ak, dev, rng, card):
+    """analysis_front_ri vs its plain version; rows, tail hops, H, low
+    delay.  The last case is the ambi_dec slice: 64 streams x 16 channels."""
+    worst = 0.0
+    cases = ((5, 15, 4, False), (3, 9, 2, True), (7, 15, 40, True),
+             (N_STREAMS * 16, 15, HOPS, False))
+    for rows, t_hops, H, ld in cases:
+        def step(x, tail, kernel):
+            fn = (ak.analysis_front_ri if kernel
+                  else ak.analysis_front_ri_reference)
+            out = fn(tail, x, low_delay=ld)
+            return out, torch.cat([tail, x], dim=-1)[:, H * 128:].contiguous()
+
+        tail = uniform(rng, (rows, t_hops * 128), dev, ANA_AMP)
+        err = chained_err(
+            step, tail, tail,
+            lambda: uniform(rng, (rows, H * 128), dev, ANA_AMP),
+            "analysis_front_ri")
+        print(f"phase 2: analysis_front_ri vs plain at (rows, tail hops, H, "
+              f"low_delay) = {(rows, t_hops, H, ld)}: max |err| = "
+              f"{err:.3e} (tol {KERNEL_TOL})")
+        check(err <= KERNEL_TOL,
+              f"analysis_front_ri disagrees with plain: {err}")
+        worst = max(worst, err)
+    x = uniform(rng, (rows, H * 128), dev, ANA_AMP)
+    t = ab_times({"kernel": lambda: ak.analysis_front_ri(tail, x),
+                  "plain": lambda: ak.analysis_front_ri_reference(tail, x)},
+                 20)
+    report_times("analysis_front_ri", t, card, "the ambi_dec slice's shape")
+    return worst, t
+
+
+def phase_synthesis_back(ak, dev, rng, card):
+    """synthesis_back_ri vs its plain version; rows, H, low delay, hybrid.
+    The last case is the ambi_dec slice: 64 streams x 22 loudspeakers."""
+    worst = 0.0
+    cases = ((5, 4, False, True), (3, 1, True, True), (6, 9, False, False),
+             (4, 33, True, False), (N_STREAMS * 22, HOPS, False, True))
+    for rows, H, ld, hyb in cases:
+        K = 2 * (133 if hyb else 129)
+
+        def step(spec, tail, kernel):
+            fn = (ak.synthesis_back_ri if kernel
+                  else ak.synthesis_back_ri_reference)
+            y, new_tail = fn(spec, tail, low_delay=ld, hybrid=hyb)
+            return (y,), new_tail
+
+        tail = uniform(rng, (rows, 9, 128), dev)
+        err = chained_err(step, tail, tail,
+                          lambda: uniform(rng, (rows, H, K), dev, 10.0),
+                          "synthesis_back_ri")
+        print(f"phase 2: synthesis_back_ri vs plain at (rows, H, low_delay, "
+              f"hybrid) = {(rows, H, ld, hyb)}: max |err| = {err:.3e} "
+              f"(tol {KERNEL_TOL})")
+        check(err <= KERNEL_TOL,
+              f"synthesis_back_ri disagrees with plain: {err}")
+        worst = max(worst, err)
+    spec = uniform(rng, (rows, H, K), dev, 10.0)
+    t = ab_times({"kernel": lambda: ak.synthesis_back_ri(spec, tail),
+                  "plain": lambda: ak.synthesis_back_ri_reference(spec, tail)},
+                 20)
+    report_times("synthesis_back_ri", t, card, "the ambi_dec slice's shape")
+    return worst, t
+
+
+def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
+                card, expect):
+    """A main path: 8 chunks through ``process(state, x, fused)`` with every
+    launch counter reset just before and read just after (``expect``: the
+    launches each kernel must show), held against the plain path, then both
+    paths timed.  Returns the launch counts."""
     T = HOPS * 128
-    xs = [torch.from_numpy(uniform(rng, (N_STREAMS, cfg.nsh, T))).to(dev)
-          for _ in range(N_CHUNKS)]
+    xs = [uniform(rng, (N_STREAMS, n_in, T), dev) for _ in range(N_CHUNKS)]
 
     def run(fused):
-        st = ambi_bin.init_state_batched(cfg, N_STREAMS, dev)
+        st = init_state()
         ys = []
         for x in xs:
-            y, st = ambi_bin.process_ri_batched(cfg, w, st, x, fused=fused)
+            y, st = process(st, x, fused)
             ys.append(y)
         return ys, st
 
-    ak.render_full_ri.launches = 0
+    kernels = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri")
+    for k in kernels:
+        getattr(ak, k).launches = 0
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
-    launches = ak.render_full_ri.launches
-    print(f"phase 3: main path ran {N_CHUNKS} chunks of "
-          f"{(N_STREAMS, cfg.nsh, T)}; render_full_ri launches = {launches}")
-    check(launches == N_CHUNKS, f"expected {N_CHUNKS} kernel launches")
+    launches = {k: getattr(ak, k).launches for k in kernels}
+    print(f"phase {phase}: {name} main path ran {N_CHUNKS} chunks of "
+          f"{(N_STREAMS, n_in, T)}; launches = {launches}")
+    check(launches == expect, f"{name}: expected launches {expect}")
     ys_p, st_p = run(False)
     torch.cuda.synchronize()
     err = 0.0
     for yk, yp in zip(ys_k, ys_p):
-        check(tuple(yk.shape) == (N_STREAMS, 2, T), f"y shape {yk.shape}")
+        check(tuple(yk.shape) == (N_STREAMS, n_out, T), f"y shape {yk.shape}")
         check(bool(torch.isfinite(yk).all()), "non-finite output")
         err = max(err, (yk - yp).abs().max().item())
     err = max(err, (st_k.ola_tail - st_p.ola_tail).abs().max().item())
     check(torch.equal(st_k.in_tail, st_p.in_tail), "in_tail differs")
-    print(f"phase 3: kernel path vs plain path over {N_CHUNKS} chunks: "
-          f"max |err| = {err:.3e} (tol {KERNEL_TOL})")
-    check(err <= KERNEL_TOL, f"slice disagrees with the plain path: {err}")
+    print(f"phase {phase}: {name} kernel path vs plain path over {N_CHUNKS} "
+          f"chunks: max |err| = {err:.3e} (tol {KERNEL_TOL})")
+    check(err <= KERNEL_TOL, f"{name} disagrees with the plain path: {err}")
 
-    state = {True: ambi_bin.init_state_batched(cfg, N_STREAMS, dev),
-             False: ambi_bin.init_state_batched(cfg, N_STREAMS, dev)}
+    state = {True: init_state(), False: init_state()}
     it = {True: 0, False: 0}
 
     def step(fused):
-        _, state[fused] = ambi_bin.process_ri_batched(
-            cfg, w, state[fused], xs[it[fused] % N_CHUNKS], fused=fused)
+        _, state[fused] = process(state[fused], xs[it[fused] % N_CHUNKS],
+                                  fused)
         it[fused] += 1
 
-    for fused in (True, False):  # warm-up
-        for _ in range(2):
-            step(fused)
-    times = {True: [], False: []}
-    for fused in (True, False, False, True):
-        times[fused].append(cuda_ms(lambda: step(fused), N_CHUNKS))
+    t = ab_times({"kernel": lambda: step(True), "plain": lambda: step(False)},
+                 N_CHUNKS, warmup=2)
     audio_s = N_STREAMS * T / FS
-    for fused, name in ((True, "kernel"), (False, "plain")):
-        ms = float(np.mean(times[fused]))
-        print(f"phase 3: flagship chunk, {name} path [{card}]: {ms:.4f} ms "
-              f"per chunk of {N_STREAMS} streams x {T} samples = "
-              f"{audio_s / (ms / 1e3):.1f} audio-seconds per second "
-              f"(runs {['%.4f' % t for t in times[fused]]})")
+    for path in ("kernel", "plain"):
+        ms, runs = t[path]
+        print(f"phase {phase}: {name} chunk, {path} path [{card}]: "
+              f"{ms:.4f} ms per chunk of {N_STREAMS} streams x {T} samples "
+              f"= {audio_s / (ms / 1e3):.1f} audio-seconds per second "
+              f"(runs {['%.4f' % r for r in runs]})")
     return launches
 
 
-def phase_c_parity(ambi_bin, sh, geo, dev, card):
+def phase_ambi_bin_c_parity(ambi_bin, sh, geo, dev, card):
     g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
     cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d")
     Mre, Mim = ambi_bin.design_ri(cfg, device=dev)
@@ -206,6 +312,43 @@ def phase_c_parity(ambi_bin, sh, geo, dev, card):
     check(np.isfinite(out).all() and err <= C_TOL, f"C parity: {err}")
 
 
+def phase_ambi_dec_c_parity(ambi_dec, ak, dev, card):
+    """dec_e2e: order 3 → the golden 9-loudspeaker layout (cout·cin = 144,
+    the analysis/synthesis kernels), H = 1 per block."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    cfg = ambi_dec.AmbiDecConfig(master_order=3, norm="n3d",
+                                 dec_method=("allrad", "allrad"),
+                                 re_weight=(False, True),
+                                 transition_freq=800.0)
+    w = ambi_dec.design_ri(cfg, np.asarray(g["dec_e2e_ls_dirs"], np.float64),
+                           device=dev)
+    x = torch.from_numpy(np.asarray(g["dec_e2e_in"], np.float32))[None].to(dev)
+    st = ambi_dec.init_state_batched(cfg, 1, 9, dev)
+    before = ak.analysis_front_ri.launches
+    outs = []
+    for f in range(x.shape[-1] // 128):
+        y, st = ambi_dec.process_ri_batched(
+            cfg, w, st, x[..., f * 128:(f + 1) * 128].contiguous())
+        outs.append(y[0])
+    out = torch.cat(outs, dim=-1).cpu().numpy()
+    err = float(np.abs(out - g["dec_e2e_out"]).max())
+    n = ak.analysis_front_ri.launches - before
+    print(f"phase 6: ambi_dec dec_e2e (order 3 -> 9 LS, {n} blocks through "
+          f"the kernels) vs the C reference on the card [{card}]: max |err| "
+          f"= {err:.3e} (tol {C_TOL})")
+    check(n == x.shape[-1] // 128, "C parity run bypassed the kernels")
+    check(np.isfinite(out).all() and err <= C_TOL, f"C parity: {err}")
+
+
+def kernel_entry(name, replaces, launches, err, t):
+    return {"name": name, "route": "cuda",
+            "source": f"spatial_audio_framework_tpu_torch/csrc/{name}.cu",
+            "replaces": f"spatial_audio_framework_tpu/ops/pallas_afstft.py:"
+                        f"{replaces}",
+            "launches": launches, "max_abs_err": err,
+            "ms": t["kernel"][0], "plain_ms": t["plain"][0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -213,11 +356,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the card "
              "and has no CPU mode")
-    from spatial_audio_framework_tpu_torch.models import ambi_bin
+    from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
     from spatial_audio_framework_tpu_torch.modules import sh
     from spatial_audio_framework_tpu_torch.ops import _build
     from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
     from spatial_audio_framework_tpu_torch.utils import geometry as geo
+    from spatial_audio_framework_tpu_torch.utils import presets
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -230,21 +374,59 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 1: ptxas: {line.strip()}")
+            if line.startswith("==") or "registers" in line or "spill" in line:
+                print(f"phase 1: nvcc: {line.strip()}")
     _build.load_library()
 
     rng = np.random.default_rng(args.seed)
-    err, ms = phase_kernel_vs_plain(ak, dev, rng, card)
-    launches = phase_slice(ambi_bin, ak, dev, rng, card)
-    phase_c_parity(ambi_bin, sh, geo, dev, card)
+    errs, times = {}, {}
+    errs["render_full_ri"], times["render_full_ri"] = phase_render_full(
+        ak, dev, rng, card)
+    errs["analysis_front_ri"], times["analysis_front_ri"] = \
+        phase_analysis_front(ak, dev, rng, card)
+    errs["synthesis_back_ri"], times["synthesis_back_ri"] = \
+        phase_synthesis_back(ak, dev, rng, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "render_full_ri", "route": "cuda",
-        "source": "spatial_audio_framework_tpu_torch/csrc/render_full_ri.cu",
-        "replaces": "spatial_audio_framework_tpu/ops/pallas_afstft.py:674",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms["kernel"], "plain_ms": ms["plain"]}]}))
+    t0 = time.perf_counter()
+    bcfg = ambi_bin.AmbiBinConfig(order=3, method="magls")
+    bw = ambi_bin.design_ri(bcfg, device=dev)
+    print(f"phase 3: ambi_bin design (order 3, MagLS) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    flagship = phase_slice(
+        "ambi_bin flagship", 3,
+        lambda st, x, fused: ambi_bin.process_ri_batched(bcfg, bw, st, x,
+                                                         fused=fused),
+        lambda: ambi_bin.init_state_batched(bcfg, N_STREAMS, dev),
+        bcfg.nsh, 2, ak, dev, rng, card,
+        {"render_full_ri": N_CHUNKS, "analysis_front_ri": 0,
+         "synthesis_back_ri": 0})
+    phase_ambi_bin_c_parity(ambi_bin, sh, geo, dev, card)
+
+    t0 = time.perf_counter()
+    dcfg = ambi_dec.AmbiDecConfig(master_order=3)
+    ls = presets.loudspeaker_preset("22.x")
+    dw = ambi_dec.design_ri(dcfg, ls, device=dev)
+    print(f"phase 5: ambi_dec design (order 3 -> 22.x, dual-band AllRAD, "
+          f"max-rE, energy-preserving) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    wide = phase_slice(
+        "ambi_dec 22.x", 5,
+        lambda st, x, fused: ambi_dec.process_ri_batched(dcfg, dw, st, x,
+                                                         fused=fused),
+        lambda: ambi_dec.init_state_batched(dcfg, N_STREAMS, len(ls), dev),
+        dcfg.nsh, len(ls), ak, dev, rng, card,
+        {"render_full_ri": 0, "analysis_front_ri": N_CHUNKS,
+         "synthesis_back_ri": N_CHUNKS})
+    phase_ambi_dec_c_parity(ambi_dec, ak, dev, card)
+
+    print(json.dumps({"kernels": [
+        kernel_entry("render_full_ri", 674, flagship["render_full_ri"],
+                     errs["render_full_ri"], times["render_full_ri"]),
+        kernel_entry("analysis_front_ri", 82, wide["analysis_front_ri"],
+                     errs["analysis_front_ri"], times["analysis_front_ri"]),
+        kernel_entry("synthesis_back_ri", 851, wide["synthesis_back_ri"],
+                     errs["synthesis_back_ri"], times["synthesis_back_ri"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

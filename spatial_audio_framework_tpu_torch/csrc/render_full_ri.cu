@@ -37,20 +37,19 @@
 //   * all arithmetic is fp32 FMA, no TF32, for every precision mode
 //     (ops/precision.py); the sums differ from the plain version only in
 //     their order.
-// A second, light launch does step 6, one thread per output sample.
+// A second, light launch does step 6, one thread per output sample
+// (`overlap_add`, shared with synthesis_back_ri.cu through
+// afstft_common.cuh, as are the hop load, the fold and the rDFT loop).
 // Making the rDFT a tensor-core product (3xTF32 or a split-bf16 scheme as
 // on the TPU) is later work.
 
 #include <cuda_runtime.h>
 
+#include "afstft_common.cuh"
+
 namespace {
 
-constexpr int HOP = 128;
-constexpr int NB = HOP + 1;           // uniform bands
 constexpr int NB_PAD = NB + 1;        // A/B rows and decode rows, even count
-constexpr int FRAME = 2 * HOP;        // folded frame length
-constexpr int TOTAL_HOPS = 10;        // prototype length in hops
-constexpr int NT = TOTAL_HOPS - 1;    // overlap-add tail hops
 constexpr int TAIL_HOPS = 15;         // carried input hops (9 + 6)
 constexpr int G_BANDS = 16;           // bands carrying the hybrid context
 constexpr int TILE = 32;              // output hops per block
@@ -105,7 +104,6 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
   const int grp = tid / NB;           // frame/hop group; >= GROUPS: idle
   const bool band_thread = grp < GROUPS;
   const bool hyb = k < G_BANDS;
-  const int n_in = TAIL_HOPS + H;     // hops in [in_tail | x]
 
   for (int i = tid; i < SM_WIN; i += THREADS) win_s[i] = w_ana[i];
 
@@ -119,64 +117,19 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
 
     for (int c = 0; c < cin; ++c) {
       // 1. input hops h0 .. h0+NHOPS_IN-1 of [in_tail | x]; zeros past the end
-      const float* tail_c = in_tail + ((size_t)s * cin + c) * (TAIL_HOPS * HOP);
-      const float* x_c = x + ((size_t)s * cin + c) * ((size_t)H * HOP);
-      for (int i = tid; i < SM_HOPS / 4; i += THREADS) {
-        const int q = h0 + (4 * i) / HOP;
-        const int off = (4 * i) % HOP;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q < TAIL_HOPS)
-          v = *reinterpret_cast<const float4*>(tail_c + q * HOP + off);
-        else if (q < n_in)
-          v = *reinterpret_cast<const float4*>(
-              x_c + (size_t)(q - TAIL_HOPS) * HOP + off);
-        reinterpret_cast<float4*>(hop_s)[i] = v;
-      }
+      load_hops(hop_s, in_tail + ((size_t)s * cin + c) * (TAIL_HOPS * HOP),
+                TAIL_HOPS, x + ((size_t)s * cin + c) * ((size_t)H * HOP), H,
+                h0, NHOPS_IN, tid, THREADS);
       __syncthreads();
 
       // 2. window fold: parity p accumulates window hops p, p+2, ..., p+8
-      if (tid < FRAME) {
-        const int p = tid / HOP, i = tid % HOP;
-        float w[TOTAL_HOPS / 2];
-#pragma unroll
-        for (int m = 0; m < TOTAL_HOPS / 2; ++m)
-          w[m] = win_s[(2 * m + p) * HOP + i];
-        for (int j = 0; j < NF; ++j) {
-          float a = 0.f;
-#pragma unroll
-          for (int m = 0; m < TOTAL_HOPS / 2; ++m)
-            a += hop_s[(j + 2 * m + p) * HOP + i] * w[m];
-          fold_s[j * FRAME + tid] = a;
-        }
-      }
+      fold_frames(fold_s, hop_s, win_s, NF, tid);
       __syncthreads();
 
       // 3. rDFT: this thread's band k for frames grp*FPG .. grp*FPG+FPG-1
       if (band_thread) {
-        const float* frow = fold_s + grp * FPG * FRAME;
         float sr[FPG], si[FPG];
-#pragma unroll
-        for (int jj = 0; jj < FPG; ++jj) sr[jj] = si[jj] = 0.f;
-#pragma unroll 2
-        for (int t = 0; t < FRAME; t += 4) {
-          const float c0 = __ldg(Cm + (t + 0) * NB + k);
-          const float c1 = __ldg(Cm + (t + 1) * NB + k);
-          const float c2 = __ldg(Cm + (t + 2) * NB + k);
-          const float c3 = __ldg(Cm + (t + 3) * NB + k);
-          const float s0 = __ldg(Sm + (t + 0) * NB + k);
-          const float s1 = __ldg(Sm + (t + 1) * NB + k);
-          const float s2 = __ldg(Sm + (t + 2) * NB + k);
-          const float s3 = __ldg(Sm + (t + 3) * NB + k);
-#pragma unroll
-          for (int jj = 0; jj < FPG; ++jj) {
-            const float4 f =
-                *reinterpret_cast<const float4*>(frow + jj * FRAME + t);
-            sr[jj] = fmaf(f.w, c3, fmaf(f.z, c2, fmaf(f.y, c1,
-                     fmaf(f.x, c0, sr[jj]))));
-            si[jj] = fmaf(f.w, s3, fmaf(f.z, s2, fmaf(f.y, s1,
-                     fmaf(f.x, s0, si[jj]))));
-          }
-        }
+        rdft_band<FPG>(fold_s + grp * FPG * FRAME, Cm, Sm, k, sr, si);
 #pragma unroll
         for (int jj = 0; jj < FPG; ++jj)
           spec_s[(grp * FPG + jj) * NB + k] = make_float2(sr[jj], si[jj]);
@@ -273,35 +226,6 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
   }
 }
 
-// Launch (b): synthesis window, overlap-add over 10 hops and the tail
-// merge; one thread per sample of the H + 9 output hops (y, then new tail).
-__global__ void overlap_add(const float* __restrict__ frames,   // (S, cout, H, FRAME)
-                            const float* __restrict__ w_syn,    // (10*HOP)
-                            const float* __restrict__ ola_tail, // (S, cout, NT, HOP)
-                            float* __restrict__ y,              // (S, cout, H*HOP)
-                            float* __restrict__ new_tail,       // (S, cout, NT, HOP)
-                            int H, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int i = (int)(idx % HOP);
-  const long long r = idx / HOP;
-  const int p = (int)(r % (H + NT));
-  const long long se = r / (H + NT);  // stream * cout + ear
-  const float* fr = frames + se * (long long)H * FRAME;
-  float acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < TOTAL_HOPS; ++k) {
-    const int h = p - k;
-    if (h >= 0 && h < H)
-      acc += fr[(long long)h * FRAME + (k & 1) * HOP + i] * w_syn[k * HOP + i];
-  }
-  if (p < NT) acc += ola_tail[(se * NT + p) * HOP + i];
-  if (p < H)
-    y[(se * H + p) * HOP + i] = acc;
-  else
-    new_tail[(se * NT + (p - H)) * HOP + i] = acc;
-}
-
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches both kernels on `stream` and
@@ -324,12 +248,8 @@ extern "C" int saf_render_full_ri(const float* in_tail, const float* x,
       in_tail, x, taps, w_ana, Cm, Sm, Am, Bm, frames, cin, cout, H, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)n_streams * cout * (H + NT) * HOP;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  overlap_add<<<(unsigned)blocks, threads, 0, st>>>(frames, w_syn, ola_tail, y,
-                                                    new_tail, H, total);
-  return (int)cudaGetLastError();
+  return (int)launch_overlap_add(frames, w_syn, ola_tail, y, new_tail,
+                                 (long long)n_streams * cout, H, st);
 }
 
 extern "C" const char* saf_cuda_error_string(int code) {

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 ``spatial_audio_framework_tpu_torch/csrc/*.cu`` are compiled at first use
-with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain
-C interface, which is loaded with ``ctypes``.  The library goes into the
-package's git-ignored ``_build/`` directory under a name that carries a
-hash of the sources and flags, so a changed source is always rebuilt and an
-unchanged one is built once.  ``nvcc``'s ``-Xptxas -v`` report (registers,
-shared memory, spills per kernel) is kept beside it as ``<name>.log``.
+with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C interface,
+which is loaded with ``ctypes``.  The library goes into the package's
+git-ignored ``_build/`` directory under a name that carries a hash of the
+sources, the headers they include (``csrc/*.cuh``) and the flags, so a
+changed source or header is always rebuilt and an unchanged one is built
+once.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills
+per kernel) is kept beside it as ``<name>.log``.
 
 Nothing here runs at import: building needs ``nvcc``, which only the
 machine with the card has.
@@ -25,8 +27,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -49,9 +52,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsaf_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -64,16 +67,45 @@ def build() -> float:
     if lib.is_file():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    try:
+        for src, proc in procs:
+            out, _ = proc.communicate(timeout=600)
+            log.append(f"== {src.name} (nvcc exit {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+    finally:
+        for _, proc in procs:  # none outlives a failed or timed-out build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, timeout=600)
+        log.append(f"== link (nvcc exit {link.returncode})\n"
+                   f"{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    lib.with_suffix(".log").write_text(text)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{text}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return seconds
 
@@ -86,6 +118,10 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.saf_render_full_ri.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
     lib.saf_render_full_ri.restype = i32
+    lib.saf_analysis_front_ri.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.saf_analysis_front_ri.restype = i32
+    lib.saf_synthesis_back_ri.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.saf_synthesis_back_ri.restype = i32
     lib.saf_cuda_error_string.argtypes = [i32]
     lib.saf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,11 +5,21 @@ Numerically the reference's afSTFT (same prototype, hybrid stage and
 delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
 (re, im) pair of float32 tensors, batched over streams.
 
-* :func:`render_tf_matrix_fused` — the TF-matrix renderer on the one-pass
-  kernel (``ops/afstft_kernels.render_full_ri``): the decode matrix becomes
-  uniform-band taps and analysis ⊗ decode ⊗ synthesis run in one call.
-* :func:`render_tf_matrix_ri` with ``fused=False`` — the plain reference
-  path: analysis → per-band einsum → synthesis, in ordinary torch code.
+* :func:`analysis_ri_batched` / :func:`synthesis_ri_batched` — the batched
+  filterbank; with ``use_kernel`` its front and back end run on the
+  kernels ``analysis_front_ri`` / ``synthesis_back_ri``
+  (``ops/afstft_kernels``), otherwise in plain torch.
+* :func:`render_tf_matrix_ri` — the TF-matrix renderer.  With ``fused``
+  (the default) it dispatches as the JAX package does: cout·cin ≤ 128 and
+  hop 128 take :func:`render_tf_matrix_fused`, the one-pass kernel
+  (``render_full_ri``: the decode matrix becomes uniform-band taps and
+  analysis ⊗ decode ⊗ synthesis run in one call); wider renders take
+  analysis → per-band einsum → synthesis with both kernels.  With
+  ``fused=False`` it is the plain reference path, in ordinary torch code.
+
+On CUDA tensors the kernel route launches the CUDA kernels or raises; on
+CPU tensors it runs their plain versions.  Which route runs comes from the
+caller's flag only, never from the device.
 
 The TPU package's VMEM models, block fitting, group split and time split
 exist only for the TPU and are not ported.
@@ -24,7 +34,8 @@ from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
                                                           _TOTAL_HOPS, AfSTFT,
                                                           device_consts)
 from spatial_audio_framework_tpu_torch.ops.afstft_kernels import (
-    decode_taps, render_full_ri)
+    _KERNEL_HOP, _KERNEL_MAX_CH_PRODUCT, analysis_front_ri, decode_taps,
+    render_full_ri, synthesis_back_ri)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 
 
@@ -50,6 +61,17 @@ def init_state_batched(bank: AfSTFT, n_streams: int, n_ch_in: int,
                             dtype=torch.float32, device=device),
         ola_tail=torch.zeros((S, n_ch_out, h_len - hop),
                              dtype=torch.float32, device=device))
+
+
+def _next_in_tail(in_tail: torch.Tensor, x: torch.Tensor, H: int,
+                  hop: int) -> torch.Tensor:
+    """The 15-hop input tail after block x of H hops (afstft_ri.py:428-432
+    of the JAX package): the last 15 hops of [in_tail | x]."""
+    if H >= _TAIL_HOPS:
+        new_in_tail = x[..., (H - _TAIL_HOPS) * hop:]
+    else:
+        new_in_tail = torch.cat([in_tail[..., H * hop:], x], dim=-1)
+    return new_in_tail.contiguous()
 
 
 def _fold_hops_ri(hops: torch.Tensor, n_frames: int, hop: int,
@@ -119,28 +141,38 @@ def _hybrid_inverse_ri(Y):
 
 
 def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched,
-                        x: torch.Tensor, packed: bool = False):
+                        x: torch.Tensor, packed: bool = False,
+                        use_kernel: bool = False):
     """x: (S, n_ch, H*hop) → ((re, im) each (S, n_ch, H, n_bands), state),
     or with ``packed`` one (S, n_ch, H, 2·n_bands) [re | im] tensor.
 
-    Plain torch (the JAX package's XLA branch): H+6 spectral hops are
-    computed per block, 6 of them from the carried tail, so the hybrid stage
-    needs no carried spectral state."""
+    H+6 spectral hops are computed per block, 6 of them from the carried
+    tail, so the hybrid stage needs no carried spectral state.  With
+    ``use_kernel`` the framing ⊗ window ⊗ fold ⊗ rDFT front runs as
+    :func:`analysis_front_ri` over the flattened (S·n_ch) rows; otherwise
+    in plain torch (the JAX package's XLA branch)."""
     hop = bank.hop
     S, n_ch = x.shape[:2]
     H = x.shape[2] // hop
-    buf = torch.cat([state.in_tail, x], dim=-1)           # (S,C,(H+15)·hop)
-    new_in_tail = buf[..., H * hop:]
-    k = device_consts(hop, bank.low_delay, x.device)
     He = H + 6
-    hops = buf.reshape(S * n_ch, H + _TAIL_HOPS, hop)
-    folded = _fold_hops_ri(hops, He, hop, k["w_ana"])
-    with fp32_matmul():
-        sre = folded @ k["C"]
-        sim = folded @ k["S"]
+    if use_kernel:
+        sre, sim = analysis_front_ri(
+            state.in_tail.reshape(S * n_ch, -1).contiguous(),
+            x.reshape(S * n_ch, -1).contiguous(),
+            low_delay=bank.low_delay, hop=hop)
+        new_in_tail = _next_in_tail(state.in_tail, x, H, hop)
+    else:
+        buf = torch.cat([state.in_tail, x], dim=-1)       # (S,C,(H+15)·hop)
+        new_in_tail = buf[..., H * hop:].contiguous()
+        k = device_consts(hop, bank.low_delay, x.device)
+        hops = buf.reshape(S * n_ch, H + _TAIL_HOPS, hop)
+        folded = _fold_hops_ri(hops, He, hop, k["w_ana"])
+        with fp32_matmul():
+            sre = folded @ k["C"]
+            sim = folded @ k["S"]
     sre = sre.reshape(S, n_ch, He, hop + 1)
     sim = sim.reshape(S, n_ch, He, hop + 1)
-    state = state._replace(in_tail=new_in_tail.contiguous())
+    state = state._replace(in_tail=new_in_tail)
     if not bank.hybrid:
         if packed:
             return torch.cat([sre[:, :, 6:], sim[:, :, 6:]], dim=-1), state
@@ -151,16 +183,29 @@ def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched,
 
 
 def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
-                         packed: bool = False):
+                         packed: bool = False, use_kernel: bool = False):
     """Y: (re, im) each (S, n_ch, H, n_bands) — or, with ``packed``, one
     (S, n_ch, H, 2·n_bands) [re | im] tensor — → ((S, n_ch, H*hop), state).
-    Plain torch: hybrid inverse, irDFT, synthesis window, overlap-add."""
+
+    Hybrid inverse, irDFT, synthesis window, overlap-add: with
+    ``use_kernel`` as :func:`synthesis_back_ri` over the flattened
+    (S·n_ch) rows, otherwise in plain torch."""
+    hop, h_len = bank.hop, bank.h_len
+    if use_kernel:
+        spec = Y if packed else torch.cat(Y, dim=-1)
+        S, n_ch, H = spec.shape[:3]
+        tail = state.ola_tail.reshape(S * n_ch, _TOTAL_HOPS - 1, hop)
+        y, new_tail = synthesis_back_ri(
+            spec.reshape(S * n_ch, H, -1).contiguous(), tail.contiguous(),
+            low_delay=bank.low_delay, hybrid=bank.hybrid)
+        return (y.reshape(S, n_ch, H * hop),
+                state._replace(ola_tail=new_tail.reshape(S, n_ch,
+                                                         h_len - hop)))
     if packed:
         nb = Y.shape[-1] // 2
         Yre, Yim = Y[..., :nb], Y[..., nb:]
     else:
         Yre, Yim = Y
-    hop, h_len = bank.hop, bank.h_len
     S, n_ch, H = Yre.shape[:3]
     k = device_consts(hop, bank.low_delay, Yre.device)
     if bank.hybrid:
@@ -196,18 +241,23 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
     (S, B, Cout, Cin) per stream; Mim None ⇒ real mixing matrix.
     → ((S, Cout, T), state).
 
-    ``fused`` (the default) runs :func:`render_tf_matrix_fused`; ``False``
-    runs the plain reference path (analysis, einsum, synthesis) on any
-    device.
+    ``fused`` (the default) takes the kernel route, dispatched as the JAX
+    package does (afstft_ri.py:611-638 there): cout·cin ≤ 128 at hop 128
+    runs :func:`render_tf_matrix_fused`; anything wider runs analysis
+    (:func:`analysis_front_ri`) → per-band einsum → synthesis
+    (:func:`synthesis_back_ri`).  ``False`` runs the plain reference path
+    (analysis, einsum, synthesis) on any device.
     """
-    if fused:
+    cout, cin = Mre.shape[-2], Mre.shape[-1]
+    if (fused and cout * cin <= _KERNEL_MAX_CH_PRODUCT
+            and bank.hop == _KERNEL_HOP):
         return render_tf_matrix_fused(bank, state, x, Mre, Mim)
-    spec_p, state = analysis_ri_batched(bank, state, x, packed=True)
+    spec_p, state = analysis_ri_batched(bank, state, x, packed=True,
+                                        use_kernel=fused)
     S, cin, H, nb2 = spec_p.shape
     B = nb2 // 2
     spec5 = spec_p.reshape(S, cin, H, 2, B)
     per_stream = Mre.ndim == 4
-    cout = Mre.shape[-2]
     with fp32_matmul():
         if Mim is None:
             eq = "zbes,zshjb->zehjb" if per_stream else "bes,zshjb->zehjb"
@@ -219,7 +269,8 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
                   else "besij,zshjb->zehib")
             out = torch.einsum(eq, M4, spec5)
     out_p = out.reshape(S, cout, H, nb2)
-    return synthesis_ri_batched(bank, state, out_p, packed=True)
+    return synthesis_ri_batched(bank, state, out_p, packed=True,
+                                use_kernel=fused)
 
 
 def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
@@ -242,9 +293,6 @@ def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
     y, new_tail = render_full_ri(
         state.in_tail, x, tail_ola, taps, low_delay=bank.low_delay,
         hybrid=bank.hybrid, per_stream=Mre.ndim == 4)
-    if H >= _TAIL_HOPS:
-        new_in_tail = x[..., (H - _TAIL_HOPS) * hop:]
-    else:
-        new_in_tail = torch.cat([state.in_tail[..., H * hop:], x], dim=-1)
-    return y, AfSTFTStateBatched(in_tail=new_in_tail.contiguous(),
-                                 ola_tail=new_tail.reshape(S, cout, -1))
+    return y, AfSTFTStateBatched(
+        in_tail=_next_in_tail(state.in_tail, x, H, hop),
+        ola_tail=new_tail.reshape(S, cout, -1))

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from spatial_audio_framework_tpu_torch.models import ambi_bin
+from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
 from spatial_audio_framework_tpu_torch.modules import hoa, hrir, sh
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
@@ -63,4 +63,41 @@ def test_ambi_bin_order4_end_to_end(g):
                                             x[..., f * 512:(f + 1) * 512])
         outs.append(y[0].numpy())
     err = np.abs(np.concatenate(outs, -1) - g["ambi_bin_out"]).max()
+    assert err <= TOL, err
+
+
+_AMBI_DEC_CASES = {
+    # dual-band AllRAD, max-rE above 800 Hz only, energy-preserving EQ
+    "dec_e2e": dict(dec_method=("allrad", "allrad"), re_weight=(False, True)),
+    # SAD below / EPAD above the transition, amplitude-preserving EQ
+    "ada": dict(dec_method=("sad", "epad"), re_weight=(False, False),
+                diff_eq_mode=(ambi_dec.AMPLITUDE_PRESERVING,
+                              ambi_dec.AMPLITUDE_PRESERVING)),
+    # MMD with max-rE in both bands and a per-band decoding order
+    "adm": dict(dec_method=("mmd", "mmd"), re_weight=(True, True)),
+}
+
+
+@pytest.mark.parametrize("case", list(_AMBI_DEC_CASES))
+def test_ambi_dec_end_to_end(g, case):
+    """Order 3 → the golden 9-loudspeaker layout (cout·cin = 144 > 128, so
+    the kernel route is analysis → einsum → synthesis), one stream through
+    process_ri_batched in 128-sample blocks (H = 1): matches the compiled C
+    example's output."""
+    key = "dec_e2e_ls_dirs" if case == "dec_e2e" else "ad16_ls_dirs"
+    ls = np.asarray(g[key], np.float64)
+    opb = (np.asarray(g["adm_order_per_band"], int) if case == "adm"
+           else None)
+    cfg = ambi_dec.AmbiDecConfig(master_order=3, norm="n3d",
+                                 transition_freq=800.0,
+                                 **_AMBI_DEC_CASES[case])
+    w = ambi_dec.design_ri(cfg, ls, opb)
+    x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))[None]
+    st = ambi_dec.init_state_batched(cfg, 1, 9)
+    outs = []
+    for f in range(x.shape[-1] // 128):
+        y, st = ambi_dec.process_ri_batched(
+            cfg, w, st, x[..., f * 128:(f + 1) * 128])
+        outs.append(y[0].numpy())
+    err = np.abs(np.concatenate(outs, -1) - g[f"{case}_out"]).max()
     assert err <= TOL, err

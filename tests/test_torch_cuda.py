@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card: held against its plain version, and
-the CUDA path never takes the plain version.
+"""The port's CUDA kernels on the card: each held against its plain
+version, and the CUDA paths never take a plain version.
 
 These tests need an NVIDIA GPU and nvcc and skip without them.  They import
 neither jax nor the JAX package, so they also run on a machine without jax:
@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from spatial_audio_framework_tpu_torch.models import ambi_bin
+from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
 from spatial_audio_framework_tpu_torch.ops import afstft_kernels as tak
+from spatial_audio_framework_tpu_torch.utils import presets
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +85,100 @@ def test_unsupported_option_raises_on_cuda(cuda):
     x = torch.zeros((2, 4, 512), device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tak.render_full_ri(t[0], x, t[1], taps.to(cuda), low_delay=True)
+
+
+def _u(rng, shape, device, amp=1.0):
+    return torch.from_numpy(
+        (amp * rng.uniform(-1, 1, shape)).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("rows,t_hops,H,low_delay", [
+    (5, 15, 4, False),     # rows not a multiple of 8, H < 9
+    (3, 9, 2, False),      # the least tail, H < 9
+    (7, 15, 40, True),     # low delay, two frame tiles (46 frames)
+    (2, 15, 64, False),    # the slice's H: 70 frames, a partial tile
+])
+def test_analysis_front_matches_plain_version(cuda, rows, t_hops, H,
+                                              low_delay):
+    """Two chained calls carrying the input tail.  Half-scale noise keeps
+    the spectra below |X| ~ 14, as in tests/test_torch_afstft_kernels.py."""
+    rng = np.random.default_rng(rows)
+    tail = _u(rng, (rows, t_hops * 128), cuda, amp=0.5)
+    for _ in range(2):
+        x = _u(rng, (rows, H * 128), cuda, amp=0.5)
+        kre, kim = tak.analysis_front_ri(tail, x, low_delay=low_delay)
+        rre, rim = tak.analysis_front_ri_reference(tail, x,
+                                                   low_delay=low_delay)
+        torch.cuda.synchronize()
+        assert kre.shape == (rows, t_hops + H - 9, 129)
+        assert (kre - rre).abs().max().item() <= TOL
+        assert (kim - rim).abs().max().item() <= TOL
+        tail = torch.cat([tail, x], dim=-1)[:, H * 128:].contiguous()
+
+
+@pytest.mark.parametrize("rows,H,low_delay,hybrid", [
+    (5, 4, False, True),   # rows not a multiple of 8, H < 9
+    (3, 1, True, True),    # low delay, one hop
+    (6, 9, False, False),  # non-hybrid (K = 258)
+    (4, 33, True, False),  # low delay and non-hybrid
+    (3, 64, False, True),  # the slice's H; M = 192 rows: a partial tile
+])
+def test_synthesis_back_matches_plain_version(cuda, rows, H, low_delay,
+                                              hybrid):
+    """Two chained calls carrying the overlap tail."""
+    rng = np.random.default_rng(rows + H)
+    K = 2 * (133 if hybrid else 129)
+    kt = rt = _u(rng, (rows, 9, 128), cuda)
+    for _ in range(2):
+        spec = _u(rng, (rows, H, K), cuda, amp=10.0)
+        ky, kt = tak.synthesis_back_ri(spec, kt, low_delay=low_delay,
+                                       hybrid=hybrid)
+        ry, rt = tak.synthesis_back_ri_reference(spec, rt,
+                                                 low_delay=low_delay,
+                                                 hybrid=hybrid)
+        torch.cuda.synchronize()
+        assert ky.shape == (rows, H, 128) and kt.shape == (rows, 9, 128)
+        assert (ky - ry).abs().max().item() <= TOL
+        assert (kt - rt).abs().max().item() <= TOL
+
+
+def test_wide_render_takes_the_two_kernels(cuda, monkeypatch):
+    """cout·cin > 128 (order 3 → 22.x) launches analysis_front_ri and
+    synthesis_back_ri once per block, never render_full_ri and never a
+    plain version; the result matches the plain path."""
+    cfg = ambi_dec.AmbiDecConfig(master_order=3)
+    w = ambi_dec.design_ri(cfg, presets.loudspeaker_preset("22.x"),
+                           device=cuda)
+    rng = np.random.default_rng(7)
+    xs = [_u(rng, (2, 16, 5 * 128), cuda) for _ in range(2)]
+    st = ambi_dec.init_state_batched(cfg, 2, 22, cuda)
+    ys_plain = []
+    for x in xs:
+        y, st = ambi_dec.process_ri_batched(cfg, w, st, x, fused=False)
+        ys_plain.append(y)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    for name in ("analysis_front_ri_reference", "synthesis_back_ri_reference",
+                 "render_full_ri_reference"):
+        monkeypatch.setattr(tak, name, refuse)
+    before = (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches,
+              tak.render_full_ri.launches)
+    st = ambi_dec.init_state_batched(cfg, 2, 22, cuda)
+    for x, yp in zip(xs, ys_plain):
+        y, st = ambi_dec.process_ri_batched(cfg, w, st, x)
+        torch.cuda.synchronize()
+        assert (y - yp).abs().max().item() <= TOL
+    assert (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches,
+            tak.render_full_ri.launches) == (before[0] + 2, before[1] + 2,
+                                             before[2])
+
+
+def test_new_kernels_raise_for_hop_other_than_128(cuda):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.analysis_front_ri(torch.zeros((2, 15 * 64), device=cuda),
+                              torch.zeros((2, 4 * 64), device=cuda), hop=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.synthesis_back_ri(torch.zeros((2, 4, 138), device=cuda),
+                              torch.zeros((2, 9, 64), device=cuda))

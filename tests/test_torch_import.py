@@ -10,7 +10,8 @@ import sys
 sys.modules["jax"] = None          # any 'import jax' now raises ImportError
 import numpy as np
 import torch
-from spatial_audio_framework_tpu_torch.models import ambi_bin
+from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
+from spatial_audio_framework_tpu_torch.utils import presets
 
 cfg = ambi_bin.AmbiBinConfig(order=1)
 rng = np.random.default_rng(0)
@@ -21,6 +22,15 @@ x = torch.from_numpy(rng.uniform(-1, 1, (2, 4, 4 * 128)).astype(np.float32))
 y, st = ambi_bin.process_ri_batched(cfg, w, st, x)
 assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
 assert st.in_tail.shape == (2, 4, 15 * 128) and st.ola_tail.shape == (2, 2, 9 * 128)
+
+# ambi_dec: host design (presets, convhull3d, vbap, AllRAD), then a render
+# wide enough (order 2 -> 22.x: 9 x 22 > 128) for the analysis/synthesis path
+dcfg = ambi_dec.AmbiDecConfig(master_order=2)
+dw = ambi_dec.design_ri(dcfg, presets.loudspeaker_preset("22.x"))
+dst = ambi_dec.init_state_batched(dcfg, 2, 22)
+x = torch.from_numpy(rng.uniform(-1, 1, (2, 9, 4 * 128)).astype(np.float32))
+y, dst = ambi_dec.process_ri_batched(dcfg, dw, dst, x)
+assert y.shape == (2, 22, 512) and bool(torch.isfinite(y).all())
 leaked = [m for m in sys.modules
           if m == "spatial_audio_framework_tpu"
           or m.startswith("spatial_audio_framework_tpu.")]

@@ -1,33 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths through ``spatial_audio_framework_tpu_torch``
+Drives the port's main paths through ``spatial_audio_framework_tpu_torch``
 on the card, 64 streams in chunks of 8192 samples (64 hops of 128) with
 state carried from chunk to chunk:
 
-* the flagship ambi_bin render (order 3, MagLS, 2 ears): cout·cin = 32, so
-  one pass of the ``render_full_ri`` kernel per chunk;
+* the flagship ambi_bin render (order 3, MagLS, 2 ears): cin = 16, so one
+  pass of the ``render_full_ri`` kernel per chunk;
 * the ambi_dec render (order 3 → the 22.x layout, 22 loudspeakers):
   cout·cin = 352, so per chunk the ``analysis_front_ri`` kernel, the
   hybrid forward and the per-band einsum in plain torch, then the
-  ``synthesis_back_ri`` kernel.
+  ``synthesis_back_ri`` kernel;
+* the wide-order binaural render (ambi_bin order 7, MagLS): cin = 64 > 16,
+  so per chunk the two-kernel pipeline ``analysis_front_dg_ri`` →
+  ``render_decode_synthesis_dg_ri``;
+* the same width on a non-hybrid bank (64 inputs → 2 outputs):
+  ``analysis_front_ri`` → ``render_decode_synthesis_ri``.
 
 Phases:
 
 1. card and build: the card's name and power limit, and the build of the
    CUDA kernels from ``spatial_audio_framework_tpu_torch/csrc``;
 2. each kernel vs its plain PyTorch version on the card, at small shapes
-   (rows not a multiple of 8, H < 9, low-delay and non-hybrid banks) and at
-   its main path's shape, two chained calls carrying the tails; then both
-   timed with CUDA events at the main path's shape;
+   (rows not a multiple of 8, H < 9, low-delay and non-hybrid banks,
+   per-stream taps) and at its main path's shape, two chained calls
+   carrying the tails; then both timed with CUDA events at the main path's
+   shape;
 3. the flagship ambi_bin slice: host design, 8 chunks through
    ``process_ri_batched`` with the launch counters reset just before, held
    against the plain path, then both paths timed;
 4. ambi_bin parity with the compiled C reference (tests/goldens/c_goldens.npz):
-   order 4, MagLS, N3D, yaw = π, one stream in 512-sample blocks;
+   order 4, MagLS, N3D, yaw = π, one stream in 512-sample blocks, through
+   the default dispatch (the (d, g) pair) and the one-pass route;
 5. the ambi_dec slice, as phase 3;
 6. ambi_dec parity with the compiled C reference: order 3 → 9 loudspeakers,
-   dual-band AllRAD, one stream in 128-sample blocks.
+   dual-band AllRAD, one stream in 128-sample blocks;
+7. the ambi_bin order-7 slice, as phase 3, then the one-pass and the
+   two-kernel routes timed against each other at orders 3 and 7;
+8. the non-hybrid render at order-7 width, as phase 3.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -56,6 +66,9 @@ FS = 48000.0
 # analysis inputs at half full scale keep the spectra below |X| ~ 14, where
 # KERNEL_TOL is ~10 float32 ulps (tests/test_torch_afstft_kernels.py)
 ANA_AMP = 0.5
+KERNELS = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri",
+           "analysis_front_dg_ri", "render_decode_synthesis_ri",
+           "render_decode_synthesis_dg_ri")
 
 
 def fail(msg: str) -> None:
@@ -228,6 +241,101 @@ def phase_synthesis_back(ak, dev, rng, card):
     return worst, t
 
 
+def phase_analysis_front_dg(ak, dev, rng, card):
+    """analysis_front_dg_ri vs its plain version; rows, H, low delay, with
+    the renderers' 15-hop tail.  The last case is the order-7 slice: 64
+    streams x 64 channels."""
+    worst = 0.0
+    cases = ((5, 4, False), (3, 1, True), (7, 40, True),
+             (N_STREAMS * 64, HOPS, False))
+    for rows, H, ld in cases:
+        def step(x, tail, kernel):
+            fn = (ak.analysis_front_dg_ri if kernel
+                  else ak.analysis_front_dg_ri_reference)
+            out = fn(tail, x, low_delay=ld)
+            return out, torch.cat([tail, x], dim=-1)[:, H * 128:].contiguous()
+
+        tail = uniform(rng, (rows, 15 * 128), dev, ANA_AMP)
+        err = chained_err(
+            step, tail, tail,
+            lambda: uniform(rng, (rows, H * 128), dev, ANA_AMP),
+            "analysis_front_dg_ri")
+        print(f"phase 2: analysis_front_dg_ri vs plain at (rows, H, "
+              f"low_delay) = {(rows, H, ld)}: max |err| = {err:.3e} "
+              f"(tol {KERNEL_TOL})")
+        check(err <= KERNEL_TOL,
+              f"analysis_front_dg_ri disagrees with plain: {err}")
+        worst = max(worst, err)
+    x = uniform(rng, (rows, H * 128), dev, ANA_AMP)
+    t = ab_times({"kernel": lambda: ak.analysis_front_dg_ri(tail, x),
+                  "plain": lambda: ak.analysis_front_dg_ri_reference(tail,
+                                                                     x)},
+                 20)
+    report_times("analysis_front_dg_ri", t, card, "the order-7 slice's shape")
+    return worst, t
+
+
+def random_taps(ak, rng, S, cin, cout, per_stream, hybrid, dev):
+    """decode_taps of random matrices, scaled by √(16/cin) above 16 inputs
+    so that wide renders keep the flagship's output scale."""
+    shape = ((S,) if per_stream else ()) + (133 if hybrid else 129, cout, cin)
+    M = uniform(rng, (2,) + shape, dev, min(1.0, (16 / cin) ** 0.5))
+    return ak.decode_taps(M[0], M[1], hybrid=hybrid).contiguous()
+
+
+def phase_render_decode(ak, dev, rng, card, dg):
+    """render_decode_synthesis_ri (``dg`` False: from the front's H+6-hop
+    spectra) or render_decode_synthesis_dg_ri (from the (d, g) pair) vs its
+    plain version; inputs are the plain front's output on half-scale noise.
+    The last case is its main path's shape: 64 streams, cin 64, 2 ears
+    (the order-7 slice for the (d, g) pair, the non-hybrid phase for the
+    spectra)."""
+    name = ("render_decode_synthesis_dg_ri" if dg
+            else "render_decode_synthesis_ri")
+    kern, plain = getattr(ak, name), getattr(ak, f"{name}_reference")
+    front = (ak.analysis_front_dg_ri_reference if dg
+             else ak.analysis_front_ri_reference)
+    # S, cin, cout, H, low_delay, per_stream, hybrid
+    cases = ((3, 5, 2, 4, False, False, True),
+             (2, 25, 2, 1, True, True, True),
+             (2, 17, 3, 9, False, True, False),
+             (1, 64, 2, 40, True, False, False),
+             (N_STREAMS, 64, 2, HOPS, False, False, dg))
+    worst = 0.0
+    for S, cin, cout, H, ld, ps, hyb in cases:
+        if dg and not hyb:
+            continue                       # the (d, g) pair is hybrid only
+        taps = random_taps(ak, rng, S, cin, cout, ps, hyb, dev)
+        kw = dict(low_delay=ld, per_stream=ps)
+        if not dg:
+            kw["hybrid"] = hyb
+
+        def make_x():
+            out = front(uniform(rng, (S * cin, 15 * 128), dev, ANA_AMP),
+                        uniform(rng, (S * cin, H * 128), dev, ANA_AMP),
+                        low_delay=ld)
+            return [t.reshape(S, cin, -1, t.shape[-1]).contiguous()
+                    for t in out]
+
+        def step(spec, tail, kernel):
+            y, new_tail = (kern if kernel else plain)(*spec, tail, taps, **kw)
+            return (y,), new_tail
+
+        ola = uniform(rng, (S, cout, 9, 128), dev)
+        err = chained_err(step, ola, ola, make_x, name)
+        print(f"phase 2: {name} vs plain at (S, cin, cout, H, low_delay, "
+              f"per_stream, hybrid) = {(S, cin, cout, H, ld, ps, hyb)}: "
+              f"max |err| = {err:.3e} (tol {KERNEL_TOL})")
+        check(err <= KERNEL_TOL, f"{name} disagrees with plain: {err}")
+        worst = max(worst, err)
+    spec = make_x()
+    t = ab_times({"kernel": lambda: kern(*spec, ola, taps, **kw),
+                  "plain": lambda: plain(*spec, ola, taps, **kw)}, 20)
+    report_times(name, t, card, "(S, cin, cout, H) = "
+                 f"{(N_STREAMS, 64, 2, HOPS)}")
+    return worst, t
+
+
 def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
                 card, expect):
     """A main path: 8 chunks through ``process(state, x, fused)`` with every
@@ -245,14 +353,14 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
             ys.append(y)
         return ys, st
 
-    kernels = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri")
-    for k in kernels:
+    for k in KERNELS:
         getattr(ak, k).launches = 0
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in kernels}
+    launches = {k: getattr(ak, k).launches for k in KERNELS}
     print(f"phase {phase}: {name} main path ran {N_CHUNKS} chunks of "
           f"{(N_STREAMS, n_in, T)}; launches = {launches}")
+    expect = {k: expect.get(k, 0) for k in KERNELS}
     check(launches == expect, f"{name}: expected launches {expect}")
     ys_p, st_p = run(False)
     torch.cuda.synchronize()
@@ -287,7 +395,9 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     return launches
 
 
-def phase_ambi_bin_c_parity(ambi_bin, sh, geo, dev, card):
+def phase_ambi_bin_c_parity(ambi_bin, ri, sh, geo, ak, dev, card):
+    """Order 4 (cin = 25): the default dispatch takes the (d, g) pair; the
+    one-pass route is run too.  The launch counters show which ran."""
     g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
     cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d")
     Mre, Mim = ambi_bin.design_ri(cfg, device=dev)
@@ -299,17 +409,56 @@ def phase_ambi_bin_c_parity(ambi_bin, sh, geo, dev, card):
     x = torch.from_numpy(np.ascontiguousarray(
         g["ambi_bin_enc_y"][:, None] * g["ambi_bin_in_mono"][None, :],
         np.float32))[None].to(dev)
-    st = ambi_bin.init_state_batched(cfg, 1, dev)
-    outs = []
-    for f in range(x.shape[-1] // 512):
-        y, st = ambi_bin.process_ri_batched(
-            cfg, w, st, x[..., f * 512:(f + 1) * 512].contiguous())
-        outs.append(y[0])
-    out = torch.cat(outs, dim=-1).cpu().numpy()
-    err = float(np.abs(out - g["ambi_bin_out"]).max())
-    print(f"phase 4: ambi_bin order 4 vs the C reference on the card "
-          f"[{card}]: max |err| = {err:.3e} (tol {C_TOL})")
-    check(np.isfinite(out).all() and err <= C_TOL, f"C parity: {err}")
+    n_blocks = x.shape[-1] // 512
+    routes = {
+        "default": (lambda st, xb: ambi_bin.process_ri_batched(cfg, w, st,
+                                                               xb),
+                    ("analysis_front_dg_ri", "render_decode_synthesis_dg_ri")),
+        "one-pass": (lambda st, xb: ri._render_one_pass(cfg.afstft, st, xb,
+                                                        *w),
+                     ("render_full_ri",))}
+    for route, (process, kernels) in routes.items():
+        before = {k: getattr(ak, k).launches for k in KERNELS}
+        st = ambi_bin.init_state_batched(cfg, 1, dev)
+        outs = []
+        for f in range(n_blocks):
+            y, st = process(st, x[..., f * 512:(f + 1) * 512].contiguous())
+            outs.append(y[0])
+        out = torch.cat(outs, dim=-1).cpu().numpy()
+        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        err = float(np.abs(out - g["ambi_bin_out"]).max())
+        print(f"phase 4: ambi_bin order 4 vs the C reference on the card, "
+              f"{route} route [{card}]: max |err| = {err:.3e} (tol {C_TOL}); "
+              f"launches = { {k: n for k, n in ran.items() if n} }")
+        check(ran == {k: n_blocks if k in kernels else 0 for k in KERNELS},
+              f"C parity, {route} route: launches {ran}")
+        check(np.isfinite(out).all() and err <= C_TOL,
+              f"C parity, {route} route: {err}")
+
+
+def phase_routes(ri, cases, dev, rng, card):
+    """The one-pass route (_render_one_pass) vs the two-kernel route
+    (_render_two_pass) on the same chunk and state, timed in turns with
+    CUDA events; ``cases``: [(label, cfg, weights)]."""
+    for label, cfg, w in cases:
+        bank = cfg.afstft
+        x = uniform(rng, (N_STREAMS, cfg.nsh, HOPS * 128), dev)
+        st = ri.init_state_batched(bank, N_STREAMS, cfg.nsh, 2, dev)
+        fns = {"one-pass": lambda: ri._render_one_pass(bank, st, x, *w),
+               "two-kernel": lambda: ri._render_two_pass(bank, st, x, *w)}
+        diff = (fns["one-pass"]()[0] - fns["two-kernel"]()[0]).abs().max()
+        for fn in fns.values():
+            fn()
+        runs = {name: [] for name in fns}
+        for name in ("one-pass", "two-kernel", "two-kernel", "one-pass") * 3:
+            runs[name].append(cuda_ms(fns[name], N_CHUNKS))
+        print(f"phase 7: routes at {label} (cin {cfg.nsh}) [{card}]: "
+              + ", ".join(f"{name} {np.mean(r):.4f} ms per chunk (runs "
+                          f"{['%.4f' % v for v in r]})"
+                          for name, r in runs.items())
+              + f"; max |one-pass − two-kernel| = {diff.item():.3e}")
+        check(diff.item() <= 2 * KERNEL_TOL,
+              f"routes disagree at {label}: {diff.item()}")
 
 
 def phase_ambi_dec_c_parity(ambi_dec, ak, dev, card):
@@ -340,9 +489,10 @@ def phase_ambi_dec_c_parity(ambi_dec, ak, dev, card):
     check(np.isfinite(out).all() and err <= C_TOL, f"C parity: {err}")
 
 
-def kernel_entry(name, replaces, launches, err, t):
+def kernel_entry(name, replaces, launches, err, t, source=None):
     return {"name": name, "route": "cuda",
-            "source": f"spatial_audio_framework_tpu_torch/csrc/{name}.cu",
+            "source": "spatial_audio_framework_tpu_torch/csrc/"
+                      f"{source or name}.cu",
             "replaces": f"spatial_audio_framework_tpu/ops/pallas_afstft.py:"
                         f"{replaces}",
             "launches": launches, "max_abs_err": err,
@@ -360,6 +510,8 @@ def main() -> int:
     from spatial_audio_framework_tpu_torch.modules import sh
     from spatial_audio_framework_tpu_torch.ops import _build
     from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
+    from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
+    from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
     from spatial_audio_framework_tpu_torch.utils import geometry as geo
     from spatial_audio_framework_tpu_torch.utils import presets
 
@@ -374,7 +526,10 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if line.startswith("==") or "registers" in line or "spill" in line:
+            if "entry function" in line:
+                print(f"phase 1: nvcc: {line.split(chr(39))[1]}")
+            elif (line.startswith("==") or "registers" in line
+                  or "spill" in line):
                 print(f"phase 1: nvcc: {line.strip()}")
     _build.load_library()
 
@@ -386,6 +541,12 @@ def main() -> int:
         phase_analysis_front(ak, dev, rng, card)
     errs["synthesis_back_ri"], times["synthesis_back_ri"] = \
         phase_synthesis_back(ak, dev, rng, card)
+    errs["analysis_front_dg_ri"], times["analysis_front_dg_ri"] = \
+        phase_analysis_front_dg(ak, dev, rng, card)
+    for dg in (False, True):
+        name = ("render_decode_synthesis_dg_ri" if dg
+                else "render_decode_synthesis_ri")
+        errs[name], times[name] = phase_render_decode(ak, dev, rng, card, dg)
 
     t0 = time.perf_counter()
     bcfg = ambi_bin.AmbiBinConfig(order=3, method="magls")
@@ -398,9 +559,8 @@ def main() -> int:
                                                          fused=fused),
         lambda: ambi_bin.init_state_batched(bcfg, N_STREAMS, dev),
         bcfg.nsh, 2, ak, dev, rng, card,
-        {"render_full_ri": N_CHUNKS, "analysis_front_ri": 0,
-         "synthesis_back_ri": 0})
-    phase_ambi_bin_c_parity(ambi_bin, sh, geo, dev, card)
+        {"render_full_ri": N_CHUNKS})
+    phase_ambi_bin_c_parity(ambi_bin, ri, sh, geo, ak, dev, card)
 
     t0 = time.perf_counter()
     dcfg = ambi_dec.AmbiDecConfig(master_order=3)
@@ -415,9 +575,35 @@ def main() -> int:
                                                          fused=fused),
         lambda: ambi_dec.init_state_batched(dcfg, N_STREAMS, len(ls), dev),
         dcfg.nsh, len(ls), ak, dev, rng, card,
-        {"render_full_ri": 0, "analysis_front_ri": N_CHUNKS,
-         "synthesis_back_ri": N_CHUNKS})
+        {"analysis_front_ri": N_CHUNKS, "synthesis_back_ri": N_CHUNKS})
     phase_ambi_dec_c_parity(ambi_dec, ak, dev, card)
+
+    t0 = time.perf_counter()
+    o7cfg = ambi_bin.AmbiBinConfig(order=7, method="magls")
+    o7w = ambi_bin.design_ri(o7cfg, device=dev)
+    print(f"phase 7: ambi_bin design (order 7, MagLS) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    order7 = phase_slice(
+        "ambi_bin order 7", 7,
+        lambda st, x, fused: ambi_bin.process_ri_batched(o7cfg, o7w, st, x,
+                                                         fused=fused),
+        lambda: ambi_bin.init_state_batched(o7cfg, N_STREAMS, dev),
+        o7cfg.nsh, 2, ak, dev, rng, card,
+        {"analysis_front_dg_ri": N_CHUNKS,
+         "render_decode_synthesis_dg_ri": N_CHUNKS})
+    phase_routes(ri, [("order 3", bcfg, bw), ("order 7", o7cfg, o7w)], dev,
+                 rng, card)
+
+    nh_bank = AfSTFT(hop=128, hybrid=False)
+    nh_M = uniform(rng, (2, nh_bank.n_bands, 2, 64), dev, 0.5)
+    plain_bank = phase_slice(
+        "non-hybrid 64 -> 2", 8,
+        lambda st, x, fused: ri.render_tf_matrix_ri(nh_bank, st, x, nh_M[0],
+                                                    nh_M[1], fused=fused),
+        lambda: ri.init_state_batched(nh_bank, N_STREAMS, 64, 2, dev),
+        64, 2, ak, dev, rng, card,
+        {"analysis_front_ri": N_CHUNKS,
+         "render_decode_synthesis_ri": N_CHUNKS})
 
     print(json.dumps({"kernels": [
         kernel_entry("render_full_ri", 674, flagship["render_full_ri"],
@@ -426,6 +612,19 @@ def main() -> int:
                      errs["analysis_front_ri"], times["analysis_front_ri"]),
         kernel_entry("synthesis_back_ri", 851, wide["synthesis_back_ri"],
                      errs["synthesis_back_ri"], times["synthesis_back_ri"]),
+        kernel_entry("analysis_front_dg_ri", 173,
+                     order7["analysis_front_dg_ri"],
+                     errs["analysis_front_dg_ri"],
+                     times["analysis_front_dg_ri"]),
+        kernel_entry("render_decode_synthesis_ri", 414,
+                     plain_bank["render_decode_synthesis_ri"],
+                     errs["render_decode_synthesis_ri"],
+                     times["render_decode_synthesis_ri"]),
+        kernel_entry("render_decode_synthesis_dg_ri", 561,
+                     order7["render_decode_synthesis_dg_ri"],
+                     errs["render_decode_synthesis_dg_ri"],
+                     times["render_decode_synthesis_dg_ri"],
+                     source="render_decode_synthesis_ri"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,8 +38,9 @@
 //     (ops/precision.py); the sums differ from the plain version only in
 //     their order.
 // A second, light launch does step 6, one thread per output sample
-// (`overlap_add`, shared with synthesis_back_ri.cu through
-// afstft_common.cuh, as are the hop load, the fold and the rDFT loop).
+// (`overlap_add`).  It, the hop load, the fold, the rDFT loop, the decode
+// and the irDFT are shared with the other kernels through
+// afstft_common.cuh.
 // Making the rDFT a tensor-core product (3xTF32 or a split-bf16 scheme as
 // on the TPU) is later work.
 
@@ -49,9 +50,7 @@
 
 namespace {
 
-constexpr int NB_PAD = NB + 1;        // A/B rows and decode rows, even count
 constexpr int TAIL_HOPS = 15;         // carried input hops (9 + 6)
-constexpr int G_BANDS = 16;           // bands carrying the hybrid context
 constexpr int TILE = 32;              // output hops per block
 constexpr int NF = TILE + 6;          // frames per block (6-hop context)
 constexpr int NHOPS_IN = NF + NT;     // input hops the frames span
@@ -60,8 +59,6 @@ constexpr int FPG = NF / GROUPS;      // rDFT frames per thread
 constexpr int HPG = TILE / GROUPS;    // decoded hops per thread
 constexpr int EC = 2;                 // ears per pass over the channels
 constexpr int THREADS = 288;          // >= GROUPS * NB, whole warps
-constexpr float COEFF1 = 0.031273141818515176604f;
-constexpr float COEFF2 = 0.28127313041521179171f;
 
 static_assert(NF % GROUPS == 0 && TILE % GROUPS == 0, "even split");
 static_assert(THREADS >= GROUPS * NB && THREADS >= FRAME, "threads");
@@ -138,90 +135,34 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
 
       // 4. decode this channel into hops grp*HPG .. grp*HPG+HPG-1, band k
       if (band_thread) {
-        const float* tp = taps + ((size_t)c * cout + e0) * 4 * NB + k;
-        float are[EC], aim[EC], bre[EC], bim[EC];
-#pragma unroll
-        for (int e = 0; e < EC; ++e) {
-          const bool on = e < ne;
-          are[e] = on ? __ldg(tp + (4 * e + 0) * NB) : 0.f;
-          aim[e] = on ? __ldg(tp + (4 * e + 1) * NB) : 0.f;
-          bre[e] = (on && hyb) ? __ldg(tp + (4 * e + 2) * NB) : 0.f;
-          bim[e] = (on && hyb) ? __ldg(tp + (4 * e + 3) * NB) : 0.f;
-        }
+        const BandTaps<EC> t = load_taps<EC>(
+            taps + ((size_t)c * cout + e0) * 4 * NB + k, ne, hyb);
 #pragma unroll
         for (int hh = 0; hh < HPG; ++hh) {
           const int h = grp * HPG + hh;
           const float2 d = spec_s[(h + 3) * NB + k];
-          float wre = 0.f, wim = 0.f;
+          float2 w = make_float2(0.f, 0.f);
           if (hyb) {
-            const float2 f0 = spec_s[h * NB + k];
-            const float2 f2 = spec_s[(h + 2) * NB + k];
-            const float2 f4 = spec_s[(h + 4) * NB + k];
-            const float2 f6 = spec_s[(h + 6) * NB + k];
-            const float gre = COEFF1 * (f6.x - f0.x) + COEFF2 * (f4.x - f2.x);
-            const float gim = COEFF1 * (f6.y - f0.y) + COEFF2 * (f4.y - f2.y);
-            wre = -gim;
-            wim = gre;
+            const float2 g = hybrid_context(
+                spec_s[h * NB + k], spec_s[(h + 2) * NB + k],
+                spec_s[(h + 4) * NB + k], spec_s[(h + 6) * NB + k]);
+            w = make_float2(-g.y, g.x);
           }
-#pragma unroll
-          for (int e = 0; e < EC; ++e) {
-            acc_re[e][hh] += (are[e] * d.x - aim[e] * d.y)
-                             + (bre[e] * wre - bim[e] * wim);
-            acc_im[e][hh] += (are[e] * d.y + aim[e] * d.x)
-                             + (bre[e] * wim + bim[e] * wre);
-          }
+          decode_hop<EC, HPG>(t, d, w, acc_re, acc_im, hh);
         }
       }
     }
 
     // 5. decoded spectra to shared memory as (re, im) pairs, band NB zeroed
-    if (band_thread) {
-#pragma unroll
-      for (int e = 0; e < EC; ++e)
-#pragma unroll
-        for (int hh = 0; hh < HPG; ++hh) {
-          const int row = e * TILE + grp * HPG + hh;
-          out_s[(row * NB_PAD + k) * 2 + 0] = acc_re[e][hh];
-          out_s[(row * NB_PAD + k) * 2 + 1] = acc_im[e][hh];
-        }
-    }
-    if (tid < EC * TILE) {
-      out_s[(tid * NB_PAD + NB) * 2 + 0] = 0.f;
-      out_s[(tid * NB_PAD + NB) * 2 + 1] = 0.f;
-    }
+    if (band_thread)
+      store_decoded<EC, HPG, TILE>(out_s, acc_re, acc_im, grp * HPG, k);
+    zero_pad_band<EC, TILE>(out_s, tid);
     __syncthreads();
 
     // 6. irDFT: thread n computes sample n of every (ear, hop) frame
-    if (tid < FRAME) {
-      const int n = tid;
-      float fr[EC][TILE];
-#pragma unroll
-      for (int e = 0; e < EC; ++e)
-#pragma unroll
-        for (int h = 0; h < TILE; ++h) fr[e][h] = 0.f;
-      for (int kk = 0; kk < NB_PAD; kk += 2) {
-        const float a0 = __ldg(Am + kk * FRAME + n);
-        const float a1 = __ldg(Am + (kk + 1) * FRAME + n);
-        const float b0 = __ldg(Bm + kk * FRAME + n);
-        const float b1 = __ldg(Bm + (kk + 1) * FRAME + n);
-#pragma unroll
-        for (int e = 0; e < EC; ++e)
-#pragma unroll
-          for (int h = 0; h < TILE; ++h) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                out_s + ((e * TILE + h) * NB_PAD + kk) * 2);
-            fr[e][h] = fmaf(v.w, b1, fmaf(v.z, a1, fmaf(v.y, b0,
-                       fmaf(v.x, a0, fr[e][h]))));
-          }
-      }
-#pragma unroll
-      for (int e = 0; e < EC; ++e)
-#pragma unroll
-        for (int h = 0; h < TILE; ++h)
-          if (e < ne && h0 + h < H)
-            frames[(((size_t)s * cout + e0 + e) * H + h0 + h) * FRAME + n] =
-                fr[e][h];
-    }
+    irdft_tile<EC, TILE>(out_s, Am, Bm,
+                         frames + ((size_t)s * cout + e0) * H * FRAME, H, h0,
+                         ne, tid);
     __syncthreads();  // out_s is rewritten by the next ear pass
   }
 }

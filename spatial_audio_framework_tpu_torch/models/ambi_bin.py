@@ -5,9 +5,11 @@
 afSTFT filterbank HRTFs → Voronoi weights → diffuse-field EQ → binaural
 decoder → truncation EQ) and folds the input-convention conversion into the
 per-band decode matrix.  ``process_ri_batched`` renders a chunk for many
-streams at once: with ``fused=True`` through the one-pass kernel
-(``ops/afstft_kernels.render_full_ri``), with ``fused=False`` through the
-plain analysis → einsum → synthesis path.
+streams at once: with ``fused=True`` through the decode kernels
+(``ops/afstft_ri.render_tf_matrix_fused``: the one-pass ``render_full_ri``
+up to order 3, the two-kernel ``analysis_front_dg_ri`` →
+``render_decode_synthesis_dg_ri`` pipeline for orders 4 to 7), with
+``fused=False`` through the plain analysis → einsum → synthesis path.
 
 ``weights_from_numpy`` / ``state_from_numpy`` take the JAX package's
 ``design_ri`` weights and batched state as numpy arrays, so both packages
@@ -167,8 +169,9 @@ def process_ri_batched(cfg: AmbiBinConfig, w_ri, state: ri.AfSTFTStateBatched,
                        x: torch.Tensor, fused: bool = True):
     """Stream-batched render: x (S, nSH, T) → ((S, 2, T), state).
 
-    ``fused=True`` runs the one-pass kernel path (the CUDA kernel on CUDA
-    tensors); ``fused=False`` the plain reference path, whose complex
+    ``fused=True`` runs the kernel path (the CUDA kernels on CUDA tensors):
+    the one-pass kernel for nSH ≤ 16 (order ≤ 3), the two-kernel (d, g)
+    pipeline above; ``fused=False`` the plain reference path, whose complex
     per-band multiply is one einsum over a (B, 2, nSH, 2, 2) tensor.
     """
     bank = cfg.afstft

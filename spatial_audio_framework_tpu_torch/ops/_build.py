@@ -122,6 +122,13 @@ def load_library() -> ctypes.CDLL:
     lib.saf_analysis_front_ri.restype = i32
     lib.saf_synthesis_back_ri.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
     lib.saf_synthesis_back_ri.restype = i32
+    lib.saf_analysis_front_dg_ri.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
+    lib.saf_analysis_front_dg_ri.restype = i32
+    lib.saf_render_decode_synthesis_ri.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.saf_render_decode_synthesis_ri.restype = i32
+    lib.saf_render_decode_synthesis_dg_ri.argtypes = ([ptr] * 12 + [i32] * 5
+                                                      + [ptr])
+    lib.saf_render_decode_synthesis_dg_ri.restype = i32
     lib.saf_cuda_error_string.argtypes = [i32]
     lib.saf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,11 +3,18 @@
 
 * :func:`analysis_front_ri` — framing ⊗ analysis window ⊗ fold ⊗ rDFT of a
   block for many rows (``csrc/analysis_front_ri.cu``);
+* :func:`analysis_front_dg_ri` — the same front, emitting the direct taps
+  d and the hybrid-FIR context g that the renderer decodes
+  (``csrc/analysis_front_dg_ri.cu``);
+* :func:`render_decode_synthesis_ri` / :func:`render_decode_synthesis_dg_ri`
+  — decode with A/B taps summed over the input channels, irDFT, synthesis
+  window, overlap-add and tail merge, from the H+6-hop spectra or from the
+  (d, g) pair (``csrc/render_decode_synthesis_ri.cu``);
+* :func:`render_full_ri` — the one-pass TF-matrix renderer
+  (``csrc/render_full_ri.cu``), analysis ⊗ decode ⊗ synthesis in one call;
 * :func:`synthesis_back_ri` — [re | im] spectra @ [P·A; P·B] (hybrid
   inverse and low-delay sign folded into the irDFT), synthesis window,
-  overlap-add and tail merge (``csrc/synthesis_back_ri.cu``);
-* :func:`render_full_ri` — the one-pass TF-matrix renderer
-  (``csrc/render_full_ri.cu``), described below.
+  overlap-add and tail merge (``csrc/synthesis_back_ri.cu``).
 
 For a per-band mixing (decode) matrix M over the 133 HYBRID bands, the chain
 hybrid-forward → per-band M → hybrid-inverse collapses into a 7-tap FIR along
@@ -19,14 +26,17 @@ the hop axis applied in the 129 UNIFORM bands:
 with A_u = ½(M_lo + M_hi), B_u = s_u (M_lo − M_hi) for the four split
 uniform bands u ∈ {1..4} (s = [−1, 1, −1, 1]; afSTFT_internal.c:523-641),
 A_u = M for all other bands and B_u = 0.  :func:`decode_taps` builds the
-(A, B) taps; :func:`render_full_ri` runs analysis ⊗ decode ⊗ synthesis of a
-block in one pass.
+(A, B) taps; d = spec[h+3] and g = c1·(…) + c2·(…) on bands 0..15 are what
+the decode reads.  Non-hybrid banks decode d = spec[h+6] with A alone.
 
 Each entry point launches its hand-written CUDA kernel for CUDA tensors
 (counted in ``<entry>.launches``) and uses its plain PyTorch version
 ``<entry>_reference`` for CPU tensors only.  Options a kernel does not take
 raise NotImplementedError on CUDA, naming their ROADMAP.md item; nothing
-falls back to the plain version.
+falls back to the plain version.  The plain versions share one decode:
+:func:`render_full_ri_reference` is the front's plain version followed by
+:func:`render_decode_synthesis_ri_reference`, which derives (d, g) and runs
+:func:`render_decode_synthesis_dg_ri_reference`.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 _G_BANDS = 16   # lanes carried for the hybrid-FIR context g (the B taps are
                 # nonzero only in uniform bands 1..4)
 _NT = _TOTAL_HOPS - 1   # overlap-add tail hops
+_TAIL_HOPS = _NT + 6    # the renderers' input tail: 9 framing + 6 hybrid hops
 _KERNEL_HOP = 128       # the kernel's fixed hop
 _KERNEL_MAX_CH_PRODUCT = 128
 
@@ -85,18 +96,25 @@ def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
 
 def _check_kernel_supported(*, per_stream: bool, hop: int, low_delay: bool,
                             hybrid: bool, cin: int, cout: int) -> None:
-    """Raise NotImplementedError for what the CUDA kernel does not take.
-    These options are not on the ported slice; each names its ROADMAP.md
-    item.  (The plain version takes all of them, on the CPU.)"""
+    """Raise NotImplementedError for what the one-pass CUDA kernel does not
+    take, naming the route that serves the case or its ROADMAP.md item.
+    (The plain version takes all of them, on the CPU.)"""
     item = "ROADMAP.md, Queue 2, 'render_full_ri: the remaining options'"
+    two_pass = ("render_tf_matrix_ri takes it on the two-kernel route when "
+                "cin > 16")
     if per_stream:
-        raise NotImplementedError(f"per-stream decode taps: {item}")
-    if hop != _KERNEL_HOP:
-        raise NotImplementedError(f"hop {hop} != 128: {item}")
+        raise NotImplementedError(
+            f"per-stream decode taps in the one-pass kernel: {item}; "
+            f"{two_pass}")
+    _check_hop("render_full_ri", hop)
     if low_delay:
-        raise NotImplementedError(f"low-delay afSTFT banks: {item}")
+        raise NotImplementedError(
+            f"low-delay afSTFT banks in the one-pass kernel: {item}; "
+            f"{two_pass}")
     if not hybrid:
-        raise NotImplementedError(f"non-hybrid afSTFT banks: {item}")
+        raise NotImplementedError(
+            f"non-hybrid afSTFT banks in the one-pass kernel: {item}; "
+            f"{two_pass}")
     if cout * cin > _KERNEL_MAX_CH_PRODUCT:
         raise NotImplementedError(
             f"cout*cin = {cout * cin} > 128: the one-pass kernel holds at "
@@ -179,6 +197,26 @@ def _overlap_add(fr: torch.Tensor, w_syn: torch.Tensor,
 # analysis front: framing ⊗ window ⊗ fold ⊗ rDFT
 # ---------------------------------------------------------------------------
 
+def _check_rows(what: str, tail: torch.Tensor, x: torch.Tensor, hop: int,
+                lost_hops: int) -> tuple[int, int, int]:
+    """Validate an analysis front's (tail, x) rows for its kernel →
+    (rows, tail hops, x hops); the front emits t_hops + x_hops − lost_hops
+    hops, which must be at least one."""
+    _check_hop(what, hop)
+    B = x.shape[0]
+    t_hops, x_hops = tail.shape[-1] // hop, x.shape[-1] // hop
+    if (tail.ndim != 2 or x.ndim != 2 or tail.shape[-1] % hop
+            or x.shape[-1] % hop or t_hops < _NT or x_hops < 1 or B < 1
+            or t_hops + x_hops <= lost_hops):
+        raise ValueError(
+            f"{what}: needs tail (B, >= 9 whole hops) and x (B, >= 1 whole "
+            f"hop), {lost_hops + 1} hops in all; got {tuple(tail.shape)}, "
+            f"{tuple(x.shape)}")
+    _check_inputs(what, x, {"tail": (tail, (B, t_hops * hop)),
+                            "x": (x, (B, x_hops * hop))})
+    return B, t_hops, x_hops
+
+
 def analysis_front_ri(tail: torch.Tensor, x: torch.Tensor,
                       low_delay: bool = False, hop: int = _KERNEL_HOP):
     """Fused framing + window + fold + rDFT.
@@ -197,17 +235,7 @@ def analysis_front_ri(tail: torch.Tensor, x: torch.Tensor,
                                            hop=hop)
     if x.device.type != "cuda":
         raise ValueError(f"analysis_front_ri: unsupported device {x.device}")
-    _check_hop("analysis_front_ri", hop)
-    B = x.shape[0]
-    t_hops, H = tail.shape[-1] // hop, x.shape[-1] // hop
-    if (tail.ndim != 2 or x.ndim != 2 or tail.shape[-1] % hop
-            or x.shape[-1] % hop or t_hops < _NT or H < 1 or B < 1):
-        raise ValueError(
-            f"analysis_front_ri: needs tail (B, >= 9 whole hops) and x "
-            f"(B, >= 1 whole hop); got {tuple(tail.shape)}, "
-            f"{tuple(x.shape)}")
-    _check_inputs("analysis_front_ri", x, {
-        "tail": (tail, (B, t_hops * hop)), "x": (x, (B, H * hop))})
+    B, t_hops, H = _check_rows("analysis_front_ri", tail, x, hop, _NT)
     k = device_consts(hop, low_delay, x.device)
     n_out = t_hops + H - _NT
     re = torch.empty((B, n_out, hop + 1), dtype=torch.float32,
@@ -234,6 +262,74 @@ def analysis_front_ri_reference(tail: torch.Tensor, x: torch.Tensor,
     xx = torch.cat([tail, x], dim=1).reshape(B, n_hops, hop)
     return _fold_rdft(xx, device_consts(hop, low_delay, x.device),
                       n_hops - _NT)
+
+
+def _d_g(sre: torch.Tensor, sim: torch.Tensor, hybrid: bool):
+    """The decode's inputs from H+6 spectral hops (..., H+6, hop+1): direct
+    taps d = s[h+3] and hybrid context g = c1·(s[h+6] − s[h]) + c2·(s[h+4]
+    − s[h+2]) on bands 0..15, in the TPU kernel ``_kernel_dg``'s op order;
+    non-hybrid banks decode d = s[h+6] with g = 0.  → (d_re, d_im, g_re,
+    g_im): (..., H, hop+1) and (..., H, 16)."""
+    H = sre.shape[-2] - 6
+    if not hybrid:
+        g = sre.new_zeros(sre.shape[:-2] + (H, _G_BANDS))
+        return sre[..., 6:, :], sim[..., 6:, :], g, g
+
+    def g(s):
+        s = s[..., :_G_BANDS]
+        return (_COEFF1 * (s[..., 6:6 + H, :] - s[..., 0:H, :])
+                + _COEFF2 * (s[..., 4:4 + H, :] - s[..., 2:2 + H, :]))
+
+    return sre[..., 3:3 + H, :], sim[..., 3:3 + H, :], g(sre), g(sim)
+
+
+def analysis_front_dg_ri(tail: torch.Tensor, x: torch.Tensor,
+                         low_delay: bool = False, hop: int = _KERNEL_HOP):
+    """Fused framing + window + fold + rDFT emitting the renderer's (d, g)
+    pair (for hybrid banks).
+
+    tail: (B, T_tail) carried input history, whole hops, at least 9 (the
+    renderers carry 15); x: (B, X·hop) the new block.  With H = T_tail/hop
+    + X − 15 output hops, returns (d_re, d_im, g_re, g_im): the direct taps
+    d = s[h+3], each (B, H, hop+1), and the hybrid context g on bands 0..15,
+    each (B, H, 16), where s are :func:`analysis_front_ri`'s spectra.
+
+    CPU tensors take :func:`analysis_front_dg_ri_reference`.  CUDA tensors
+    launch the kernel (counted in ``analysis_front_dg_ri.launches``) or
+    raise; the kernel takes hop 128 only.
+    """
+    if x.device.type == "cpu":
+        return analysis_front_dg_ri_reference(tail, x, low_delay=low_delay,
+                                              hop=hop)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"analysis_front_dg_ri: unsupported device {x.device}")
+    B, t_hops, x_hops = _check_rows("analysis_front_dg_ri", tail, x, hop,
+                                    _TAIL_HOPS)
+    k = device_consts(hop, low_delay, x.device)
+    H = t_hops + x_hops - _TAIL_HOPS
+    out = [torch.empty((B, H, n), dtype=torch.float32, device=x.device)
+           for n in (hop + 1, hop + 1, _G_BANDS, _G_BANDS)]
+    _launch("analysis_front_dg_ri", "saf_analysis_front_dg_ri", x.device,
+            tail.data_ptr(), x.data_ptr(), k["w_ana"].data_ptr(),
+            k["C"].data_ptr(), k["S"].data_ptr(),
+            *(t.data_ptr() for t in out), B, t_hops, x_hops)
+    analysis_front_dg_ri.launches += 1
+    return tuple(out)
+
+
+analysis_front_dg_ri.launches = 0
+
+
+def analysis_front_dg_ri_reference(tail: torch.Tensor, x: torch.Tensor,
+                                   low_delay: bool = False,
+                                   hop: int = _KERNEL_HOP):
+    """Plain PyTorch version of :func:`analysis_front_dg_ri` (same
+    contract, any hop, any device), in the TPU kernel ``_kernel_dg``'s op
+    order: the front's spectra, then (d, g)."""
+    sre, sim = analysis_front_ri_reference(tail, x, low_delay=low_delay,
+                                           hop=hop)
+    return _d_g(sre, sim, hybrid=True)
 
 
 # ---------------------------------------------------------------------------
@@ -329,18 +425,195 @@ def synthesis_back_ri_reference(spec: torch.Tensor, tail: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# one-pass TF-matrix renderer
+# decode ⊗ irDFT ⊗ window ⊗ overlap-add: the two-kernel renderer's back half
 # ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_consts(device: torch.device) -> dict[str, torch.Tensor]:
-    """The windows and DFT matrices the kernel takes, on ``device``, all
-    row-major; A and B get a zero 130th row so the kernel reads bands in
-    pairs."""
-    k = device_consts(_KERNEL_HOP, False, device)
+def _kernel_consts(device: torch.device,
+                   low_delay: bool = False) -> dict[str, torch.Tensor]:
+    """The windows and DFT matrices the renderer kernels take, on
+    ``device``, all row-major; A and B carry the low-delay odd-bin sign
+    (pallas_afstft.py:466-469) and get a zero 130th row so the kernels read
+    bands in pairs."""
+    k = device_consts(_KERNEL_HOP, low_delay, device)
+    A, B = k["A"], k["B"]
+    if low_delay:
+        A, B = A * k["sign"][:, None], B * k["sign"][:, None]
     pad = torch.zeros((1, 2 * _KERNEL_HOP), dtype=torch.float32, device=device)
-    return {**k, "A": torch.cat([k["A"], pad]), "B": torch.cat([k["B"], pad])}
+    return {**k, "A": torch.cat([A, pad]), "B": torch.cat([B, pad])}
+
+
+def _launch_decode_synthesis(what: str, fn: str, inputs: dict,
+                             tail: torch.Tensor, taps: torch.Tensor,
+                             low_delay: bool, per_stream: bool, S: int,
+                             cin: int, cout: int, H: int, *flags: bool):
+    """Check and launch a decode + synthesis kernel: ``inputs`` ({name:
+    (tensor, shape)}) are its spectral inputs in the C entry point's order,
+    ``flags`` its trailing int arguments.  → (y (S, cout, H·hop),
+    new_tail (S, cout, 9, hop))."""
+    hop = tail.shape[-1]
+    _check_hop(what, hop)
+    if min(S, cin, cout, H) < 1:
+        raise ValueError(f"{what}: needs S, cin, cout, H >= 1; got "
+                         f"{(S, cin, cout, H)}")
+    x0 = next(iter(inputs.values()))[0]
+    taps_shape = ((S,) if per_stream else ()) + (cin, cout, 4, hop + 1)
+    _check_inputs(what, x0, {**inputs, "tail": (tail, (S, cout, _NT, hop)),
+                             "taps": (taps, taps_shape)})
+    k = _kernel_consts(x0.device, low_delay)
+    frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
+                         device=x0.device)
+    y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x0.device)
+    new_tail = torch.empty((S, cout, _NT, hop), dtype=torch.float32,
+                           device=x0.device)
+    _launch(what, fn, x0.device, *(t.data_ptr() for t, _ in inputs.values()),
+            taps.data_ptr(), k["A"].data_ptr(), k["B"].data_ptr(),
+            k["w_syn"].data_ptr(), tail.data_ptr(), frames.data_ptr(),
+            y.data_ptr(), new_tail.data_ptr(), S, cin, cout, H,
+            *(int(f) for f in flags))
+    return y, new_tail
+
+
+def render_decode_synthesis_ri(sre: torch.Tensor, sim: torch.Tensor,
+                               tail: torch.Tensor, taps: torch.Tensor,
+                               low_delay: bool = False, hybrid: bool = True,
+                               per_stream: bool = False):
+    """Fused decode ⊗ irDFT ⊗ window ⊗ overlap-add from spectra.
+
+    sre/sim: (S, cin, H+6, hop+1) uniform-band spectra from
+    :func:`analysis_front_ri` (6 leading context hops); tail: (S, cout, 9,
+    hop) the overlap carry; taps from :func:`decode_taps`, shared (cin,
+    cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).  Hybrid banks
+    decode d = s[h+3] with the hybrid context g (B taps on bands 0..15),
+    non-hybrid banks d = s[h+6] with A alone.  Returns (y (S, cout, H·hop),
+    new_tail (S, cout, 9, hop)).
+
+    CPU tensors take :func:`render_decode_synthesis_ri_reference`.  CUDA
+    tensors launch the kernel (counted in
+    ``render_decode_synthesis_ri.launches``) or raise; the kernel takes
+    hop 128 only, with any bank and shared or per-stream taps.
+    """
+    if sre.device.type == "cpu":
+        return render_decode_synthesis_ri_reference(
+            sre, sim, tail, taps, low_delay=low_delay, hybrid=hybrid,
+            per_stream=per_stream)
+    if sre.device.type != "cuda":
+        raise ValueError(
+            f"render_decode_synthesis_ri: unsupported device {sre.device}")
+    S, cin, Hp6, _ = sre.shape
+    cout = taps.shape[-3]
+    y, new_tail = _launch_decode_synthesis(
+        "render_decode_synthesis_ri", "saf_render_decode_synthesis_ri",
+        {"sre": (sre, (S, cin, Hp6, tail.shape[-1] + 1)),
+         "sim": (sim, (S, cin, Hp6, tail.shape[-1] + 1))},
+        tail, taps, low_delay, per_stream, S, cin, cout, Hp6 - 6, hybrid,
+        per_stream)
+    render_decode_synthesis_ri.launches += 1
+    return y, new_tail
+
+
+render_decode_synthesis_ri.launches = 0
+
+
+def render_decode_synthesis_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
+                                         tail: torch.Tensor,
+                                         taps: torch.Tensor,
+                                         low_delay: bool = False,
+                                         hybrid: bool = True,
+                                         per_stream: bool = False):
+    """Plain PyTorch version of :func:`render_decode_synthesis_ri` (same
+    contract, any hop, any device): (d, g) from the spectra, then
+    :func:`render_decode_synthesis_dg_ri_reference`.  It sums the decode
+    over cin in one reduction where the TPU kernel ``_render_kernel``
+    accumulates channel by channel (~1 ulp·√cin apart)."""
+    return render_decode_synthesis_dg_ri_reference(
+        *_d_g(sre, sim, hybrid), tail, taps, low_delay=low_delay,
+        per_stream=per_stream)
+
+
+def render_decode_synthesis_dg_ri(dre: torch.Tensor, dim_: torch.Tensor,
+                                  gre: torch.Tensor, gim: torch.Tensor,
+                                  tail: torch.Tensor, taps: torch.Tensor,
+                                  low_delay: bool = False,
+                                  per_stream: bool = False):
+    """Fused decode ⊗ irDFT ⊗ window ⊗ overlap-add from the (d, g) pair of
+    :func:`analysis_front_dg_ri`: d (S, cin, H, hop+1), g (S, cin, H, 16);
+    tail and taps as in :func:`render_decode_synthesis_ri`; hybrid banks.
+    Returns (y (S, cout, H·hop), new_tail (S, cout, 9, hop)).
+
+    CPU tensors take :func:`render_decode_synthesis_dg_ri_reference`.  CUDA
+    tensors launch the kernel (counted in
+    ``render_decode_synthesis_dg_ri.launches``) or raise; the kernel takes
+    hop 128 only, normal or low-delay banks, shared or per-stream taps.
+    """
+    if dre.device.type == "cpu":
+        return render_decode_synthesis_dg_ri_reference(
+            dre, dim_, gre, gim, tail, taps, low_delay=low_delay,
+            per_stream=per_stream)
+    if dre.device.type != "cuda":
+        raise ValueError(
+            f"render_decode_synthesis_dg_ri: unsupported device {dre.device}")
+    S, cin, H, _ = dre.shape
+    cout = taps.shape[-3]
+    d_shape = (S, cin, H, tail.shape[-1] + 1)
+    g_shape = (S, cin, H, _G_BANDS)
+    y, new_tail = _launch_decode_synthesis(
+        "render_decode_synthesis_dg_ri", "saf_render_decode_synthesis_dg_ri",
+        {"dre": (dre, d_shape), "dim": (dim_, d_shape),
+         "gre": (gre, g_shape), "gim": (gim, g_shape)},
+        tail, taps, low_delay, per_stream, S, cin, cout, H, per_stream)
+    render_decode_synthesis_dg_ri.launches += 1
+    return y, new_tail
+
+
+render_decode_synthesis_dg_ri.launches = 0
+
+
+def render_decode_synthesis_dg_ri_reference(dre: torch.Tensor,
+                                            dim_: torch.Tensor,
+                                            gre: torch.Tensor,
+                                            gim: torch.Tensor,
+                                            tail: torch.Tensor,
+                                            taps: torch.Tensor,
+                                            low_delay: bool = False,
+                                            per_stream: bool = False):
+    """Plain PyTorch version of :func:`render_decode_synthesis_dg_ri` (same
+    contract, any hop, any device), in the TPU kernel
+    ``_render_dg_kernel``'s op order: the decode summed over cin in one
+    reduction per ear, the irDFT in full fp32 (TF32 off), then synthesis
+    window, overlap-add and tail merge."""
+    hop = tail.shape[-1]
+    S, _, H, nb = dre.shape
+    cout = taps.shape[-3]
+    k = device_consts(hop, low_delay, dre.device)
+    A, Bm = k["A"], k["B"]
+    if low_delay:
+        A, Bm = A * k["sign"][:, None], Bm * k["sign"][:, None]
+    dre, dim_ = dre[:, :, None], dim_[:, :, None]   # (S, cin, 1, H, nb)
+    w_re, w_im = -gim[:, :, None], gre[:, :, None]  # j · g
+    T = taps if per_stream else taps[None]          # (S|1, cin, cout, 4, nb)
+
+    def tap(q, n):
+        return T[:, :, :, q, None, :n]              # (S|1, cin, cout, 1, n)
+
+    are, aim = tap(0, nb), tap(1, nb)
+    bre, bim = tap(2, _G_BANDS), tap(3, _G_BANDS)
+    t_re = (are * dre - aim * dim_).sum(dim=1)      # (S, cout, H, nb)
+    t_im = (are * dim_ + aim * dre).sum(dim=1)
+    c_re = (bre * w_re - bim * w_im).sum(dim=1)     # (S, cout, H, 16)
+    c_im = (bre * w_im + bim * w_re).sum(dim=1)
+    out_re = t_re + F.pad(c_re, (0, nb - _G_BANDS))
+    out_im = t_im + F.pad(c_im, (0, nb - _G_BANDS))
+    with fp32_matmul():
+        fr = out_re @ A + out_im @ Bm                # (S, cout, H, 2·hop)
+    y, new_tail = _overlap_add(fr, k["w_syn"], tail)
+    return y.reshape(S, cout, H * hop), new_tail
+
+
+# ---------------------------------------------------------------------------
+# one-pass TF-matrix renderer
+# ---------------------------------------------------------------------------
 
 
 def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
@@ -402,55 +675,16 @@ def render_full_ri_reference(in_tail: torch.Tensor, x: torch.Tensor,
                              low_delay: bool = False, hybrid: bool = True,
                              per_stream: bool = False):
     """Plain PyTorch version of :func:`render_full_ri` (same contract, any
-    option, any device).  The steps and their order follow the TPU kernel
-    ``_render_full_kernel``; matmuls run in full fp32 (TF32 off)."""
-    hop = ola_tail.shape[-1]
+    option, any device), in the TPU kernel ``_render_full_kernel``'s op
+    order: the two-kernel pipeline's plain versions composed, i.e. the
+    front's H+6 spectral hops, (d, g) (for hybrid banks exactly
+    :func:`analysis_front_dg_ri_reference`), and
+    :func:`render_decode_synthesis_dg_ri_reference`."""
     S, cin = x.shape[:2]
-    H = x.shape[2] // hop
-    t_hops = in_tail.shape[2] // hop
-    cout = taps.shape[-3]
-    nb = hop + 1
-    dev = x.device
-    k = device_consts(hop, low_delay, dev)
-    A, Bm = k["A"], k["B"]
-    if low_delay:
-        A, Bm = A * k["sign"][:, None], Bm * k["sign"][:, None]
-
-    # 1-2. fold the H+6 frames (two parity accumulators), rDFT
-    xx = torch.cat([in_tail, x], dim=2).reshape(S, cin, t_hops + H, hop)
-    sre, sim = _fold_rdft(xx, k, H + 6)
-    # 3. direct taps and hybrid context (16 bands)
-    d_off = 3 if hybrid else 6
-    dre = sre[:, :, None, d_off:d_off + H]          # (S, cin, 1, H, nb)
-    dim_ = sim[:, :, None, d_off:d_off + H]
-    if hybrid:
-        sg_re, sg_im = sre[..., :_G_BANDS], sim[..., :_G_BANDS]
-        gre = (_COEFF1 * (sg_re[:, :, 6:6 + H] - sg_re[:, :, 0:H])
-               + _COEFF2 * (sg_re[:, :, 4:4 + H] - sg_re[:, :, 2:2 + H]))
-        gim = (_COEFF1 * (sg_im[:, :, 6:6 + H] - sg_im[:, :, 0:H])
-               + _COEFF2 * (sg_im[:, :, 4:4 + H] - sg_im[:, :, 2:2 + H]))
-    else:
-        gre = torch.zeros((S, cin, H, _G_BANDS), dtype=torch.float32,
-                          device=dev)
-        gim = torch.zeros_like(gre)
-    w_re, w_im = -gim[:, :, None], gre[:, :, None]  # j · g
-    # 4. decode per ear, summed over cin
-    T = taps if per_stream else taps[None]          # (S|1, cin, cout, 4, nb)
-
-    def tap(q, n):
-        return T[:, :, :, q, None, :n]              # (S|1, cin, cout, 1, n)
-
-    are, aim = tap(0, nb), tap(1, nb)
-    bre, bim = tap(2, _G_BANDS), tap(3, _G_BANDS)
-    t_re = (are * dre - aim * dim_).sum(dim=1)      # (S, cout, H, nb)
-    t_im = (are * dim_ + aim * dre).sum(dim=1)
-    c_re = (bre * w_re - bim * w_im).sum(dim=1)     # (S, cout, H, 16)
-    c_im = (bre * w_im + bim * w_re).sum(dim=1)
-    out_re = t_re + F.pad(c_re, (0, nb - _G_BANDS))
-    out_im = t_im + F.pad(c_im, (0, nb - _G_BANDS))
-    # 5. irDFT
-    with fp32_matmul():
-        fr = out_re @ A + out_im @ Bm                # (S, cout, H, 2·hop)
-    # 6. synthesis window, overlap-add, tail merge
-    y, new_tail = _overlap_add(fr, k["w_syn"], ola_tail)
-    return y.reshape(S, cout, H * hop), new_tail
+    sre, sim = analysis_front_ri_reference(
+        in_tail.reshape(S * cin, -1), x.reshape(S * cin, -1),
+        low_delay=low_delay, hop=ola_tail.shape[-1])
+    return render_decode_synthesis_ri_reference(
+        sre.reshape(S, cin, *sre.shape[1:]),
+        sim.reshape(S, cin, *sim.shape[1:]), ola_tail, taps,
+        low_delay=low_delay, hybrid=hybrid, per_stream=per_stream)

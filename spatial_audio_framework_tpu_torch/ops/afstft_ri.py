@@ -10,16 +10,18 @@ delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
   kernels ``analysis_front_ri`` / ``synthesis_back_ri``
   (``ops/afstft_kernels``), otherwise in plain torch.
 * :func:`render_tf_matrix_ri` — the TF-matrix renderer.  With ``fused``
-  (the default) it dispatches as the JAX package does: cout·cin ≤ 128 and
-  hop 128 take :func:`render_tf_matrix_fused`, the one-pass kernel
-  (``render_full_ri``: the decode matrix becomes uniform-band taps and
-  analysis ⊗ decode ⊗ synthesis run in one call); wider renders take
-  analysis → per-band einsum → synthesis with both kernels.  With
+  (the default) it dispatches as the JAX package does: cout·cin ≤ 128 at
+  hop 128 takes :func:`render_tf_matrix_fused`, where the decode matrix
+  becomes uniform-band taps and one of two routes runs: cin ≤ 16 the
+  one-pass kernel (:func:`_render_one_pass`), wider inputs the two-kernel
+  pipeline (:func:`_render_two_pass`: analysis front, then decode ⊗
+  synthesis).  Renders wider than 128 channel pairs take analysis →
+  per-band einsum → synthesis on the filterbank kernels.  With
   ``fused=False`` it is the plain reference path, in ordinary torch code.
 
-On CUDA tensors the kernel route launches the CUDA kernels or raises; on
-CPU tensors it runs their plain versions.  Which route runs comes from the
-caller's flag only, never from the device.
+On CUDA tensors the kernel routes launch the CUDA kernels or raise; on CPU
+tensors they run their plain versions.  Which route runs comes from the
+caller's flag and the render's shape only, never from the device.
 
 The TPU package's VMEM models, block fitting, group split and time split
 exist only for the TPU and are not ported.
@@ -34,8 +36,9 @@ from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
                                                           _TOTAL_HOPS, AfSTFT,
                                                           device_consts)
 from spatial_audio_framework_tpu_torch.ops.afstft_kernels import (
-    _KERNEL_HOP, _KERNEL_MAX_CH_PRODUCT, analysis_front_ri, decode_taps,
-    render_full_ri, synthesis_back_ri)
+    _KERNEL_HOP, _KERNEL_MAX_CH_PRODUCT, _TAIL_HOPS, analysis_front_dg_ri,
+    analysis_front_ri, decode_taps, render_decode_synthesis_dg_ri,
+    render_decode_synthesis_ri, render_full_ri, synthesis_back_ri)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 
 
@@ -48,7 +51,12 @@ class AfSTFTStateBatched(NamedTuple):
     ola_tail: torch.Tensor   # (S, n_ch_out, h_len - hop)
 
 
-_TAIL_HOPS = _TOTAL_HOPS - 1 + 6  # 15
+# The widest input the one-pass kernel takes: the JAX package's choice at
+# the 64-hop chunk (order 3 runs one pass, orders 4-7 the (d, g) pair).  On
+# the H100 the one-pass grid is S·⌈H/32⌉ blocks whatever cin is, each block
+# looping over all cin channels, while the two-kernel front spreads S·cin
+# rows over the SMs.
+_ONE_PASS_MAX_CIN = 16
 
 
 def init_state_batched(bank: AfSTFT, n_streams: int, n_ch_in: int,
@@ -242,8 +250,9 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
     → ((S, Cout, T), state).
 
     ``fused`` (the default) takes the kernel route, dispatched as the JAX
-    package does (afstft_ri.py:611-638 there): cout·cin ≤ 128 at hop 128
-    runs :func:`render_tf_matrix_fused`; anything wider runs analysis
+    package does (afstft_ri.py:611-638 and 756-855 there): cout·cin ≤ 128
+    at hop 128 runs :func:`render_tf_matrix_fused` (the one-pass kernel for
+    cin ≤ 16, the two-kernel pipeline above); anything wider runs analysis
     (:func:`analysis_front_ri`) → per-band einsum → synthesis
     (:func:`synthesis_back_ri`).  ``False`` runs the plain reference path
     (analysis, einsum, synthesis) on any device.
@@ -276,23 +285,65 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
 def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
                            x: torch.Tensor, Mre: torch.Tensor,
                            Mim: Optional[torch.Tensor] = None):
-    """The TF-matrix renderer on the one-pass kernel: the hybrid stage and
+    """The TF-matrix renderer on the decode kernels: the hybrid stage and
     the per-band mixing matrix collapse into uniform-band decode taps
-    (:func:`decode_taps`), and :func:`render_full_ri` runs analysis ⊗
-    decode ⊗ synthesis of the block.  Same contract as
+    (:func:`decode_taps`).  cin ≤ 16 runs :func:`_render_one_pass`, wider
+    inputs :func:`_render_two_pass`.  Same contract as
     :func:`render_tf_matrix_ri`; numerically equivalent to its plain path.
-    On CUDA, options the kernel does not take raise NotImplementedError."""
-    hop = bank.hop
-    S, cin = x.shape[:2]
-    H = x.shape[2] // hop
-    cout = Mre.shape[-2]
+    On CUDA, options a kernel does not take raise NotImplementedError."""
+    route = (_render_one_pass if x.shape[1] <= _ONE_PASS_MAX_CIN
+             else _render_two_pass)
+    return route(bank, state, x, Mre, Mim)
+
+
+def _decode_inputs(bank: AfSTFT, state: AfSTFTStateBatched,
+                   Mre: torch.Tensor, Mim: Optional[torch.Tensor]):
+    """→ (taps, OLA tail (S, cout, 9, hop)) for the decode kernels."""
     if Mim is None:
         Mim = torch.zeros_like(Mre)
     taps = decode_taps(Mre, Mim, hybrid=bank.hybrid).contiguous()
-    tail_ola = state.ola_tail.reshape(S, cout, _TOTAL_HOPS - 1, hop)
+    S, cout = state.ola_tail.shape[:2]
+    return taps, state.ola_tail.reshape(S, cout, _TOTAL_HOPS - 1, bank.hop)
+
+
+def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
+                     x: torch.Tensor, Mre: torch.Tensor,
+                     Mim: Optional[torch.Tensor] = None):
+    """:func:`render_tf_matrix_fused` on the one-pass kernel
+    :func:`render_full_ri`: analysis ⊗ decode ⊗ synthesis in one call."""
+    hop = bank.hop
+    taps, tail = _decode_inputs(bank, state, Mre, Mim)
     y, new_tail = render_full_ri(
-        state.in_tail, x, tail_ola, taps, low_delay=bank.low_delay,
+        state.in_tail, x, tail, taps, low_delay=bank.low_delay,
         hybrid=bank.hybrid, per_stream=Mre.ndim == 4)
     return y, AfSTFTStateBatched(
+        in_tail=_next_in_tail(state.in_tail, x, x.shape[2] // hop, hop),
+        ola_tail=new_tail.reshape(state.ola_tail.shape))
+
+
+def _render_two_pass(bank: AfSTFT, state: AfSTFTStateBatched,
+                     x: torch.Tensor, Mre: torch.Tensor,
+                     Mim: Optional[torch.Tensor] = None):
+    """:func:`render_tf_matrix_fused` on two kernels over the flattened
+    (S·cin) rows: for hybrid banks :func:`analysis_front_dg_ri` →
+    :func:`render_decode_synthesis_dg_ri`, otherwise
+    :func:`analysis_front_ri` → :func:`render_decode_synthesis_ri`."""
+    hop = bank.hop
+    S, cin = x.shape[:2]
+    H = x.shape[2] // hop
+    taps, tail = _decode_inputs(bank, state, Mre, Mim)
+    rows = (state.in_tail.reshape(S * cin, -1).contiguous(),
+            x.reshape(S * cin, -1).contiguous())
+    kw = dict(low_delay=bank.low_delay, per_stream=Mre.ndim == 4)
+    if bank.hybrid:
+        dg = analysis_front_dg_ri(*rows, low_delay=bank.low_delay, hop=hop)
+        y, new_tail = render_decode_synthesis_dg_ri(
+            *(t.reshape(S, cin, H, -1) for t in dg), tail, taps, **kw)
+    else:
+        sre, sim = analysis_front_ri(*rows, low_delay=bank.low_delay, hop=hop)
+        y, new_tail = render_decode_synthesis_ri(
+            sre.reshape(S, cin, H + 6, -1), sim.reshape(S, cin, H + 6, -1),
+            tail, taps, hybrid=False, **kw)
+    return y, AfSTFTStateBatched(
         in_tail=_next_in_tail(state.in_tail, x, H, hop),
-        ola_tail=new_tail.reshape(S, cout, -1))
+        ola_tail=new_tail.reshape(state.ola_tail.shape))

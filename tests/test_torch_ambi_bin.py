@@ -22,7 +22,8 @@ def _jax_design(order, method, preproc="eq"):
 
 @pytest.mark.parametrize("order,method,preproc", [
     (1, "magls", "eq"), (3, "magls", "eq"), (1, "ls", "eq"),
-    (1, "lsdiffeq", "eq"), (1, "ta", "eq"), (1, "magls", "all")])
+    (1, "lsdiffeq", "eq"), (1, "ta", "eq"), (1, "magls", "all"),
+    (7, "magls", "eq")])
 def test_design_ri_vs_jax(order, method, preproc):
     ref = _jax_design(order, method, preproc)
     got = tab.design_ri(tab.AmbiBinConfig(order=order, method=method,
@@ -73,6 +74,19 @@ def test_process_ri_batched_vs_jax_on_its_weights():
     jcfg = jab.AmbiBinConfig(order=1, mxu_precision="highest")
     tcfg = tab.AmbiBinConfig(order=1, mxu_precision="highest")
     xs = _chunks(np.random.default_rng(0), 2, 4)
+    ys_j, st_j = _run_jax(jcfg, (jnp.asarray(Mre), jnp.asarray(Mim)), xs)
+    ys_t, st_t = _run_port(tcfg, tab.weights_from_numpy(Mre, Mim), xs)
+    _assert_close(ys_j, st_j, ys_t, st_t, RENDER_TOL)
+
+
+def test_process_ri_batched_order7_vs_jax_on_its_weights():
+    """The order-7 slice (64 SH inputs: the two-kernel (d, g) route) on the
+    JAX design's weights: port (CPU) vs the JAX Pallas path in interpret
+    mode at exact fp32 ("highest"), chunks of 8, 8, 8 and 4 hops."""
+    Mre, Mim = _jax_design(7, "magls")
+    jcfg = jab.AmbiBinConfig(order=7, mxu_precision="highest")
+    tcfg = tab.AmbiBinConfig(order=7, mxu_precision="highest")
+    xs = _chunks(np.random.default_rng(7), 2, 64)
     ys_j, st_j = _run_jax(jcfg, (jnp.asarray(Mre), jnp.asarray(Mim)), xs)
     ys_t, st_t = _run_port(tcfg, tab.weights_from_numpy(Mre, Mim), xs)
     _assert_close(ys_j, st_j, ys_t, st_t, RENDER_TOL)

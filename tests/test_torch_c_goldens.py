@@ -9,6 +9,7 @@ import torch
 
 from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
 from spatial_audio_framework_tpu_torch.modules import hoa, hrir, sh
+from spatial_audio_framework_tpu_torch.ops import afstft_ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
 
@@ -42,10 +43,13 @@ def test_magls_decoder_order3(g):
     assert np.abs(dec - g["dec_magls_o3"]).max() <= TOL
 
 
-def test_ambi_bin_order4_end_to_end(g):
+@pytest.mark.parametrize("route", ["default", "one_pass"])
+def test_ambi_bin_order4_end_to_end(g, route):
     """Order 4, MagLS, N3D, yaw = π folded into the weights (as the
     reference's process_ri does), one stream through the batched path in
-    512-sample blocks: matches the compiled C example's output."""
+    512-sample blocks: matches the compiled C example's output.  The
+    default dispatch takes the two-kernel (d, g) route (cin = 25 > 16);
+    "one_pass" forces the one-pass render_full_ri route."""
     cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d")
     Mre, Mim = ambi_bin.design_ri(cfg)
     R = geo.yaw_pitch_roll2_rzyx(np.pi, 0.0, 0.0).astype(np.float32)
@@ -59,8 +63,11 @@ def test_ambi_bin_order4_end_to_end(g):
     st = ambi_bin.init_state_batched(cfg, 1)
     outs = []
     for f in range(x.shape[-1] // 512):
-        y, st = ambi_bin.process_ri_batched(cfg, w, st,
-                                            x[..., f * 512:(f + 1) * 512])
+        xb = x[..., f * 512:(f + 1) * 512]
+        if route == "default":
+            y, st = ambi_bin.process_ri_batched(cfg, w, st, xb)
+        else:
+            y, st = afstft_ri._render_one_pass(cfg.afstft, st, xb, *w)
         outs.append(y[0].numpy())
     err = np.abs(np.concatenate(outs, -1) - g["ambi_bin_out"]).max()
     assert err <= TOL, err

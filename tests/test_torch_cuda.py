@@ -182,3 +182,142 @@ def test_new_kernels_raise_for_hop_other_than_128(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tak.synthesis_back_ri(torch.zeros((2, 4, 138), device=cuda),
                               torch.zeros((2, 9, 64), device=cuda))
+
+
+def _taps(rng, S, cin, cout, per_stream, hybrid, device):
+    """decode_taps of random matrices, scaled by √(16/cin) above 16 inputs
+    so wide renders keep the flagship's output scale."""
+    shape = ((S,) if per_stream else ()) + (133 if hybrid else 129, cout, cin)
+    M = min(1.0, (16 / cin) ** 0.5) * rng.uniform(-1, 1, (2,) + shape)
+    M = torch.from_numpy(M.astype(np.float32))
+    return tak.decode_taps(M[0], M[1], hybrid=hybrid).contiguous().to(device)
+
+
+@pytest.mark.parametrize("rows,H,low_delay", [
+    (5, 4, False),     # rows not a multiple of 8, H < 9
+    (3, 1, True),      # low delay, one output hop
+    (7, 40, True),     # two hop tiles, the second partial
+    (2, 64, False),    # the order-7 slice's H
+])
+def test_analysis_front_dg_matches_plain_version(cuda, rows, H, low_delay):
+    """Two chained calls carrying the 15-hop input tail; half-scale noise
+    as for analysis_front_ri."""
+    rng = np.random.default_rng(rows + H)
+    tail = _u(rng, (rows, 15 * 128), cuda, amp=0.5)
+    for _ in range(2):
+        x = _u(rng, (rows, H * 128), cuda, amp=0.5)
+        got = tak.analysis_front_dg_ri(tail, x, low_delay=low_delay)
+        ref = tak.analysis_front_dg_ri_reference(tail, x, low_delay=low_delay)
+        torch.cuda.synchronize()
+        for k, r, n in zip(got, ref, (129, 129, 16, 16)):
+            assert k.shape == (rows, H, n)
+            assert (k - r).abs().max().item() <= TOL
+        tail = torch.cat([tail, x], dim=-1)[:, H * 128:].contiguous()
+
+
+_RENDER_CASES = [  # S, cin, cout, H, low_delay, per_stream
+    (3, 5, 2, 8, False, False),
+    (2, 25, 2, 4, True, False),    # H < 9, low delay
+    (2, 17, 3, 1, False, True),    # an ear pass of 2 and one of 1
+    (1, 64, 2, 40, True, True),    # the order-7 width, partial hop tile
+]
+
+
+@pytest.mark.parametrize("hybrid", [True, False])
+@pytest.mark.parametrize("S,cin,cout,H,low_delay,per_stream", _RENDER_CASES)
+def test_render_decode_synthesis_matches_plain_version(
+        cuda, S, cin, cout, H, low_delay, per_stream, hybrid):
+    """From the front's H+6-hop spectra, two chained calls carrying the
+    overlap tail."""
+    rng = np.random.default_rng(S * cin + H)
+    taps = _taps(rng, S, cin, cout, per_stream, hybrid, cuda)
+    kt = rt = _u(rng, (S, cout, 9, 128), cuda)
+    for _ in range(2):
+        sre, sim = (s.reshape(S, cin, H + 6, 129) for s in
+                    tak.analysis_front_ri_reference(
+                        _u(rng, (S * cin, 15 * 128), cuda, amp=0.5),
+                        _u(rng, (S * cin, H * 128), cuda, amp=0.5)))
+        sre, sim = sre.contiguous(), sim.contiguous()
+        kw = dict(low_delay=low_delay, hybrid=hybrid, per_stream=per_stream)
+        ky, kt = tak.render_decode_synthesis_ri(sre, sim, kt, taps, **kw)
+        ry, rt = tak.render_decode_synthesis_ri_reference(sre, sim, rt, taps,
+                                                          **kw)
+        torch.cuda.synchronize()
+        assert ky.shape == (S, cout, H * 128) and kt.shape == (S, cout, 9, 128)
+        assert (ky - ry).abs().max().item() <= TOL
+        assert (kt - rt).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("S,cin,cout,H,low_delay,per_stream", _RENDER_CASES)
+def test_render_decode_synthesis_dg_matches_plain_version(
+        cuda, S, cin, cout, H, low_delay, per_stream):
+    """From the (d, g) pair, two chained calls carrying the overlap tail."""
+    rng = np.random.default_rng(S * cin + H + 1)
+    taps = _taps(rng, S, cin, cout, per_stream, True, cuda)
+    kt = rt = _u(rng, (S, cout, 9, 128), cuda)
+    for _ in range(2):
+        dg = [t.reshape(S, cin, H, -1).contiguous() for t in
+              tak.analysis_front_dg_ri_reference(
+                  _u(rng, (S * cin, 15 * 128), cuda, amp=0.5),
+                  _u(rng, (S * cin, H * 128), cuda, amp=0.5))]
+        kw = dict(low_delay=low_delay, per_stream=per_stream)
+        ky, kt = tak.render_decode_synthesis_dg_ri(*dg, kt, taps, **kw)
+        ry, rt = tak.render_decode_synthesis_dg_ri_reference(*dg, rt, taps,
+                                                             **kw)
+        torch.cuda.synchronize()
+        assert ky.shape == (S, cout, H * 128)
+        assert (ky - ry).abs().max().item() <= TOL
+        assert (kt - rt).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("hybrid", [True, False])
+def test_two_pass_route_never_calls_plain_version(cuda, monkeypatch, hybrid):
+    """cin = 25 > 16 at cout·cin = 50 takes the two-kernel route: the (d, g)
+    pair for a hybrid bank, analysis_front_ri + render_decode_synthesis_ri
+    otherwise, once per block each, never a plain version; the result
+    matches the plain path."""
+    from spatial_audio_framework_tpu_torch.ops import afstft_ri as tri
+    from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+
+    bank = AfSTFT(hybrid=hybrid)
+    rng = np.random.default_rng(11)
+    M = torch.from_numpy((0.8 * rng.uniform(-1, 1, (2, bank.n_bands, 2, 25))
+                          ).astype(np.float32)).to(cuda)
+    xs = [_u(rng, (2, 25, 5 * 128), cuda) for _ in range(2)]
+    st = tri.init_state_batched(bank, 2, 25, 2, cuda)
+    ys_plain = []
+    for x in xs:
+        y, st = tri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=False)
+        ys_plain.append(y)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    names = ("analysis_front_ri", "analysis_front_dg_ri",
+             "render_decode_synthesis_ri", "render_decode_synthesis_dg_ri",
+             "render_full_ri", "synthesis_back_ri")
+    for name in names:
+        monkeypatch.setattr(tak, f"{name}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in names}
+    st = tri.init_state_batched(bank, 2, 25, 2, cuda)
+    for x, yp in zip(xs, ys_plain):
+        y, st = tri.render_tf_matrix_ri(bank, st, x, M[0], M[1])
+        torch.cuda.synchronize()
+        assert (y - yp).abs().max().item() <= TOL
+    ran = {n: getattr(tak, n).launches - before[n] for n in names}
+    pair = (("analysis_front_dg_ri", "render_decode_synthesis_dg_ri")
+            if hybrid else ("analysis_front_ri", "render_decode_synthesis_ri"))
+    assert ran == {n: 2 if n in pair else 0 for n in names}
+
+
+def test_decode_kernels_raise_for_hop_other_than_128(cuda):
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.analysis_front_dg_ri(z(2, 15 * 64), z(2, 4 * 64), hop=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.render_decode_synthesis_ri(z(1, 2, 10, 65), z(1, 2, 10, 65),
+                                       z(1, 2, 9, 64), z(2, 2, 4, 65))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.render_decode_synthesis_dg_ri(
+            z(1, 2, 4, 65), z(1, 2, 4, 65), z(1, 2, 4, 16), z(1, 2, 4, 16),
+            z(1, 2, 9, 64), z(2, 2, 4, 65))

@@ -23,6 +23,23 @@ y, st = ambi_bin.process_ri_batched(cfg, w, st, x)
 assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
 assert st.in_tail.shape == (2, 4, 15 * 128) and st.ola_tail.shape == (2, 2, 9 * 128)
 
+# wider than 16 inputs: the two-kernel route, on the (d, g) pair for a
+# hybrid bank (order 4) and on the front's spectra for a non-hybrid one
+from spatial_audio_framework_tpu_torch.ops import afstft_ri
+from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+cfg4 = ambi_bin.AmbiBinConfig(order=4)
+w4 = ambi_bin.weights_from_numpy(
+    rng.standard_normal((133, 2, 25)), rng.standard_normal((133, 2, 25)))
+st4 = ambi_bin.init_state_batched(cfg4, 2)
+x = torch.from_numpy(rng.uniform(-1, 1, (2, 25, 4 * 128)).astype(np.float32))
+y, st4 = ambi_bin.process_ri_batched(cfg4, w4, st4, x)
+assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
+bank = AfSTFT(hybrid=False)
+M = torch.from_numpy(rng.standard_normal((129, 2, 25)).astype(np.float32))
+y, _ = afstft_ri.render_tf_matrix_ri(
+    bank, afstft_ri.init_state_batched(bank, 2, 25, 2), x, M)
+assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
+
 # ambi_dec: host design (presets, convhull3d, vbap, AllRAD), then a render
 # wide enough (order 2 -> 22.x: 9 x 22 > 128) for the analysis/synthesis path
 dcfg = ambi_dec.AmbiDecConfig(master_order=2)

@@ -15,7 +15,11 @@ state carried from chunk to chunk:
   so per chunk the two-kernel pipeline ``analysis_front_dg_ri`` →
   ``render_decode_synthesis_dg_ri``;
 * the same width on a non-hybrid bank (64 inputs → 2 outputs):
-  ``analysis_front_ri`` → ``render_decode_synthesis_ri``.
+  ``analysis_front_ri`` → ``render_decode_synthesis_ri``;
+* the binauraliser: 4 head-tracked sources per stream, HRTFs designed
+  from a SOFA file and interpolated per chunk on the card, so per-stream
+  mixing matrices: one pass of ``render_full_ri`` with per-stream taps per
+  chunk; and at its full width (64 sources) the (d, g) pair.
 
 Phases:
 
@@ -28,7 +32,9 @@ Phases:
    shape;
 3. the flagship ambi_bin slice: host design, 8 chunks through
    ``process_ri_batched`` with the launch counters reset just before, held
-   against the plain path, then both paths timed;
+   against the plain path, then both paths timed, and the kernel path's
+   device time per chunk with the host out of the way (its idle share;
+   a chunk that makes the host wait for the device fails);
 4. ambi_bin parity with the compiled C reference (tests/goldens/c_goldens.npz):
    order 4, MagLS, N3D, yaw = π, one stream in 512-sample blocks, through
    the default dispatch (the (d, g) pair) and the one-pass route;
@@ -37,7 +43,17 @@ Phases:
    dual-band AllRAD, one stream in 128-sample blocks;
 7. the ambi_bin order-7 slice, as phase 3, then the one-pass and the
    two-kernel routes timed against each other at orders 3 and 7;
-8. the non-hybrid render at order-7 width, as phase 3.
+8. the non-hybrid render at order-7 width, as phase 3;
+9. the binauraliser slice: the default HRIR set written to a SOFA file in
+   a temporary directory and read back (``sofa_save`` / ``sofa_open``),
+   the host design from it, then 64 streams x 4 sources with rotation,
+   as phase 3;
+10. the binauraliser at 64 sources, as phase 3;
+11. binauraliser parity with the compiled C reference: 2 sources, one
+    stream in 128-sample blocks, without and with rotation, through the
+    one-pass kernel with per-stream taps;
+12. a render at hop 64: the kernels take hop 128 only, so it runs the
+    plain path, launches nothing and equals ``fused=False``.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -52,6 +68,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -69,6 +86,12 @@ ANA_AMP = 0.5
 KERNELS = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri",
            "analysis_front_dg_ri", "render_decode_synthesis_ri",
            "render_decode_synthesis_dg_ri")
+# a spin kernel of this many cycles (~0.2 s on an H100) holds the stream
+# while a timed loop is enqueued, so the loop then runs back to back
+SPIN_CYCLES = 400_000_000
+# the flagship render_full_ri call before the kernel took per-stream taps,
+# low-delay and non-hybrid banks (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_RENDER_FULL_MS = 0.6566
 
 
 def fail(msg: str) -> None:
@@ -113,6 +136,26 @@ def ab_times(fns: dict, n: int, warmup: int = 3) -> dict:
     return {name: (float(np.mean(r)), r) for name, r in runs.items()}
 
 
+def device_ms(fn, n: int):
+    """``n`` calls of ``fn`` enqueued while a spin kernel holds the stream,
+    so the device then runs them back to back → (device ms per call, host
+    enqueue ms per call, whether the host finished enqueuing before the
+    device started: False means a call waited for the device)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, host, ahead
+
+
 def uniform(rng, shape, dev, amp: float = 1.0) -> torch.Tensor:
     return torch.from_numpy(
         (amp * rng.uniform(-1.0, 1.0, shape)).astype(np.float32)).to(dev)
@@ -143,19 +186,29 @@ def report_times(name: str, t: dict, card: str, shape: str) -> None:
 
 
 def phase_render_full(ak, dev, rng, card):
-    """render_full_ri vs render_full_ri_reference; returns the max error and
-    the flagship-shape times."""
+    """render_full_ri vs render_full_ri_reference at small shapes with
+    every option (per-stream taps, low-delay and non-hybrid banks, H = 1),
+    at the binauraliser slice's shape (per-stream taps, cin 4) and at the
+    flagship's; both of the last two timed.  Returns the max error and the
+    flagship-shape times."""
     worst = 0.0
-    for S, cin, cout, H in ((3, 4, 2, 4), (N_STREAMS, 16, 2, HOPS)):
-        M = rng.uniform(-1.0, 1.0, (2, 133, cout, cin)).astype(np.float32)
-        taps = ak.decode_taps(torch.from_numpy(M[0]),
-                              torch.from_numpy(M[1])).contiguous().to(dev)
+    # S, cin, cout, H, low_delay, per_stream, hybrid
+    cases = ((3, 4, 2, 4, False, False, True),
+             (2, 4, 2, 1, False, True, True),
+             (3, 5, 2, 9, True, False, True),
+             (2, 5, 2, 40, False, False, False),
+             (2, 3, 1, 33, True, True, False),
+             (N_STREAMS, 4, 2, HOPS, False, True, True),
+             (N_STREAMS, 16, 2, HOPS, False, False, True))
+    for S, cin, cout, H, ld, ps, hyb in cases:
+        taps = random_taps(ak, rng, S, cin, cout, ps, hyb, dev)
+        kw = dict(low_delay=ld, per_stream=ps, hybrid=hyb)
         in_tail = uniform(rng, (S, cin, 15 * 128), dev)
         state = {True: in_tail, False: in_tail}
 
         def step(x, tail, kernel):
             fn = ak.render_full_ri if kernel else ak.render_full_ri_reference
-            y, new_tail = fn(state[kernel], x, tail, taps)
+            y, new_tail = fn(state[kernel], x, tail, taps, **kw)
             state[kernel] = torch.cat([state[kernel], x],
                                       dim=-1)[..., H * 128:].contiguous()
             return (y,), new_tail
@@ -164,15 +217,24 @@ def phase_render_full(ak, dev, rng, card):
         err = chained_err(step, ola, ola,
                           lambda: uniform(rng, (S, cin, H * 128), dev),
                           "render_full_ri")
-        print(f"phase 2: render_full_ri vs plain at (S, cin, cout, H) = "
-              f"{(S, cin, cout, H)}: max |err| = {err:.3e} (tol {KERNEL_TOL})")
+        print(f"phase 2: render_full_ri vs plain at (S, cin, cout, H, "
+              f"low_delay, per_stream, hybrid) = {(S, cin, cout, H, ld, ps, hyb)}"
+              f": max |err| = {err:.3e} (tol {KERNEL_TOL})")
         check(err <= KERNEL_TOL, f"render_full_ri disagrees with plain: {err}")
         worst = max(worst, err)
-    x = uniform(rng, (S, cin, H * 128), dev)
-    t = ab_times({"kernel": lambda: ak.render_full_ri(in_tail, x, ola, taps),
-                  "plain": lambda: ak.render_full_ri_reference(
-                      in_tail, x, ola, taps)}, 20)
-    report_times("render_full_ri", t, card, "the flagship shape")
+        if S == N_STREAMS:
+            x = uniform(rng, (S, cin, H * 128), dev)
+            t = ab_times({
+                "kernel": lambda: ak.render_full_ri(in_tail, x, ola, taps,
+                                                    **kw),
+                "plain": lambda: ak.render_full_ri_reference(
+                    in_tail, x, ola, taps, **kw)}, 20)
+            report_times("render_full_ri", t, card,
+                         "the flagship shape (before the kernel's "
+                         f"options: {EARLIER_RENDER_FULL_MS} ms)"
+                         if cin == 16 else
+                         "the binauraliser slice's shape (64, 4, 2, 64), "
+                         "per-stream taps")
     return worst, t
 
 
@@ -341,7 +403,9 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     """A main path: 8 chunks through ``process(state, x, fused)`` with every
     launch counter reset just before and read just after (``expect``: the
     launches each kernel must show), held against the plain path, then both
-    paths timed.  Returns the launch counts."""
+    paths timed, and the kernel path's device time with the host out of
+    the way; fails if a chunk makes the host wait for the device (e.g. a
+    host-to-device copy).  Returns the launch counts."""
     T = HOPS * 128
     xs = [uniform(rng, (N_STREAMS, n_in, T), dev) for _ in range(N_CHUNKS)]
 
@@ -392,6 +456,16 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
               f"{ms:.4f} ms per chunk of {N_STREAMS} streams x {T} samples "
               f"= {audio_s / (ms / 1e3):.1f} audio-seconds per second "
               f"(runs {['%.4f' % r for r in runs]})")
+    runs = [device_ms(lambda: step(True), N_CHUNKS) for _ in range(3)]
+    dev_ms, host_ms = (float(np.median([r[i] for r in runs])) for i in (0, 1))
+    ahead = all(r[2] for r in runs)
+    print(f"phase {phase}: {name} kernel path [{card}]: device {dev_ms:.4f} "
+          f"ms per chunk back to back, host enqueue {host_ms:.4f} ms per "
+          f"chunk (medians of runs {[('%.4f' % r[0], '%.4f' % r[1]) for r in runs]}"
+          f"), so the device idles {100 * (1 - dev_ms / t['kernel'][0]):.1f} "
+          f"% of the {t['kernel'][0]:.4f} ms chunk; host enqueued ahead of "
+          f"the device: {ahead}")
+    check(ahead, f"{name}: a chunk made the host wait for the device")
     return launches
 
 
@@ -489,6 +563,87 @@ def phase_ambi_dec_c_parity(ambi_dec, ak, dev, card):
     check(np.isfinite(out).all() and err <= C_TOL, f"C parity: {err}")
 
 
+def design_binauraliser_from_sofa(binauraliser, hrir, sofa, cfg, dev):
+    """The default HRIR set written to a SOFA file in a temporary directory
+    with ``sofa_save``, read back with ``sofa_open`` (checked against the
+    set) and designed from → the weights on ``dev``."""
+    h, dirs, fs = hrir.default_hrirs()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "default_hrirs.sofa")
+        sofa.sofa_save(path, np.asarray(h, np.float64), float(fs),
+                       np.concatenate([dirs, np.ones((len(dirs), 1))], 1))
+        c = sofa.sofa_open(path, usecase=sofa.USECASE_HRIR)
+    check(c.n_receivers == 2 and np.array_equal(c.data_ir, h)
+          and np.array_equal(c.source_dirs_deg(), dirs)
+          and c.data_sampling_rate == fs,
+          "the SOFA round trip changed the HRIR set")
+    return binauraliser.design_ri(cfg, hrirs=c.data_ir,
+                                  hrir_dirs_deg=c.source_dirs_deg(),
+                                  hrir_fs=int(c.data_sampling_rate),
+                                  device=dev), c
+
+
+def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
+    """binaur (2 sources, 128-sample blocks) and brot (the same with the
+    head rotated by yaw 40°, pitch −15°, roll 10°) on the default HRIR
+    set's weights ``w``, one stream: per-stream taps on the one-pass
+    kernel, one launch per block."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    dirs = torch.tensor([[[30.0, 0.0], [-45.0, 10.0]]], device=dev)
+    rot = torch.from_numpy(
+        np.deg2rad([[40.0, -15.0, 10.0]]).astype(np.float32)).to(dev)
+    fsz = int(g["binaur_frame_size"][0])
+    for key, ypr in (("binaur", None), ("brot", rot)):
+        cfg = binauraliser.BinauraliserConfig(n_sources=2,
+                                              enable_rotation=ypr is not None)
+        x = torch.from_numpy(np.asarray(g[f"{key}_in"], np.float32))[None]
+        x = x.to(dev)
+        n_blocks = x.shape[-1] // fsz
+        before = {k: getattr(ak, k).launches for k in KERNELS}
+        st = binauraliser.init_state_batched(cfg, 1, dev)
+        outs = []
+        for f in range(n_blocks):
+            y, st = binauraliser.process_ri_batched(
+                cfg, w, st, x[..., f * fsz:(f + 1) * fsz].contiguous(), dirs,
+                None, ypr)
+            outs.append(y[0])
+        out = torch.cat(outs, dim=-1).cpu().numpy()
+        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        err = float(np.abs(out - g[f"{key}_out"]).max())
+        print(f"phase 11: binauraliser {key} (2 sources, rotation "
+              f"{ypr is not None}, {n_blocks} blocks of {fsz}) vs the C "
+              f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
+              f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
+        check(ran == {k: n_blocks if k == "render_full_ri" else 0
+                      for k in KERNELS}, f"{key}: launches {ran}")
+        check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
+
+
+def phase_hop64(ri, bank, ak, dev, rng):
+    """One render_tf_matrix_ri(fused=True) call at hop 64, the binauraliser
+    slice's size (64 streams x 4 sources, per-stream matrices, 8192
+    samples): the kernels take hop 128 only, so the JAX package's dispatch
+    runs the plain path.  It must launch nothing and equal fused=False."""
+    S, cin, cout = N_STREAMS, 4, 2
+    M = uniform(rng, (2, S, bank.n_bands, cout, cin), dev)
+    x = uniform(rng, (S, cin, HOPS * 128), dev)
+    st = ri.init_state_batched(bank, S, cin, cout, dev)
+    for k in KERNELS:
+        getattr(ak, k).launches = 0
+    y_k, st_k = ri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=True)
+    torch.cuda.synchronize()
+    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    y_p, st_p = ri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=False)
+    same = (torch.equal(y_k, y_p) and torch.equal(st_k.in_tail, st_p.in_tail)
+            and torch.equal(st_k.ola_tail, st_p.ola_tail))
+    print(f"phase 12: render_tf_matrix_ri(fused=True) at hop {bank.hop}, "
+          f"{(S, cin, cout)} per-stream, {x.shape[-1]} samples: launches = "
+          f"{launches}; equal to fused=False: {same}")
+    check(not any(launches.values()), "hop 64 launched a kernel")
+    check(same and bool(torch.isfinite(y_k).all()),
+          "hop 64 differs from the plain path")
+
+
 def kernel_entry(name, replaces, launches, err, t, source=None):
     return {"name": name, "route": "cuda",
             "source": "spatial_audio_framework_tpu_torch/csrc/"
@@ -506,8 +661,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the card "
              "and has no CPU mode")
-    from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
-    from spatial_audio_framework_tpu_torch.modules import sh
+    from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
+                                                          binauraliser)
+    from spatial_audio_framework_tpu_torch.modules import hrir, sh, sofa
     from spatial_audio_framework_tpu_torch.ops import _build
     from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
     from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
@@ -604,6 +760,42 @@ def main() -> int:
         64, 2, ak, dev, rng, card,
         {"analysis_front_ri": N_CHUNKS,
          "render_decode_synthesis_ri": N_CHUNKS})
+
+    t0 = time.perf_counter()
+    b4cfg = binauraliser.BinauraliserConfig(n_sources=4, enable_rotation=True)
+    binw, sofa_c = design_binauraliser_from_sofa(binauraliser, hrir, sofa,
+                                                 b4cfg, dev)
+    print(f"phase 9: binauraliser design (TRI, diffuse-field EQ, 2°x5° VBAP "
+          f"table) from a SOFA file of {sofa_c.n_sources} directions @ "
+          f"{sofa_c.data_sampling_rate:g} Hz on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def head_tracked(n_src):
+        """Per (stream, source) directions uniform in azimuth ±180° and
+        elevation ±81°, per-stream yaw, pitch and roll uniform in ±1 rad
+        (the JAX benchmark's binauraliser cell)."""
+        dirs = rng.uniform(-180.0, 180.0, (N_STREAMS, n_src, 2))
+        dirs = torch.from_numpy((dirs * [1.0, 0.45]).astype(np.float32))
+        return dirs.to(dev), uniform(rng, (N_STREAMS, 3), dev)
+
+    def binauraliser_slice(label, phase, cfg, expect):
+        dirs, ypr = head_tracked(cfg.n_sources)
+        return phase_slice(
+            label, phase,
+            lambda st, x, fused: binauraliser.process_ri_batched(
+                cfg, binw, st, x, dirs, None, ypr, fused=fused),
+            lambda: binauraliser.init_state_batched(cfg, N_STREAMS, dev),
+            cfg.n_sources, 2, ak, dev, rng, card, expect)
+
+    binauraliser_slice("binauraliser 4 sources", 9, b4cfg,
+                       {"render_full_ri": N_CHUNKS})
+    binauraliser_slice(
+        "binauraliser 64 sources", 10,
+        binauraliser.BinauraliserConfig(n_sources=64, enable_rotation=True),
+        {"analysis_front_dg_ri": N_CHUNKS,
+         "render_decode_synthesis_dg_ri": N_CHUNKS})
+    phase_binauraliser_c_parity(binauraliser, binw, ak, dev, card)
+    phase_hop64(ri, AfSTFT(hop=64, hybrid=True), ak, dev, rng)
 
     print(json.dumps({"kernels": [
         kernel_entry("render_full_ri", 674, flagship["render_full_ri"],

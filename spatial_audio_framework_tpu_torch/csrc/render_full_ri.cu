@@ -11,11 +11,17 @@
 //   1. fold the H+6 frames of [in_tail | x] (15 + H hops) with the 10-hop
 //      analysis window into 256-point frames (two parity accumulators);
 //   2. rDFT of each frame as products with the C/S matrices (256 x 129);
-//   3. direct taps d = s[h+3]; hybrid context
+//   3. hybrid banks: direct taps d = s[h+3] and hybrid context
 //      g = c1(s[h+6]-s[h]) + c2(s[h+4]-s[h+2]) on bands 0..15 only;
-//   4. per ear, summed over cin: A.d + B.(j g), j g = (-g_im, g_re);
+//      non-hybrid banks: d = s[h+6] and no context (a template parameter);
+//   4. per ear, summed over cin: A.d + B.(j g), j g = (-g_im, g_re), with
+//      shared taps (cin, cout, 4, 129) or per-stream taps (S, cin, cout, 4,
+//      129), a pointer offset per stream;
 //   5. irDFT against A/B (129 x 256);
 //   6. synthesis window, overlap-add over 10 hops, merge of the 9-hop tail.
+// A low-delay bank changes only the constants: the wrapper passes its
+// analysis and synthesis windows, and A/B with the odd-bin sign folded in
+// (as `_render_full_ri` does, pallas_afstft.py:756-761).
 //
 // What bounds it on the H100: at the flagship shape (S = 64 streams,
 // cin = 16, cout = 2, H = 64) the rDFT alone is 64*16*70 frames x 256x258
@@ -76,10 +82,14 @@ static_assert(SM_HOPS % 4 == 0 && SM_WIN % 4 == 0 && SM_FOLD % 4 == 0 &&
 static_assert(SM_FLOATS * 4 <= 232448, "fits a block's shared memory");
 
 // Launch (a): analysis, decode and irDFT of one (stream, hop tile).
+// HYBRID: d at hop offset 3 with the hybrid context, else d at offset 6.
+template <bool HYBRID>
 __global__ void __launch_bounds__(THREADS)
 analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
                       const float* __restrict__ x,        // (S, cin, H*HOP)
                       const float* __restrict__ taps,     // (cin, cout, 4, NB)
+                                                          // per stream
+                      long long taps_stride,              // 0: shared taps
                       const float* __restrict__ w_ana,    // (10*HOP)
                       const float* __restrict__ Cm,       // (FRAME, NB)
                       const float* __restrict__ Sm,       // (FRAME, NB)
@@ -100,7 +110,9 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
   const int k = tid % NB;             // band of this thread
   const int grp = tid / NB;           // frame/hop group; >= GROUPS: idle
   const bool band_thread = grp < GROUPS;
-  const bool hyb = k < G_BANDS;
+  const bool hyb = HYBRID && k < G_BANDS;
+  constexpr int D_OFF = HYBRID ? 3 : 6;
+  const float* tps = taps + s * taps_stride;
 
   for (int i = tid; i < SM_WIN; i += THREADS) win_s[i] = w_ana[i];
 
@@ -136,11 +148,11 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
       // 4. decode this channel into hops grp*HPG .. grp*HPG+HPG-1, band k
       if (band_thread) {
         const BandTaps<EC> t = load_taps<EC>(
-            taps + ((size_t)c * cout + e0) * 4 * NB + k, ne, hyb);
+            tps + ((size_t)c * cout + e0) * 4 * NB + k, ne, hyb);
 #pragma unroll
         for (int hh = 0; hh < HPG; ++hh) {
           const int h = grp * HPG + hh;
-          const float2 d = spec_s[(h + 3) * NB + k];
+          const float2 d = spec_s[(h + D_OFF) * NB + k];
           float2 w = make_float2(0.f, 0.f);
           if (hyb) {
             const float2 g = hybrid_context(
@@ -167,10 +179,30 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
   }
 }
 
+template <bool HYBRID>
+cudaError_t launch(const float* in_tail, const float* x, const float* taps,
+                   long long taps_stride, const float* w_ana,
+                   const float* Cm, const float* Sm, const float* Am,
+                   const float* Bm, float* frames, int n_streams, int cin,
+                   int cout, int H, cudaStream_t st) {
+  const int n_tiles = (H + TILE - 1) / TILE;
+  const int smem = SM_FLOATS * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      analysis_decode_irdft<HYBRID>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  analysis_decode_irdft<HYBRID><<<n_streams * n_tiles, THREADS, smem, st>>>(
+      in_tail, x, taps, taps_stride, w_ana, Cm, Sm, Am, Bm, frames, cin, cout,
+      H, n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches both kernels on `stream` and
 // returns the first CUDA error code (0 = success); allocates nothing.
+// hybrid != 0: a hybrid bank; per_stream != 0: taps (S, cin, cout, 4, NB).
+// For a low-delay bank the caller passes its windows and the signed A/B.
 extern "C" int saf_render_full_ri(const float* in_tail, const float* x,
                                   const float* ola_tail, const float* taps,
                                   const float* w_ana, const float* w_syn,
@@ -178,16 +210,15 @@ extern "C" int saf_render_full_ri(const float* in_tail, const float* x,
                                   const float* Am, const float* Bm,
                                   float* frames, float* y, float* new_tail,
                                   int n_streams, int cin, int cout, int H,
-                                  void* stream) {
+                                  int hybrid, int per_stream, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (H + TILE - 1) / TILE;
-  const int smem = SM_FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      analysis_decode_irdft, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  analysis_decode_irdft<<<n_streams * n_tiles, THREADS, smem, st>>>(
-      in_tail, x, taps, w_ana, Cm, Sm, Am, Bm, frames, cin, cout, H, n_tiles);
-  err = cudaGetLastError();
+  const long long taps_stride =
+      per_stream ? (long long)cin * cout * 4 * NB : 0;
+  const cudaError_t err =
+      hybrid ? launch<true>(in_tail, x, taps, taps_stride, w_ana, Cm, Sm, Am,
+                            Bm, frames, n_streams, cin, cout, H, st)
+             : launch<false>(in_tail, x, taps, taps_stride, w_ana, Cm, Sm,
+                             Am, Bm, frames, n_streams, cin, cout, H, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_overlap_add(frames, w_syn, ola_tail, y, new_tail,
                                  (long long)n_streams * cout, H, st);

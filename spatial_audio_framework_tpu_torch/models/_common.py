@@ -9,6 +9,7 @@ tensors with explicit state.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 MAX_SH_ORDER = 7                 # _common.h:50
 MAX_NUM_CHANNELS = 64            # _common.h:228
@@ -75,6 +76,13 @@ def validate_config(cfg) -> None:
             _prec.normalize_mode(mxu)
         except ValueError as e:
             err(str(e))
+
+
+def round_half_up(x: torch.Tensor) -> torch.Tensor:
+    """The C's gain-table index rounding ``(int)(x + 0.5f)`` for x ≥ 0
+    (e.g. panner.c:242-246, binauraliser_internal.c:76-80): round half UP,
+    unlike torch.round's round half to even (112.5 → 113, not 112)."""
+    return torch.floor(x + 0.5)
 
 
 def input_conversion_mtx(order: int, ch_ordering: str, norm: str) -> np.ndarray:

@@ -2,8 +2,9 @@
 ``spatial_audio_framework_tpu/modules/hrir.py``).  Host numpy/scipy.
 
 The default dataset (``default_hrirs()``) is the JAX package's synthesised
-rigid-sphere set of 836 dirs × 2 ears × 256 taps @48 kHz, read by path.
-SOFA loading and resampling are not ported yet (ROADMAP.md, Queue 1).
+rigid-sphere set of 836 dirs × 2 ears × 256 taps @48 kHz, read by path;
+other sets load from SOFA files (``modules/sofa.py``).  Resampling is not
+ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import functools
 import numpy as np
 
 from spatial_audio_framework_tpu_torch import data_path
+from spatial_audio_framework_tpu_torch.modules import sofa as _sofa
 from spatial_audio_framework_tpu_torch.ops import afstft as _afstft
+from spatial_audio_framework_tpu_torch.utils.misc import saf_print_warning
 
 
 @functools.lru_cache(maxsize=None)
@@ -22,13 +25,24 @@ def default_hrirs() -> tuple[np.ndarray, np.ndarray, int]:
         return z["hrirs"].copy(), z["dirs_deg"].copy(), int(z["fs"])
 
 
-def load_hrirs(sofa_filepath=None):
-    """The default HRIR set → (hrirs (N, 2, len) f32, dirs_deg (N, 2), fs,
-    used_default_flag).  A SOFA path raises: SOFA loading is not ported."""
-    if sofa_filepath is not None:
-        raise NotImplementedError(
-            "SOFA loading is not ported yet (ROADMAP.md, Queue 1: "
-            "'modules/sofa.py'); pass hrirs/dirs/fs or use the default set")
+def load_hrirs(sofa_filepath=None, use_default: bool = False):
+    """Load an HRIR set from a SOFA file with the reference's graceful
+    fallback (ambi_bin.c:209-218 and the equivalent block in every binaural
+    example): if the file cannot be opened, is not a SOFA file, or does not
+    contain exactly 2 receivers, a warning is printed and the DEFAULT set is
+    used instead — design never fails on a bad path.
+
+    → (hrirs (N, 2, len) f32, dirs_deg (N, 2), fs, used_default_flag)."""
+    if not use_default and sofa_filepath is not None:
+        try:
+            c = _sofa.sofa_open(str(sofa_filepath), usecase=_sofa.USECASE_HRIR)
+            return (np.asarray(c.data_ir, np.float32), c.source_dirs_deg(),
+                    int(c.data_sampling_rate), False)
+        except _sofa.SofaError:
+            saf_print_warning(
+                "Unable to load the specified SOFA file, or it contained "
+                "something other than 2 channels. Using default HRIR data "
+                "instead.")
     h, d, fs = default_hrirs()
     return h, d, fs, True
 
@@ -110,3 +124,25 @@ def _ipd_f32(itds_s, freq_vector) -> np.ndarray:
     m = np.fmod(x, TWO_PI)
     m = np.where(m >= 0.0, m, m + TWO_PI)               # matlab_fmodf
     return ((m - PI) / f32(2.0)).astype(np.float64)
+
+
+def interp_hrtfs(hrtfs: np.ndarray, interp_table: np.ndarray, itds=None,
+                 freq_vector=None) -> np.ndarray:
+    """Interpolate HRTFs at new directions from amplitude-normalised VBAP
+    weights (saf_hrir.c:246-330 ``interpHRTFs``).
+
+    hrtfs: (nBands, 2, nDirs); interp_table: (nInterp, nDirs).
+    With itds+freq_vector: magnitudes and ITDs interpolate separately and the
+    phase is re-synthesised as ±IPD/2; otherwise complex interpolation.
+    → (nBands, 2, nInterp) complex64.
+    """
+    H = np.asarray(hrtfs)
+    T = np.asarray(interp_table, np.float64)
+    if itds is None or freq_vector is None:
+        return np.einsum("bed,nd->ben", H, T).astype(np.complex64)
+    mags_i = np.einsum("bed,nd->ben", np.abs(H), T)
+    itd_i32 = (np.asarray(interp_table, np.float32)
+               @ np.asarray(itds, np.float32))  # sgemm, f32 (nInterp,)
+    ipd = _ipd_f32(itd_i32, freq_vector)  # the C's f32 wrap: see _ipd_f32
+    phase = np.stack([ipd, -ipd], axis=1)  # (nBands, 2, nInterp)
+    return (mags_i * np.exp(1j * phase)).astype(np.complex64)

@@ -1,12 +1,13 @@
-"""Vector-Base Amplitude Panning, the 3-D part AllRAD needs (counterpart of
-``spatial_audio_framework_tpu/modules/vbap.py:28-196``, ``saf_vbap``).
+"""Vector-Base Amplitude Panning in 3-D (counterpart of
+``spatial_audio_framework_tpu/modules/vbap.py:28-239``, ``saf_vbap``).
 
 Design-time gain tables in NumPy: triangulation of the loudspeaker set
 (the C's vendored convhull_3d, ``utils/convhull3d.py``), the per-triangle
-inverses, and per-source gains with optional MDAP spread.
-The 2-D functions, the azimuth/elevation grid tables and their
-compression come with panner and binauraliser (ROADMAP.md, Queue 1:
-'the rest of vbap').
+inverses, per-source gains with optional MDAP spread, and the regular
+azimuth/elevation grid table with its compression and interpolation forms
+(the binauraliser's HRTF interpolation table).  The 2-D functions and
+``get_p_values`` come with panner (ROADMAP.md, Queue 1: 'the rest of
+vbap').
 
 Behavioural parity notes (framework/modules/saf_vbap/saf_vbap.c):
 
@@ -176,3 +177,45 @@ def generate_vbap_gain_table_3d_srcs(src_dirs_deg: np.ndarray,
     inv_mtx = invert_ls_mtx_3d(verts, faces)
     g = vbap_3d(src_dirs_deg, verts, faces, inv_mtx, spread)
     return g[:, :L]  # drop dummy columns
+
+
+def generate_vbap_gain_table_3d(ls_dirs_deg: np.ndarray, az_res_deg: int = 1,
+                                el_res_deg: int = 1,
+                                omit_large_triangles: bool = False,
+                                enable_dummies: bool = False,
+                                spread: float = 0.0,
+                                rand_stream=None) -> np.ndarray:
+    """Regular-grid gain table (saf_vbap.c:171 ``generateVBAPgainTable3D``):
+    grid azi -180..180 (step az_res), elev -90..90 (step el_res), azimuth
+    varying fastest.  → (N_azi*N_ele, L)."""
+    n_azi = int(360.0 / az_res_deg + 1.5)
+    n_ele = int(180.0 / el_res_deg + 1.5)
+    azi = -180.0 + np.arange(n_azi) * az_res_deg
+    ele = -90.0 + np.arange(n_ele) * el_res_deg
+    grid = np.stack(np.meshgrid(azi, ele), -1).reshape(-1, 2)
+    return generate_vbap_gain_table_3d_srcs(grid, ls_dirs_deg,
+                                            omit_large_triangles,
+                                            enable_dummies, spread,
+                                            rand_stream=rand_stream)
+
+
+def compress_vbap_gain_table_3d(gtable: np.ndarray):
+    """Keep the ≤3 non-zero gains + indices per row, amplitude-normalised
+    (saf_vbap.c:312 ``compressVBAPgainTable3D``).
+    → (comp (nTable,3) float32, idx (nTable,3) int32)."""
+    n_table = gtable.shape[0]
+    comp = np.zeros((n_table, 3), np.float32)
+    idx = np.zeros((n_table, 3), np.int32)
+    for nt in range(n_table):
+        nz = np.flatnonzero(gtable[nt] > 1e-7)[:3]
+        g = gtable[nt, nz]
+        comp[nt, :len(nz)] = np.maximum(g / g.sum(), 0.0)
+        idx[nt, :len(nz)] = nz
+    return comp, idx
+
+
+def vbap_gain_table_to_interp_table(gtable: np.ndarray) -> np.ndarray:
+    """Amplitude-normalise each row to sum 1
+    (saf_vbap.c:369 ``VBAPgainTable2InterpTable``)."""
+    s = gtable.sum(-1, keepdims=True)
+    return (gtable / np.maximum(s, 1e-20)).astype(np.float32)

@@ -116,7 +116,7 @@ def load_library() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(library_path()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.saf_render_full_ri.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.saf_render_full_ri.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
     lib.saf_render_full_ri.restype = i32
     lib.saf_analysis_front_ri.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
     lib.saf_analysis_front_ri.restype = i32

@@ -31,9 +31,12 @@ the decode reads.  Non-hybrid banks decode d = spec[h+6] with A alone.
 
 Each entry point launches its hand-written CUDA kernel for CUDA tensors
 (counted in ``<entry>.launches``) and uses its plain PyTorch version
-``<entry>_reference`` for CPU tensors only.  Options a kernel does not take
-raise NotImplementedError on CUDA, naming their ROADMAP.md item; nothing
-falls back to the plain version.  The plain versions share one decode:
+``<entry>_reference`` for CPU tensors only.  The kernels take every option
+of their TPU counterparts (shared or per-stream taps, hybrid or not, normal
+or low delay) at hop 128; other hops, and one-pass renders wider than 128
+channel pairs, raise NotImplementedError on CUDA, naming their ROADMAP.md
+item or the route that serves them.  Nothing falls back to the plain
+version.  The plain versions share one decode:
 :func:`render_full_ri_reference` is the front's plain version followed by
 :func:`render_decode_synthesis_ri_reference`, which derives (d, g) and runs
 :func:`render_decode_synthesis_dg_ri_reference`.
@@ -97,30 +100,19 @@ def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
 def _check_kernel_supported(*, per_stream: bool, hop: int, low_delay: bool,
                             hybrid: bool, cin: int, cout: int) -> None:
     """Raise NotImplementedError for what the one-pass CUDA kernel does not
-    take, naming the route that serves the case or its ROADMAP.md item.
-    (The plain version takes all of them, on the CPU.)"""
-    item = "ROADMAP.md, Queue 2, 'render_full_ri: the remaining options'"
-    two_pass = ("render_tf_matrix_ri takes it on the two-kernel route when "
-                "cin > 16")
-    if per_stream:
-        raise NotImplementedError(
-            f"per-stream decode taps in the one-pass kernel: {item}; "
-            f"{two_pass}")
+    take: a hop other than 128, or more than 128 channel pairs.  Every
+    bank (hybrid or not, normal or low delay) and shared or per-stream taps
+    pass, as in the TPU kernel.  (The plain version takes any hop and
+    width, on the CPU.)"""
+    del per_stream, low_delay, hybrid    # the kernel takes every value
     _check_hop("render_full_ri", hop)
-    if low_delay:
-        raise NotImplementedError(
-            f"low-delay afSTFT banks in the one-pass kernel: {item}; "
-            f"{two_pass}")
-    if not hybrid:
-        raise NotImplementedError(
-            f"non-hybrid afSTFT banks in the one-pass kernel: {item}; "
-            f"{two_pass}")
     if cout * cin > _KERNEL_MAX_CH_PRODUCT:
         raise NotImplementedError(
             f"cout*cin = {cout * cin} > 128: the one-pass kernel holds at "
             "most 128 channel pairs; render_tf_matrix_ri serves such "
-            "renders with analysis_front_ri → einsum → synthesis_back_ri "
-            f"(a wider one-pass kernel: {item})")
+            "renders with analysis_front_ri → einsum → synthesis_back_ri, "
+            "as the JAX package's dispatch does (ROADMAP.md, Queue 2, "
+            "'render_full_ri: the remaining options')")
 
 
 def _check_hop(what: str, hop: int) -> None:
@@ -624,11 +616,15 @@ def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
 
     in_tail: (S, cin, 15·hop) carried input history; x: (S, cin, H·hop);
     ola_tail: (S, cout, 9, hop); taps from :func:`decode_taps`, shared
-    (cin, cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).
+    (cin, cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).  Hybrid
+    banks decode d = s[h+3] with the hybrid context, non-hybrid banks
+    d = s[h+6] with A alone.
     Returns (y (S, cout, H·hop), new_ola_tail (S, cout, 9, hop)).
 
     CPU tensors take :func:`render_full_ri_reference`.  CUDA tensors launch
-    the kernel (counted in ``render_full_ri.launches``) or raise.
+    the kernel (counted in ``render_full_ri.launches``) or raise; the
+    kernel takes hop 128 and cout·cin ≤ 128, with any bank and shared or
+    per-stream taps.
     """
     if x.device.type == "cpu":
         return render_full_ri_reference(in_tail, x, ola_tail, taps,
@@ -647,11 +643,12 @@ def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
         "in_tail": (in_tail, (S, cin, 15 * hop)),
         "x": (x, (S, cin, H * hop)),
         "ola_tail": (ola_tail, (S, cout, _NT, hop)),
-        "taps": (taps, (cin, cout, 4, hop + 1))})
+        "taps": (taps, ((S,) if per_stream else ()) + (cin, cout, 4,
+                                                       hop + 1))})
     if S < 1 or H < 1:
         raise ValueError(f"render_full_ri: needs S >= 1 and H >= 1 hops "
                          f"(got S={S}, x length {x.shape[2]})")
-    k = _kernel_consts(x.device)
+    k = _kernel_consts(x.device, low_delay)
     frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
                          device=x.device)
     y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x.device)
@@ -662,7 +659,8 @@ def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
             taps.data_ptr(), k["w_ana"].data_ptr(), k["w_syn"].data_ptr(),
             k["C"].data_ptr(), k["S"].data_ptr(), k["A"].data_ptr(),
             k["B"].data_ptr(), frames.data_ptr(), y.data_ptr(),
-            new_tail.data_ptr(), S, cin, cout, H)
+            new_tail.data_ptr(), S, cin, cout, H, int(hybrid),
+            int(per_stream))
     render_full_ri.launches += 1
     return y, new_tail
 

@@ -6,8 +6,8 @@ delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
 (re, im) pair of float32 tensors, batched over streams.
 
 * :func:`analysis_ri_batched` / :func:`synthesis_ri_batched` — the batched
-  filterbank; with ``use_kernel`` its front and back end run on the
-  kernels ``analysis_front_ri`` / ``synthesis_back_ri``
+  filterbank; with ``use_kernel`` at hop 128 its front and back end run on
+  the kernels ``analysis_front_ri`` / ``synthesis_back_ri``
   (``ops/afstft_kernels``), otherwise in plain torch.
 * :func:`render_tf_matrix_ri` — the TF-matrix renderer.  With ``fused``
   (the default) it dispatches as the JAX package does: cout·cin ≤ 128 at
@@ -18,6 +18,10 @@ delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
   synthesis).  Renders wider than 128 channel pairs take analysis →
   per-band einsum → synthesis on the filterbank kernels.  With
   ``fused=False`` it is the plain reference path, in ordinary torch code.
+
+Every kernel takes hop 128 only.  As in the JAX package (afstft_ri.py:397,
+:489, :611 and :708 there), a bank with another hop takes the plain path
+whatever the flag says, decided from the bank before any launch.
 
 On CUDA tensors the kernel routes launch the CUDA kernels or raise; on CPU
 tensors they run their plain versions.  Which route runs comes from the
@@ -156,10 +160,12 @@ def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched,
 
     H+6 spectral hops are computed per block, 6 of them from the carried
     tail, so the hybrid stage needs no carried spectral state.  With
-    ``use_kernel`` the framing ⊗ window ⊗ fold ⊗ rDFT front runs as
-    :func:`analysis_front_ri` over the flattened (S·n_ch) rows; otherwise
-    in plain torch (the JAX package's XLA branch)."""
+    ``use_kernel`` at hop 128 the framing ⊗ window ⊗ fold ⊗ rDFT front
+    runs as :func:`analysis_front_ri` over the flattened (S·n_ch) rows;
+    otherwise in plain torch (the JAX package's XLA branch, which it also
+    takes at any other hop)."""
     hop = bank.hop
+    use_kernel = use_kernel and hop == _KERNEL_HOP
     S, n_ch = x.shape[:2]
     H = x.shape[2] // hop
     He = H + 6
@@ -196,9 +202,11 @@ def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
     (S, n_ch, H, 2·n_bands) [re | im] tensor — → ((S, n_ch, H*hop), state).
 
     Hybrid inverse, irDFT, synthesis window, overlap-add: with
-    ``use_kernel`` as :func:`synthesis_back_ri` over the flattened
-    (S·n_ch) rows, otherwise in plain torch."""
+    ``use_kernel`` at hop 128 as :func:`synthesis_back_ri` over the
+    flattened (S·n_ch) rows, otherwise (and at any other hop) in plain
+    torch."""
     hop, h_len = bank.hop, bank.h_len
+    use_kernel = use_kernel and hop == _KERNEL_HOP
     if use_kernel:
         spec = Y if packed else torch.cat(Y, dim=-1)
         S, n_ch, H = spec.shape[:3]
@@ -254,8 +262,9 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
     at hop 128 runs :func:`render_tf_matrix_fused` (the one-pass kernel for
     cin ≤ 16, the two-kernel pipeline above); anything wider runs analysis
     (:func:`analysis_front_ri`) → per-band einsum → synthesis
-    (:func:`synthesis_back_ri`).  ``False`` runs the plain reference path
-    (analysis, einsum, synthesis) on any device.
+    (:func:`synthesis_back_ri`).  At a hop other than 128 every step runs
+    in plain torch.  ``False`` runs the plain reference path (analysis,
+    einsum, synthesis) on any device.
     """
     cout, cin = Mre.shape[-2], Mre.shape[-1]
     if (fused and cout * cin <= _KERNEL_MAX_CH_PRODUCT
@@ -290,7 +299,10 @@ def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
     (:func:`decode_taps`).  cin ≤ 16 runs :func:`_render_one_pass`, wider
     inputs :func:`_render_two_pass`.  Same contract as
     :func:`render_tf_matrix_ri`; numerically equivalent to its plain path.
-    On CUDA, options a kernel does not take raise NotImplementedError."""
+    A bank whose hop is not 128 takes that plain path (JAX afstft_ri.py:708).
+    """
+    if bank.hop != _KERNEL_HOP:
+        return render_tf_matrix_ri(bank, state, x, Mre, Mim, fused=False)
     route = (_render_one_pass if x.shape[1] <= _ONE_PASS_MAX_CIN
              else _render_two_pass)
     return route(bank, state, x, Mre, Mim)

@@ -1,6 +1,8 @@
-"""Geometry for the design stack (counterpart of
-``spatial_audio_framework_tpu/utils/geometry.py``): spherical/cartesian
-conversion, Euler rotations and spherical Voronoi weights.  Host numpy.
+"""Geometry (counterpart of ``spatial_audio_framework_tpu/utils/geometry.py``):
+spherical/cartesian conversion, Euler rotations and spherical Voronoi
+weights in host numpy for the design stack, and the conversions and
+batched rotation a per-chunk path needs as torch functions
+(``*_torch``), which run on their inputs' device.
 
 Conventions match the reference (saf_utility_geometry.c): spherical
 triplets are (azimuth, elevation, radius) with elevation up from the
@@ -9,7 +11,10 @@ row-vector style Rz/Ry/Rx.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 # Euler conventions (saf_utility_geometry.h:77-90)
 EULER_ROTATION_Y_CONVENTION = 0     # Rz(a) Ry(b) Rz(g)
@@ -29,11 +34,63 @@ def sph2cart(sph, degrees: bool = False):
                      r * np.sin(elev)], axis=-1)
 
 
+def cart2sph(cart, degrees: bool = False):
+    """(..., 3) [x, y, z] → (..., 3) [azi, elev, r]  (saf_utility_geometry.c:304)."""
+    cart = np.asarray(cart)
+    x, y, z = cart[..., 0], cart[..., 1], cart[..., 2]
+    hypot_xy = np.sqrt(x * x + y * y)
+    r = np.sqrt(x * x + y * y + z * z)
+    azi = np.arctan2(y, x)
+    elev = np.arctan2(z, hypot_xy)
+    if degrees:
+        azi = azi * (180.0 / np.pi)
+        elev = elev * (180.0 / np.pi)
+    return np.stack([azi, elev, r], axis=-1)
+
+
 def unit_sph2cart(dirs, degrees: bool = False):
     """(..., 2) [azi, elev] → unit vectors (..., 3)."""
     dirs = np.asarray(dirs)
     r = np.ones_like(dirs[..., :1])
     return sph2cart(np.concatenate([dirs, r], axis=-1), degrees=degrees)
+
+
+def unit_cart2sph(cart, degrees: bool = False):
+    """Unit vectors (..., 3) → (..., 2) [azi, elev]."""
+    return cart2sph(cart, degrees=degrees)[..., :2]
+
+
+def unit_sph2cart_torch(dirs_deg: torch.Tensor) -> torch.Tensor:
+    """:func:`unit_sph2cart` in degrees on a tensor, in the same op order:
+    (..., 2) [azi, elev] → unit vectors (..., 3) on dirs_deg's device."""
+    azi = dirs_deg[..., 0] * (math.pi / 180.0)
+    elev = dirs_deg[..., 1] * (math.pi / 180.0)
+    ce = torch.cos(elev)
+    return torch.stack([ce * torch.cos(azi), ce * torch.sin(azi),
+                        torch.sin(elev)], dim=-1)
+
+
+def unit_cart2sph_torch(cart: torch.Tensor) -> torch.Tensor:
+    """:func:`unit_cart2sph` in degrees on a tensor: unit vectors (..., 3)
+    → (..., 2) [azi, elev] on cart's device."""
+    x, y, z = cart[..., 0], cart[..., 1], cart[..., 2]
+    azi = torch.atan2(y, x) * (180.0 / math.pi)
+    elev = torch.atan2(z, torch.sqrt(x * x + y * y)) * (180.0 / math.pi)
+    return torch.stack([azi, elev], dim=-1)
+
+
+def yaw_pitch_roll2_rzyx_torch(ypr: torch.Tensor) -> torch.Tensor:
+    """Batched :func:`yaw_pitch_roll2_rzyx` on a tensor: ypr (..., 3)
+    [yaw, pitch, roll] radians → (..., 3, 3) R = Rx(roll) @ Ry(pitch) @
+    Rz(yaw) of the row-vector style _rot_x/_rot_y/_rot_z, multiplied out
+    (no matmul, so no reduced-precision mode applies) on ypr's device."""
+    cy, cp, cr = torch.cos(ypr).unbind(-1)
+    sy, sp, sr = torch.sin(ypr).unbind(-1)
+    return torch.stack([
+        cp * cy, cp * sy, -sp,
+        sr * sp * cy - cr * sy, sr * sp * sy + cr * cy, sr * cp,
+        cr * sp * cy + sr * sy, cr * sp * sy - sr * cy, cr * cp,
+    ], dim=-1).unflatten(-1, (3, 3))
 
 
 def _rot_x(theta):

@@ -101,3 +101,51 @@ def test_render_tf_matrix_vs_jax(matrix, fused):
                                           fused=fused)
         assert np.abs(np.asarray(jy) - ty.numpy()).max() <= TOL
     assert np.abs(np.asarray(jst.ola_tail) - tst.ola_tail.numpy()).max() <= TOL
+
+
+_KERNEL_ENTRIES = ("analysis_front_ri", "analysis_front_dg_ri",
+                   "render_decode_synthesis_ri",
+                   "render_decode_synthesis_dg_ri", "render_full_ri",
+                   "synthesis_back_ri")
+
+
+@pytest.mark.parametrize("shape", ["one_pass", "two_pass", "wide"])
+def test_hop64_dispatch_takes_the_plain_path(shape, monkeypatch):
+    """Every kernel takes hop 128 only; at hop 64 the kernel route
+    (fused=True, use_kernel=True) decides from the bank, before any launch,
+    to run the plain path, as the JAX package does (its afstft_ri.py:397,
+    :489, :611, :708).  The kernel wrappers are made to refuse: the result
+    equals fused=False and the JAX package's own dispatch (use_pallas=True)
+    at the same hop."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was called at hop 64")
+
+    for name in _KERNEL_ENTRIES:
+        monkeypatch.setattr(tri, name, refuse)
+    cin, cout = {"one_pass": (3, 2), "two_pass": (17, 2), "wide": (17, 9)}[shape]
+    rng = np.random.default_rng(64)
+    S, H = 2, 6
+    jb, tb = jaf.AfSTFT(hop=64), taf.AfSTFT(hop=64)
+    M = rng.standard_normal((2, S, tb.n_bands, cout, cin)).astype(np.float32)
+    tM = torch.from_numpy(M)
+    jst = jri.init_state_batched(jb, S, cin, cout)
+    sts = {f: tri.init_state_batched(tb, S, cin, cout) for f in (True, False)}
+    for _ in range(2):
+        x = _u(rng, (S, cin, H * 64))
+        ys = {}
+        for f in (True, False):
+            ys[f], sts[f] = tri.render_tf_matrix_ri(
+                tb, sts[f], torch.from_numpy(x), tM[0], tM[1], fused=f)
+        jy, jst = jri.render_tf_matrix_ri(jb, jst, jnp.asarray(x),
+                                          jnp.asarray(M[0]), jnp.asarray(M[1]),
+                                          use_pallas=True, mxu_mode="highest")
+        assert torch.equal(ys[True], ys[False])
+        assert np.abs(np.asarray(jy) - ys[True].numpy()).max() <= TOL
+    assert torch.equal(sts[True].ola_tail, sts[False].ola_tail)
+    # the filterbank halves on their own, and the fused entry point
+    spec, st = tri.analysis_ri_batched(tb, sts[True], torch.from_numpy(x),
+                                       packed=True, use_kernel=True)
+    tri.synthesis_ri_batched(tb, st, spec[:, :cout].contiguous(),
+                             packed=True, use_kernel=True)
+    tri.render_tf_matrix_fused(tb, sts[True], torch.from_numpy(x), tM[0],
+                               tM[1])

@@ -27,32 +27,40 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(S, cin, cout, seed=0):
+def _case(S, cin, cout, seed=0, per_stream=False, hybrid=True):
     rng = np.random.default_rng(seed)
     in_tail = rng.uniform(-1, 1, (S, cin, 15 * 128)).astype(np.float32)
     ola = rng.uniform(-1, 1, (S, cout, 9, 128)).astype(np.float32)
-    M = rng.uniform(-1, 1, (2, 133, cout, cin)).astype(np.float32)
-    taps = tak.decode_taps(torch.from_numpy(M[0]), torch.from_numpy(M[1]))
+    M = rng.uniform(-1, 1, (2,) + ((S,) if per_stream else ())
+                    + (133 if hybrid else 129, cout, cin)).astype(np.float32)
+    taps = tak.decode_taps(torch.from_numpy(M[0]), torch.from_numpy(M[1]),
+                           hybrid=hybrid)
     return rng, in_tail, ola, taps.contiguous()
 
 
-@pytest.mark.parametrize("S,cin,cout,H", [
-    (3, 4, 2, 4),      # odd S, H < 9
-    (2, 4, 2, 40),     # two hop tiles, the second partial
-    (1, 25, 2, 4),     # the order-4 C-golden width
-    (2, 3, 1, 9),      # one ear
-    (1, 4, 3, 33),     # an ear pass of 2 and one of 1
+@pytest.mark.parametrize("S,cin,cout,H,options", [
+    (3, 4, 2, 4, {}),      # odd S, H < 9
+    (2, 4, 2, 40, {}),     # two hop tiles, the second partial
+    (1, 25, 2, 4, {}),     # the order-4 C-golden width
+    (2, 3, 1, 9, {}),      # one ear
+    (1, 4, 3, 33, {}),     # an ear pass of 2 and one of 1
+    (2, 4, 2, 6, {"low_delay": True}),
+    (3, 4, 2, 1, {"per_stream": True}),           # the binauraliser's taps
+    (2, 5, 2, 40, {"hybrid": False}),             # d at hop offset 6, no g
+    (2, 3, 3, 9, {"low_delay": True, "per_stream": True, "hybrid": False}),
 ])
-def test_kernel_matches_plain_version(cuda, S, cin, cout, H):
-    rng, in_tail, ola, taps = _case(S, cin, cout)
+def test_kernel_matches_plain_version(cuda, S, cin, cout, H, options):
+    rng, in_tail, ola, taps = _case(
+        S, cin, cout, per_stream=options.get("per_stream", False),
+        hybrid=options.get("hybrid", True))
     taps = taps.to(cuda)
     kt = rt = torch.from_numpy(in_tail).to(cuda)
     ko = ro = torch.from_numpy(ola).to(cuda)
     for _ in range(2):                       # chained: both tails carried
         x = torch.from_numpy(
             rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32)).to(cuda)
-        ky, ko = tak.render_full_ri(kt, x, ko, taps)
-        ry, ro = tak.render_full_ri_reference(rt, x, ro, taps)
+        ky, ko = tak.render_full_ri(kt, x, ko, taps, **options)
+        ry, ro = tak.render_full_ri_reference(rt, x, ro, taps, **options)
         torch.cuda.synchronize()
         assert (ky - ry).abs().max().item() <= TOL
         assert (ko - ro).abs().max().item() <= TOL
@@ -80,11 +88,15 @@ def test_cuda_path_never_calls_plain_version(cuda, monkeypatch):
 
 
 def test_unsupported_option_raises_on_cuda(cuda):
-    _, in_tail, ola, taps = _case(2, 4, 2)
-    t = [torch.from_numpy(a).to(cuda) for a in (in_tail, ola)]
-    x = torch.zeros((2, 4, 512), device=cuda)
+    """The one-pass kernel takes every bank and taps form (above) but only
+    hop 128 and at most 128 channel pairs."""
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tak.render_full_ri(t[0], x, t[1], taps.to(cuda), low_delay=True)
+        tak.render_full_ri(z(2, 4, 15 * 64), z(2, 4, 4 * 64), z(2, 2, 9, 64),
+                           z(4, 2, 4, 65))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.render_full_ri(z(1, 65, 15 * 128), z(1, 65, 512),
+                           z(1, 2, 9, 128), z(65, 2, 4, 129))
 
 
 def _u(rng, shape, device, amp=1.0):
@@ -321,3 +333,85 @@ def test_decode_kernels_raise_for_hop_other_than_128(cuda):
         tak.render_decode_synthesis_dg_ri(
             z(1, 2, 4, 65), z(1, 2, 4, 65), z(1, 2, 4, 16), z(1, 2, 4, 16),
             z(1, 2, 9, 64), z(2, 2, 4, 65))
+
+
+_ALL_KERNELS = ("analysis_front_ri", "analysis_front_dg_ri",
+                "render_decode_synthesis_ri", "render_decode_synthesis_dg_ri",
+                "render_full_ri", "synthesis_back_ri")
+
+
+def test_hop64_render_takes_the_plain_path(cuda):
+    """At hop 64 render_tf_matrix_ri(fused=True) dispatches as the JAX
+    package does: no kernel takes the hop, so it runs the plain path,
+    launches nothing, raises nothing and equals fused=False."""
+    from spatial_audio_framework_tpu_torch.ops import afstft_ri as tri
+    from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+
+    bank = AfSTFT(hop=64, hybrid=True)
+    rng = np.random.default_rng(12)
+    M = _u(rng, (2, 3, bank.n_bands, 2, 4), cuda)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    st_k = st_p = tri.init_state_batched(bank, 3, 4, 2, cuda)
+    for _ in range(2):
+        x = _u(rng, (3, 4, 6 * 64), cuda)
+        yk, st_k = tri.render_tf_matrix_ri(bank, st_k, x, M[0], M[1])
+        yp, st_p = tri.render_tf_matrix_ri(bank, st_p, x, M[0], M[1],
+                                           fused=False)
+        assert torch.equal(yk, yp) and torch.equal(st_k.ola_tail,
+                                                   st_p.ola_tail)
+    assert {n: getattr(tak, n).launches for n in _ALL_KERNELS} == before
+
+
+@pytest.fixture(scope="module")
+def binauraliser_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    return binauraliser.design_ri(binauraliser.BinauraliserConfig(),
+                                  device=torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n_src,pair", [
+    (3, ("render_full_ri",)),                              # one pass
+    (17, ("analysis_front_dg_ri", "render_decode_synthesis_dg_ri"))])
+def test_binauraliser_routes_match_plain_path(cuda, binauraliser_weights,
+                                              monkeypatch, n_src, pair):
+    """Head-tracked sources with per-stream interpolated HRTFs: ≤ 16
+    sources take render_full_ri with per-stream taps, more the (d, g) pair,
+    once per block each, never a plain version; the result matches the
+    plain path."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    cfg = binauraliser.BinauraliserConfig(n_sources=n_src,
+                                          enable_rotation=True)
+    rng = np.random.default_rng(n_src)
+    dirs = _u(rng, (2, n_src, 2), cuda) * torch.tensor([180.0, 90.0],
+                                                      device=cuda)
+    ypr = _u(rng, (2, 3), cuda)
+    xs = [_u(rng, (2, n_src, h * 128), cuda) for h in (4, 9)]
+
+    def run(fused):
+        st, ys = binauraliser.init_state_batched(cfg, 2, cuda), []
+        for x in xs:
+            y, st = binauraliser.process_ri_batched(
+                cfg, binauraliser_weights, st, x, dirs, None, ypr,
+                fused=fused)
+            ys.append(y)
+        return ys, st
+
+    ys_p, st_p = run(False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    for name in _ALL_KERNELS:
+        monkeypatch.setattr(tak, f"{name}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    ys_k, st_k = run(True)
+    torch.cuda.synchronize()
+    for yk, yp in zip(ys_k, ys_p):
+        assert (yk - yp).abs().max().item() <= TOL
+    assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
+    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    assert ran == {n: 2 if n in pair else 0 for n in _ALL_KERNELS}

@@ -1,4 +1,5 @@
-"""The PyTorch port imports and renders with jax unavailable."""
+"""The PyTorch port imports, designs (from a SOFA file too) and renders with
+jax unavailable."""
 import os
 import subprocess
 import sys
@@ -48,6 +49,29 @@ dst = ambi_dec.init_state_batched(dcfg, 2, 22)
 x = torch.from_numpy(rng.uniform(-1, 1, (2, 9, 4 * 128)).astype(np.float32))
 y, dst = ambi_dec.process_ri_batched(dcfg, dw, dst, x)
 assert y.shape == (2, 22, 512) and bool(torch.isfinite(y).all())
+
+# binauraliser: a design from a SOFA file (utils/hdf5, modules/sofa, the
+# VBAP grid table), then head-tracked renders on both routes
+import os, tempfile
+from spatial_audio_framework_tpu_torch.models import binauraliser
+from spatial_audio_framework_tpu_torch.modules import hrir, sofa
+h, d, fs = hrir.default_hrirs()
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "subset.sofa")
+    sofa.sofa_save(path, h[::4].astype(np.float64), float(fs),
+                   np.concatenate([d[::4], np.ones((len(d[::4]), 1))], 1))
+    bw = binauraliser.design_ri(binauraliser.BinauraliserConfig(),
+                                sofa_filepath=path)
+assert bw.itds.shape == (len(d[::4]),)
+for n_src in (2, 17):
+    bcfg = binauraliser.BinauraliserConfig(n_sources=n_src,
+                                           enable_rotation=True)
+    bst = binauraliser.init_state_batched(bcfg, 2)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, n_src, 512)).astype(np.float32))
+    dirs = torch.zeros((2, n_src, 2))
+    y, bst = binauraliser.process_ri_batched(bcfg, bw, bst, x, dirs,
+                                             ypr=torch.ones((2, 3)))
+    assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
 leaked = [m for m in sys.modules
           if m == "spatial_audio_framework_tpu"
           or m.startswith("spatial_audio_framework_tpu.")]

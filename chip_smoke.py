@@ -27,9 +27,17 @@ Phases:
    CUDA kernels from ``spatial_audio_framework_tpu_torch/csrc``;
 2. each kernel vs its plain PyTorch version on the card, at small shapes
    (rows not a multiple of 8, H < 9, low-delay and non-hybrid banks,
-   per-stream taps) and at its main path's shape, two chained calls
-   carrying the tails; then both timed with CUDA events at the main path's
-   shape;
+   per-stream taps; for ``render_full_ri`` cin that its cluster of
+   min(4, cin) blocks does not divide) and at its main path's shape, two
+   chained calls carrying the tails; then both timed with CUDA events at
+   the main path's shape, the kernel enqueued behind a spin kernel so its
+   time is device time (the plain version as it comes: its hundreds of
+   launches a call overflow the launch queue); where one PyTorch call
+   computes the same function
+   (``torch.stft`` for the fronts, ``F.conv_transpose1d`` with cuDNN TF32
+   off for ``synthesis_back_ri``), that call is held against the kernel's
+   output and timed the same way; each kernel's bound (bytes over the HBM
+   rate or operations over the fp32 rate) is computed from the shape;
 3. the flagship ambi_bin slice: host design, 8 chunks through
    ``process_ri_batched`` with the launch counters reset just before, held
    against the plain path, then both paths timed, and the kernel path's
@@ -60,7 +68,10 @@ second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 
-Usage (from the repository root): ``python chip_smoke.py [--seed N]``
+Usage (from the repository root): ``python chip_smoke.py [--seed N]``;
+``--profile`` instead profiles the ambi_bin order-3 and order-7 and the
+64-source binauraliser main paths with torch.profiler and prints each
+kernel's device time per chunk.
 """
 from __future__ import annotations
 
@@ -89,9 +100,22 @@ KERNELS = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri",
 # a spin kernel of this many cycles (~0.2 s on an H100) holds the stream
 # while a timed loop is enqueued, so the loop then runs back to back
 SPIN_CYCLES = 400_000_000
-# the flagship render_full_ri call before the kernel took per-stream taps,
-# low-delay and non-hybrid banks (NVIDIA H100 80GB HBM3, 700 W)
-EARLIER_RENDER_FULL_MS = 0.6566
+# the flagship render_full_ri call with the dense C/S and A/B products,
+# before the FFT-based redesign (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_RENDER_FULL_MS = 0.6558
+# a library call vs the kernel it is timed beside: both fp32 (cuDNN TF32
+# off), relative to the kernel output's largest magnitude
+LIB_TOL = 2e-5
+# the least time of a kernel's work (bound_ms): H100 SXM peaks, HBM3 and
+# fp32 outside the tensor cores (NVIDIA's data sheet at 700 W), against the bytes it must move (each input read once,
+# each output written once, float32) and the operations its function needs:
+# a 256-point real DFT or its inverse as an FFT (2.5 N log2 N), the 10-hop
+# fold of a frame, the synthesis window and overlap-add per output sample
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+FFT_FLOP = 2.5 * 256 * 8
+FOLD_FLOP = 2 * 5 * 256
+OLA_FLOP = 2 * 10
 
 
 def fail(msg: str) -> None:
@@ -111,28 +135,39 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean ms per call of ``fn`` over ``n`` calls, by CUDA events."""
+def cuda_ms(fn, n: int, queued: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``n`` calls, by CUDA events.
+    ``queued``: the calls are enqueued behind a spin kernel, so the device
+    runs them back to back whatever the host's speed (the device time of
+    a call; fails if the host could not enqueue them within the spin)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(n):
         fn()
     end.record()
+    if queued:
+        check(not start.query(), "the host fell behind the spin kernel")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
 
 
-def ab_times(fns: dict, n: int, warmup: int = 3) -> dict:
+def ab_times(fns: dict, n: int, warmup: int = 3, queued: bool = False) -> dict:
     """Times the two callables of ``fns`` ({"kernel": f, "plain": g}) in
     turns kernel, plain, plain, kernel, after a warm-up; returns
-    {name: (mean ms, [ms per run])}."""
+    {name: (mean ms, [ms per run])}.  ``queued``: the kernel's calls run
+    behind a spin kernel (cuda_ms); the plain version's are timed as they
+    come, since its hundreds of small launches a call overflow the launch
+    queue behind a spin (its time is then at least its device time)."""
     for fn in fns.values():
         for _ in range(warmup):
             fn()
     runs = {name: [] for name in fns}
     for name in ("kernel", "plain", "plain", "kernel"):
-        runs[name].append(cuda_ms(fns[name], n))
+        runs[name].append(cuda_ms(fns[name], n, queued and name == "kernel"))
     return {name: (float(np.mean(r)), r) for name, r in runs.items()}
 
 
@@ -185,6 +220,42 @@ def report_times(name: str, t: dict, card: str, shape: str) -> None:
           f"{ {k: ['%.4f' % r for r in v[1]] for k, v in t.items()} })")
 
 
+def library_time(name, call, pairs, card, what: str) -> tuple:
+    """One PyTorch call computing the kernel's function on the same inputs
+    (``call``; the port never makes it), held against the kernel first:
+    ``pairs(out)`` gives (label, library tensor, kernel tensor) and each
+    must agree to LIB_TOL of the kernel's largest magnitude.  Then timed by
+    CUDA events → (mean ms, [ms per run])."""
+    out = call()
+    torch.cuda.synchronize()
+    for label, lib, ker in pairs(out):
+        scale = ker.abs().max().item()
+        err = (lib - ker).abs().max().item()
+        print(f"phase 2: {name} library yardstick {what}, {label}: max |err| "
+              f"vs the kernel = {err:.3e} ({err / scale:.2e} of max |kernel| "
+              f"{scale:.3e}; tol {LIB_TOL})")
+        check(err <= LIB_TOL * scale,
+              f"{name}: the library yardstick computes another function")
+    for _ in range(3):
+        call()
+    runs = [cuda_ms(call, 20, queued=True) for _ in range(2)]
+    print(f"phase 2: {name} library yardstick {what} [{card}]: "
+          f"{np.mean(runs):.4f} ms per call (runs {['%.4f' % r for r in runs]})")
+    return float(np.mean(runs)), runs
+
+
+def stft_call(tail, x):
+    """torch.stft of [tail | x] with the analysis window over 10 hops: bin
+    5k of the 1280-point DFT of a windowed frame is bin k of the rDFT of
+    its 256-sample fold, so [:, ::5] are the front's spectra."""
+    from spatial_audio_framework_tpu_torch.ops.afstft import device_consts
+
+    xx = torch.cat([tail, x], dim=1)
+    w = device_consts(128, False, x.device)["w_ana"]
+    return lambda: torch.stft(xx, n_fft=1280, hop_length=128, window=w,
+                              center=False, return_complex=True)
+
+
 def phase_render_full(ak, dev, rng, card):
     """render_full_ri vs render_full_ri_reference at small shapes with
     every option (per-stream taps, low-delay and non-hybrid banks, H = 1),
@@ -198,6 +269,12 @@ def phase_render_full(ak, dev, rng, card):
              (3, 5, 2, 9, True, False, True),
              (2, 5, 2, 40, False, False, False),
              (2, 3, 1, 33, True, True, False),
+             # cin the cluster of min(4, cin) blocks does not divide
+             (2, 1, 2, 31, False, False, True),
+             (2, 7, 1, 33, False, True, True),
+             (2, 6, 3, 64, True, False, True),
+             (1, 127, 1, 5, False, False, False),
+             (1, 64, 2, 64, False, False, True),
              (N_STREAMS, 4, 2, HOPS, False, True, True),
              (N_STREAMS, 16, 2, HOPS, False, False, True))
     for S, cin, cout, H, ld, ps, hyb in cases:
@@ -228,10 +305,10 @@ def phase_render_full(ak, dev, rng, card):
                 "kernel": lambda: ak.render_full_ri(in_tail, x, ola, taps,
                                                     **kw),
                 "plain": lambda: ak.render_full_ri_reference(
-                    in_tail, x, ola, taps, **kw)}, 20)
+                    in_tail, x, ola, taps, **kw)}, 20, queued=True)
             report_times("render_full_ri", t, card,
-                         "the flagship shape (before the kernel's "
-                         f"options: {EARLIER_RENDER_FULL_MS} ms)"
+                         "the flagship shape (with the dense DFT "
+                         f"products: {EARLIER_RENDER_FULL_MS} ms)"
                          if cin == 16 else
                          "the binauraliser slice's shape (64, 4, 2, 64), "
                          "per-stream taps")
@@ -265,8 +342,16 @@ def phase_analysis_front(ak, dev, rng, card):
     x = uniform(rng, (rows, H * 128), dev, ANA_AMP)
     t = ab_times({"kernel": lambda: ak.analysis_front_ri(tail, x),
                   "plain": lambda: ak.analysis_front_ri_reference(tail, x)},
-                 20)
+                 20, queued=True)
     report_times("analysis_front_ri", t, card, "the ambi_dec slice's shape")
+    re, im = ak.analysis_front_ri(tail, x)
+
+    def pairs(out):
+        spec = out[:, ::5].transpose(1, 2)
+        return [("re", spec.real, re), ("im", spec.imag, im)]
+
+    t["library"] = library_time("analysis_front_ri", stft_call(tail, x), pairs,
+                                card, "torch.stft(n_fft=1280)[:, ::5]")
     return worst, t
 
 
@@ -298,8 +383,36 @@ def phase_synthesis_back(ak, dev, rng, card):
     spec = uniform(rng, (rows, H, K), dev, 10.0)
     t = ab_times({"kernel": lambda: ak.synthesis_back_ri(spec, tail),
                   "plain": lambda: ak.synthesis_back_ri_reference(spec, tail)},
-                 20)
+                 20, queued=True)
     report_times("synthesis_back_ri", t, card, "the ambi_dec slice's shape")
+    y, new_tail = ak.synthesis_back_ri(spec, tail)
+    # the basis of each packed bin over the 10 hops a frame reaches:
+    # frame half k % 2 times the synthesis window's hop k
+    c = ak._syn_consts(128, False, True, dev)
+    ws = c["w_syn"].reshape(10, 128)
+    W = torch.stack([c["AB"][:, (k % 2) * 128:(k % 2 + 1) * 128] * ws[k]
+                     for k in range(10)], dim=1).reshape(K, 1, 1280)
+    inp = spec.transpose(1, 2).contiguous()
+
+    def conv():
+        return torch.nn.functional.conv_transpose1d(inp, W, stride=128)
+
+    def pairs(out):
+        yf = out[:, 0]
+        y_lib = yf[:, :H * 128].clone()
+        y_lib[:, :9 * 128] += tail.reshape(rows, -1)
+        return [("y", y_lib.reshape(rows, H, 128), y),
+                ("new tail", yf[:, H * 128:].reshape(rows, 9, 128), new_tail)]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t["library"] = library_time(
+            "synthesis_back_ri", conv, pairs, card,
+            "F.conv_transpose1d(stride=128), cuDNN TF32 off (the 9-hop "
+            "tail add not timed)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return worst, t
 
 
@@ -308,8 +421,8 @@ def phase_analysis_front_dg(ak, dev, rng, card):
     the renderers' 15-hop tail.  The last case is the order-7 slice: 64
     streams x 64 channels."""
     worst = 0.0
-    cases = ((5, 4, False), (3, 1, True), (7, 40, True),
-             (N_STREAMS * 64, HOPS, False))
+    cases = ((5, 4, False), (3, 1, True), (7, 40, True), (3, 31, False),
+             (2, 65, True), (2, 130, False), (N_STREAMS * 64, HOPS, False))
     for rows, H, ld in cases:
         def step(x, tail, kernel):
             fn = (ak.analysis_front_dg_ri if kernel
@@ -332,8 +445,17 @@ def phase_analysis_front_dg(ak, dev, rng, card):
     t = ab_times({"kernel": lambda: ak.analysis_front_dg_ri(tail, x),
                   "plain": lambda: ak.analysis_front_dg_ri_reference(tail,
                                                                      x)},
-                 20)
+                 20, queued=True)
     report_times("analysis_front_dg_ri", t, card, "the order-7 slice's shape")
+    d_re, d_im, _, _ = ak.analysis_front_dg_ri(tail, x)
+
+    def pairs(out):
+        d = out[:, ::5, 3:3 + H].transpose(1, 2)
+        return [("d re", d.real, d_re), ("d im", d.imag, d_im)]
+
+    t["library"] = library_time(
+        "analysis_front_dg_ri", stft_call(tail, x), pairs, card,
+        "torch.stft(n_fft=1280)[:, ::5] (d only; g not included)")
     return worst, t
 
 
@@ -392,7 +514,8 @@ def phase_render_decode(ak, dev, rng, card, dg):
         worst = max(worst, err)
     spec = make_x()
     t = ab_times({"kernel": lambda: kern(*spec, ola, taps, **kw),
-                  "plain": lambda: plain(*spec, ola, taps, **kw)}, 20)
+                  "plain": lambda: plain(*spec, ola, taps, **kw)}, 20,
+                 queued=True)
     report_times(name, t, card, "(S, cin, cout, H) = "
                  f"{(N_STREAMS, 64, 2, HOPS)}")
     return worst, t
@@ -513,7 +636,8 @@ def phase_ambi_bin_c_parity(ambi_bin, ri, sh, geo, ak, dev, card):
 def phase_routes(ri, cases, dev, rng, card):
     """The one-pass route (_render_one_pass) vs the two-kernel route
     (_render_two_pass) on the same chunk and state, timed in turns with
-    CUDA events; ``cases``: [(label, cfg, weights)]."""
+    CUDA events behind a spin kernel (device time per call, as phase 2);
+    ``cases``: [(label, cfg, weights)]."""
     for label, cfg, w in cases:
         bank = cfg.afstft
         x = uniform(rng, (N_STREAMS, cfg.nsh, HOPS * 128), dev)
@@ -525,7 +649,7 @@ def phase_routes(ri, cases, dev, rng, card):
             fn()
         runs = {name: [] for name in fns}
         for name in ("one-pass", "two-kernel", "two-kernel", "one-pass") * 3:
-            runs[name].append(cuda_ms(fns[name], N_CHUNKS))
+            runs[name].append(cuda_ms(fns[name], N_CHUNKS, queued=True))
         print(f"phase 7: routes at {label} (cin {cfg.nsh}) [{card}]: "
               + ", ".join(f"{name} {np.mean(r):.4f} ms per chunk (runs "
                           f"{['%.4f' % v for v in r]})"
@@ -644,19 +768,137 @@ def phase_hop64(ri, bank, ak, dev, rng):
           "hop 64 differs from the plain path")
 
 
-def kernel_entry(name, replaces, launches, err, t, source=None):
+def bound(in_floats: float, out_floats: float, flop: float) -> dict:
+    """The least time of a kernel's work on the card (see HBM_BYTES_PER_S):
+    the larger of its bytes over the HBM rate and its operations over the
+    fp32 rate, and which of the two it is."""
+    t_bytes = (in_floats + out_floats) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_bounds() -> dict:
+    """bound() of each kernel at its main path's shape, the one phase 2
+    times: 64 streams, H = 64, 15 tail hops; the constants each takes
+    (windows, C/S, A/B, twiddles) counted as inputs."""
+    S, H, T, NB = N_STREAMS, HOPS, 15, 129
+    win, tw, cs, ab = 1280, 512, 2 * 256 * NB, 2 * 130 * 256
+    ola = (H + 9) * 128           # output samples per row, y and tail
+    rdft = FOLD_FLOP + FFT_FLOP   # fold and rDFT of a frame
+    b = {}
+    cin, cout = 16, 2             # render_full_ri: the flagship
+    b["render_full_ri"] = bound(
+        S * cin * (T + H) * 128 + cin * cout * 4 * NB + S * cout * 9 * 128
+        + 2 * win + tw, S * cout * ola,
+        S * cin * (H + 6) * rdft + S * cin * cout * H * (NB + 16) * 8
+        + S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
+    R = S * 16                    # analysis_front_ri: the ambi_dec slice
+    b["analysis_front_ri"] = bound(R * (T + H) * 128 + win + cs,
+                                   2 * R * (T + H - 9) * NB,
+                                   R * (T + H - 9) * rdft)
+    R = S * 64                    # analysis_front_dg_ri: order 7
+    b["analysis_front_dg_ri"] = bound(
+        R * (T + H) * 128 + win + tw, R * H * (NB + 16) * 2,
+        R * (H + 6) * rdft + R * H * 16 * 2 * 4)
+    R, K = S * 22, 266            # synthesis_back_ri: the ambi_dec slice
+    b["synthesis_back_ri"] = bound(R * H * K + R * 9 * 128 + K * 256 + win,
+                                   R * ola,
+                                   R * H * FFT_FLOP + R * ola * OLA_FLOP)
+    cin = 64                      # the renders from spectra and from (d, g)
+    back = (cin * cout * 4 * NB + S * cout * 9 * 128 + ab + win,
+            S * cout * ola,
+            S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
+    b["render_decode_synthesis_ri"] = bound(
+        S * cin * (H + 6) * NB * 2 + back[0], back[1],
+        S * cin * cout * H * NB * 8 + back[2])
+    b["render_decode_synthesis_dg_ri"] = bound(
+        S * cin * H * (NB + 16) * 2 + back[0], back[1],
+        S * cin * cout * H * (NB + 16) * 8 + back[2])
+    return b
+
+
+def kernel_entry(name, replaces, launches, err, t, bounds, source=None):
+    lib = t.get("library")
     return {"name": name, "route": "cuda",
             "source": "spatial_audio_framework_tpu_torch/csrc/"
                       f"{source or name}.cu",
             "replaces": f"spatial_audio_framework_tpu/ops/pallas_afstft.py:"
                         f"{replaces}",
             "launches": launches, "max_abs_err": err,
-            "ms": t["kernel"][0], "plain_ms": t["plain"][0]}
+            "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+            **bounds[name], "library_ms": lib[0] if lib else None}
+
+
+def profile_slice(label, process, init_state, n_in, dev, rng, card):
+    """torch.profiler over N_CHUNKS chunks of a main path (after two
+    warm-up chunks): device time per chunk of each kernel, in order, and
+    the device's busy share of the profiled window."""
+    xs = [uniform(rng, (N_STREAMS, n_in, HOPS * 128), dev)
+          for _ in range(N_CHUNKS)]
+    st = init_state()
+    for x in xs[:2]:
+        _, st = process(st, x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for x in xs:
+            _, st = process(st, x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), f"profile of {label}: the profiler saw no kernel")
+    per_name = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        n, t = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (n + 1, t + us)
+    busy = sum(t for _, t in per_name.values())
+    window = (max(e.time_range.end for e in kernels)
+              - min(e.time_range.start for e in kernels))
+    print(f"profile: {label} [{card}]: {busy / N_CHUNKS / 1e3:.4f} ms of "
+          f"kernels per chunk, busy {100 * busy / window:.1f} % of the "
+          f"{window / N_CHUNKS / 1e3:.4f} ms per chunk from first to last "
+          "kernel")
+    for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"profile: {label}:   {t / N_CHUNKS / 1e3:.4f} ms per chunk "
+              f"({100 * t / busy:.1f} %), {n / N_CHUNKS:g} per chunk: "
+              f"{name[:90]}")
+
+
+def profile(dev, rng, card) -> None:
+    """--profile: the flagship, order-7 and 64-source binauraliser main
+    paths under torch.profiler, nothing else."""
+    from spatial_audio_framework_tpu_torch.models import ambi_bin, binauraliser
+
+    for order in (3, 7):
+        cfg = ambi_bin.AmbiBinConfig(order=order, method="magls")
+        w = ambi_bin.design_ri(cfg, device=dev)
+        profile_slice(
+            f"ambi_bin order {order}",
+            lambda st, x: ambi_bin.process_ri_batched(cfg, w, st, x),
+            lambda: ambi_bin.init_state_batched(cfg, N_STREAMS, dev),
+            cfg.nsh, dev, rng, card)
+    cfg = binauraliser.BinauraliserConfig(n_sources=64, enable_rotation=True)
+    w = binauraliser.design_ri(cfg, device=dev)
+    dirs = uniform(rng, (N_STREAMS, 64, 2), dev) * torch.tensor(
+        [180.0, 81.0], device=dev)
+    ypr = uniform(rng, (N_STREAMS, 3), dev)
+    profile_slice(
+        "binauraliser 64 sources",
+        lambda st, x: binauraliser.process_ri_batched(cfg, w, st, x, dirs,
+                                                      None, ypr),
+        lambda: binauraliser.init_state_batched(cfg, N_STREAMS, dev),
+        64, dev, rng, card)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="only profile the ambi_bin order-3 and order-7 and "
+                         "the 64-source binauraliser main paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the card "
@@ -690,6 +932,9 @@ def main() -> int:
     _build.load_library()
 
     rng = np.random.default_rng(args.seed)
+    if args.profile:
+        profile(dev, rng, card)
+        return 0
     errs, times = {}, {}
     errs["render_full_ri"], times["render_full_ri"] = phase_render_full(
         ak, dev, rng, card)
@@ -797,25 +1042,35 @@ def main() -> int:
     phase_binauraliser_c_parity(binauraliser, binw, ak, dev, card)
     phase_hop64(ri, AfSTFT(hop=64, hybrid=True), ak, dev, rng)
 
+    bounds = kernel_bounds()
+    for name in KERNELS:
+        lib = times[name].get("library")
+        print(f"phase 2: {name} at its main path's shape [{card}]: kernel "
+              f"{times[name]['kernel'][0]:.4f} ms, bound "
+              f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}"
+              f"), library call "
+              + ("none" if lib is None else f"{lib[0]:.4f} ms"))
     print(json.dumps({"kernels": [
         kernel_entry("render_full_ri", 674, flagship["render_full_ri"],
-                     errs["render_full_ri"], times["render_full_ri"]),
+                     errs["render_full_ri"], times["render_full_ri"], bounds),
         kernel_entry("analysis_front_ri", 82, wide["analysis_front_ri"],
-                     errs["analysis_front_ri"], times["analysis_front_ri"]),
+                     errs["analysis_front_ri"], times["analysis_front_ri"],
+                     bounds),
         kernel_entry("synthesis_back_ri", 851, wide["synthesis_back_ri"],
-                     errs["synthesis_back_ri"], times["synthesis_back_ri"]),
+                     errs["synthesis_back_ri"], times["synthesis_back_ri"],
+                     bounds),
         kernel_entry("analysis_front_dg_ri", 173,
                      order7["analysis_front_dg_ri"],
                      errs["analysis_front_dg_ri"],
-                     times["analysis_front_dg_ri"]),
+                     times["analysis_front_dg_ri"], bounds),
         kernel_entry("render_decode_synthesis_ri", 414,
                      plain_bank["render_decode_synthesis_ri"],
                      errs["render_decode_synthesis_ri"],
-                     times["render_decode_synthesis_ri"]),
+                     times["render_decode_synthesis_ri"], bounds),
         kernel_entry("render_decode_synthesis_dg_ri", 561,
                      order7["render_decode_synthesis_dg_ri"],
                      errs["render_decode_synthesis_dg_ri"],
-                     times["render_decode_synthesis_dg_ri"],
+                     times["render_decode_synthesis_dg_ri"], bounds,
                      source="render_decode_synthesis_ri"),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -32,10 +32,22 @@ def data_path(name: str) -> Path:
     return path
 
 
-def f32_tensor(a, device: torch.device | str = "cpu") -> torch.Tensor:
+def default_device() -> torch.device:
+    """The device an entry point runs on when the caller names none: the
+    first CUDA card.  Raises without one; the CPU is used only when a
+    caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def f32_tensor(a, device: torch.device | str | None = None) -> torch.Tensor:
     """A contiguous float32 copy of an array-like (numpy, possibly
-    read-only, cached or Fortran-ordered) on ``device``.  Contiguity
-    matters: ``torch.tensor`` keeps a Fortran-ordered array's strides, and
-    the CUDA kernels index their inputs as row-major."""
+    read-only, cached or Fortran-ordered) on ``device`` (default: the card,
+    :func:`default_device`).  Contiguity matters: ``torch.tensor`` keeps a
+    Fortran-ordered array's strides, and the CUDA kernels index their
+    inputs as row-major."""
     return torch.tensor(np.ascontiguousarray(a, dtype=np.float32),
-                        device=device)
+                        device=default_device() if device is None else device)

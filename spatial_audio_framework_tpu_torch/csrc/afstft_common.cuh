@@ -1,8 +1,18 @@
 // Device code shared by the port's afSTFT kernels (hop 128, 129 uniform
-// bands, 10-hop prototype): the input-hop load, the analysis window fold,
-// one band's rDFT over a run of frames, the hybrid-FIR context, the
-// per-band decode with A/B taps, the irDFT of a decoded tile, and the
-// synthesis window / overlap-add / tail-merge launch.
+// bands, 10-hop prototype): the input-hop load (plain and cp.async), the
+// analysis window fold, the rDFT and irDFT of a frame, the hybrid-FIR
+// context, the per-band decode with A/B taps, and the synthesis window /
+// overlap-add / tail-merge launch.
+//
+// Two forms of the 256-point real DFT live here side by side:
+//   * rdft256 / irdft256: one warp per frame, a 128-point complex FFT in
+//     registers plus the real/complex split, ~5 k FLOP per frame, twiddles
+//     from a 2 KB table (analysis_front_dg_ri.cu, render_full_ri.cu);
+//   * rdft_band / irdft_tile: the dense products with C/S and A/B
+//     (256 x 129 each), ~132 k FLOP per frame, kept only until
+//     analysis_front_ri.cu, synthesis_back_ri.cu and
+//     render_decode_synthesis_ri.cu move to the FFT form (ROADMAP.md,
+//     Queue 4); then they go.
 //
 // Included by every kernel source in csrc/.  Everything here has internal
 // linkage, so each translation unit keeps its own copy.
@@ -63,6 +73,282 @@ __device__ __forceinline__ void fold_frames(float* fold, const float* hops,
       fold[j * FRAME + tid] = a;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous hop load (cp.async, 16 bytes a copy, L2 only)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst_shared, const void* src,
+                                           int src_bytes) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Starts the copy of hops q0 .. q0+n-1 of the row [tail | x] (t_hops +
+// x_hops hops) into dst, hop q0+qq at dst + qq * hs (hs >= HOP, a multiple
+// of 4); hops past the end are zero-filled.  Completes at the caller's
+// next cp_async_commit / cp_async_wait.
+__device__ __forceinline__ void load_hops_async(float* dst, int hs,
+                                                const float* tail, int t_hops,
+                                                const float* x, int x_hops,
+                                                int q0, int n, int tid,
+                                                int nthreads) {
+  for (int i = tid; i < n * (HOP / 4); i += nthreads) {
+    const int qq = i / (HOP / 4), off = 4 * (i % (HOP / 4));
+    const int q = q0 + qq;
+    const float* src = tail;  // any valid address for a zero fill
+    int bytes = 0;
+    if (q < t_hops) {
+      src = tail + (size_t)q * HOP + off;
+      bytes = 16;
+    } else if (q < t_hops + x_hops) {
+      src = x + (size_t)(q - t_hops) * HOP + off;
+      bytes = 16;
+    }
+    cp_async16(dst + qq * hs + off, src, bytes);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FFT-based rDFT / irDFT of one 256-sample frame by one warp
+// ---------------------------------------------------------------------------
+//
+// The frame f[0..255] is packed as z[n] = f[2n] + i f[2n+1], n = 0..127,
+// transformed by a 128-point complex FFT Z, and split into the 129 real-
+// input bins:  X[k] = (Z[k] + Z*[128-k]) / 2 - i W256^k (Z[k] - Z*[128-k]) / 2
+// (Z[128] = Z[0]).  The inverse runs the same steps backwards: the inverse
+// split, the adjoint FFT schedule with conjugate twiddles, and the unpack,
+// scaled by 1/256, equal to X.re @ A + X.im @ B (the imaginary parts of
+// X[0] and X[128] ignored).
+//
+// Layout: lane l holds four complex points v[0..3].
+//   FFT input (and inverse output): v[r] = z[fft_in_index(l, r)];
+//   FFT output (and inverse input): v[r] = Z[l + 32 r].
+// Schedule (forward; each radix-4 stage multiplies v[1..3] by twiddles
+// W128^(e q) = tw[2 e q] and then takes a 4-point DFT over the registers):
+//   A  radix 2 across lane bit 0 (one __shfl_xor_sync per register);
+//   B  radix 4, e = 16 (l & 1);
+//      swap register bits (0, 1) with lane bits (1, 2);
+//   C  radix 4, e = 4 (l & 7);
+//      swap register bits (0, 1) with lane bits (3, 4);
+//   D  radix 4, e = l.
+// No shared memory between stages.  The split reads Z[128 - k] from lane
+// (32 - l) & 31, register 3 - r (lane 0: its own register (4 - r) & 3).
+// tw: W256^k = (cos, -sin)(2 pi k / 256), k = 0..255 (ops/fft.py
+// _fft256_twiddles, float64 on the host, passed as float32).  All fp32 FMA,
+// no TF32, no fast-math intrinsics.  tests/test_torch_fft256.py runs a
+// numpy mirror of this schedule against numpy.fft and the dense operators.
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int FFT_TW = 256;           // twiddle table entries (float2)
+
+__device__ __forceinline__ int fft_in_index(int lane, int r) {
+  return 64 * (lane & 1) + 16 * r + 4 * ((lane >> 1) & 3) + (lane >> 3);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 w) {  // a w*
+  return make_float2(a.x * w.x + a.y * w.y, a.y * w.x - a.x * w.y);
+}
+
+__device__ __forceinline__ float2 shfl2(float2 v, int src) {
+  return make_float2(__shfl_sync(FULL_MASK, v.x, src),
+                     __shfl_sync(FULL_MASK, v.y, src));
+}
+
+__device__ __forceinline__ float2 shfl2_xor(float2 v, int mask) {
+  return make_float2(__shfl_xor_sync(FULL_MASK, v.x, mask),
+                     __shfl_xor_sync(FULL_MASK, v.y, mask));
+}
+
+// Radix-2 butterfly across lane bit 0: the lane with bit 0 clear keeps
+// a + b, its partner a - b (self-adjoint, so the inverse runs it as is).
+__device__ __forceinline__ void fft_radix2_lanes(float2 (&v)[4], int lane) {
+  const bool hi = lane & 1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 o = shfl2_xor(v[r], 1);
+    v[r] = hi ? make_float2(o.x - v[r].x, o.y - v[r].y)
+              : make_float2(v[r].x + o.x, v[r].y + o.y);
+  }
+}
+
+// 4-point DFT over the registers (INV: the unnormalised inverse).
+template <bool INV>
+__device__ __forceinline__ void fft_dft4(float2 (&v)[4]) {
+  const float2 a = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 b = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 c = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 d = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+  const float2 bpjd = make_float2(b.x - d.y, b.y + d.x);  // b + i d
+  const float2 bmjd = make_float2(b.x + d.y, b.y - d.x);  // b - i d
+  v[0] = make_float2(a.x + c.x, a.y + c.y);
+  v[2] = make_float2(a.x - c.x, a.y - c.y);
+  v[1] = INV ? bpjd : bmjd;
+  v[3] = INV ? bmjd : bpjd;
+}
+
+// v[q] *= W256^(step q), q = 1..3 (conjugated for the inverse).
+template <bool INV>
+__device__ __forceinline__ void fft_twiddle(float2 (&v)[4],
+                                            const float2* tw, int step) {
+#pragma unroll
+  for (int q = 1; q < 4; ++q)
+    v[q] = INV ? cmul_conj(v[q], tw[step * q]) : cmul(v[q], tw[step * q]);
+}
+
+// Swap register bit J with lane bit B: per pair of registers, one exchange
+// with the lane across bit B; the lane with bit B set sends its register
+// with bit J clear, its partner the one with bit J set.
+template <int J, int B>
+__device__ __forceinline__ void fft_swap_bit(float2 (&v)[4], int lane) {
+  const bool beta = (lane >> B) & 1;
+#pragma unroll
+  for (int r0 = 0; r0 < 4; ++r0) {
+    if (r0 & (1 << J)) continue;
+    const int r1 = r0 | (1 << J);
+    const float2 recv = shfl2_xor(beta ? v[r0] : v[r1], 1 << B);
+    if (beta)
+      v[r0] = recv;
+    else
+      v[r1] = recv;
+  }
+}
+
+__device__ __forceinline__ void fft128_fwd(float2 (&v)[4], const float2* tw,
+                                           int lane) {
+  fft_radix2_lanes(v, lane);
+  fft_twiddle<false>(v, tw, 32 * (lane & 1));
+  fft_dft4<false>(v);
+  fft_swap_bit<0, 1>(v, lane);
+  fft_swap_bit<1, 2>(v, lane);
+  fft_twiddle<false>(v, tw, 8 * (lane & 7));
+  fft_dft4<false>(v);
+  fft_swap_bit<0, 3>(v, lane);
+  fft_swap_bit<1, 4>(v, lane);
+  fft_twiddle<false>(v, tw, 2 * lane);
+  fft_dft4<false>(v);
+}
+
+// The adjoint of fft128_fwd: the unnormalised inverse FFT.
+__device__ __forceinline__ void fft128_inv(float2 (&v)[4], const float2* tw,
+                                           int lane) {
+  fft_dft4<true>(v);
+  fft_twiddle<true>(v, tw, 2 * lane);
+  fft_swap_bit<0, 3>(v, lane);
+  fft_swap_bit<1, 4>(v, lane);
+  fft_dft4<true>(v);
+  fft_twiddle<true>(v, tw, 8 * (lane & 7));
+  fft_swap_bit<0, 1>(v, lane);
+  fft_swap_bit<1, 2>(v, lane);
+  fft_dft4<true>(v);
+  fft_twiddle<true>(v, tw, 32 * (lane & 1));
+  fft_radix2_lanes(v, lane);
+}
+
+// Z[128 - k] for the lane's k = l + 32 r, r = 0..3.
+__device__ __forceinline__ void fft_partners(const float2 (&v)[4],
+                                             float2 (&p)[4], int lane) {
+  const int src = (32 - lane) & 31;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) p[r] = shfl2(v[3 - r], src);
+  if (lane == 0) {
+    p[0] = v[0];
+    p[1] = v[3];
+    p[2] = v[2];
+    p[3] = v[1];
+  }
+}
+
+// Forward: v holds z in the FFT input layout; on return v[r] = X[l + 32 r]
+// and the result is X[128] (real; valid on lane 0).
+__device__ __forceinline__ float rdft256(float2 (&v)[4], const float2* tw,
+                                         int lane) {
+  fft128_fwd(v, tw, lane);
+  float2 p[4];
+  fft_partners(v, p, lane);
+  const float nyq = v[0].x - v[0].y;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 w = tw[lane + 32 * r];
+    const float er = 0.5f * (v[r].x + p[r].x), ei = 0.5f * (v[r].y - p[r].y);
+    const float dr = v[r].x - p[r].x, di = v[r].y + p[r].y;
+    v[r] = make_float2(er + 0.5f * (w.x * di + w.y * dr),
+                       ei - 0.5f * (w.x * dr - w.y * di));
+  }
+  return nyq;
+}
+
+// Inverse: v[r] = X[l + 32 r], nyq = Re X[128] (read on lane 0); on
+// return v[r] = (f[2n], f[2n+1]), n = fft_in_index(l, r), scaled by 1/256.
+__device__ __forceinline__ void irdft256(float2 (&v)[4], float nyq,
+                                         const float2* tw, int lane) {
+  if (lane == 0) v[0].y = 0.f;
+  float2 p[4];
+  fft_partners(v, p, lane);
+  if (lane == 0) p[0] = make_float2(nyq, 0.f);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 w = tw[lane + 32 * r];
+    const float er = v[r].x + p[r].x, ei = v[r].y - p[r].y;
+    const float dr = v[r].x - p[r].x, di = v[r].y + p[r].y;
+    v[r] = make_float2(er - (w.x * di - w.y * dr), ei + (w.x * dr + w.y * di));
+  }
+  fft128_inv(v, tw, lane);
+  constexpr float SCALE = 1.f / FRAME;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) v[r] = make_float2(v[r].x * SCALE, v[r].y * SCALE);
+}
+
+// The fold of the lane's points of frame j into the FFT input layout:
+// v[r] = (f[2n], f[2n+1]) with n = fft_in_index(l, r), parity p = l & 1,
+// i = 2n mod 128, f[p*128 + i] = sum over m = 0..4 of hop (j + 2m + p)
+// sample i times window hop (2m + p) sample i, in fold_frames' order.
+// hops: hop q at hops + q * hs; win(m, r): the window pair (float2) of
+// window hop 2m + p at sample i of register r.
+template <class Win>
+__device__ __forceinline__ void fold_lane(float2 (&v)[4], const float* hops,
+                                          int hs, int j, int lane, Win win) {
+  const int p = lane & 1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = 2 * (fft_in_index(lane, r) & (HOP / 2 - 1));
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int m = 0; m < TOTAL_HOPS / 2; ++m) {
+      const float2 h =
+          *reinterpret_cast<const float2*>(hops + (j + 2 * m + p) * hs + i);
+      const float2 w = win(m, r);
+      a += h.x * w.x;
+      b += h.y * w.y;
+    }
+    v[r] = make_float2(a, b);
+  }
+}
+
+// The window pair of register r, window hop 2m + p, for this lane; window
+// hop w at win + w * ws.
+__device__ __forceinline__ float2 window_pair(const float* win, int ws,
+                                              int lane, int m, int r) {
+  const int i = 2 * (fft_in_index(lane, r) & (HOP / 2 - 1));
+  return *reinterpret_cast<const float2*>(win + (2 * m + (lane & 1)) * ws +
+                                          i);
 }
 
 // rDFT of band k for FPG consecutive folded frames starting at frow (in

@@ -10,111 +10,135 @@
 // What it computes, per stream s (hop = 128, 129 uniform bands):
 //   1. fold the H+6 frames of [in_tail | x] (15 + H hops) with the 10-hop
 //      analysis window into 256-point frames (two parity accumulators);
-//   2. rDFT of each frame as products with the C/S matrices (256 x 129);
+//   2. rDFT of each frame (256 points -> 129 bins);
 //   3. hybrid banks: direct taps d = s[h+3] and hybrid context
 //      g = c1(s[h+6]-s[h]) + c2(s[h+4]-s[h+2]) on bands 0..15 only;
 //      non-hybrid banks: d = s[h+6] and no context (a template parameter);
 //   4. per ear, summed over cin: A.d + B.(j g), j g = (-g_im, g_re), with
 //      shared taps (cin, cout, 4, 129) or per-stream taps (S, cin, cout, 4,
 //      129), a pointer offset per stream;
-//   5. irDFT against A/B (129 x 256);
+//   5. irDFT (129 bins -> 256 samples), with the odd-bin sign of a
+//      low-delay bank (as `_render_full_ri` folds it into A/B,
+//      pallas_afstft.py:756-761);
 //   6. synthesis window, overlap-add over 10 hops, merge of the 9-hop tail.
-// A low-delay bank changes only the constants: the wrapper passes its
-// analysis and synthesis windows, and A/B with the odd-bin sign folded in
-// (as `_render_full_ri` does, pallas_afstft.py:756-761).
+// A low-delay bank also changes the windows, which the wrapper passes.
 //
 // What bounds it on the H100: at the flagship shape (S = 64 streams,
-// cin = 16, cout = 2, H = 64) the rDFT alone is 64*16*70 frames x 256x258
-// x 2 = 9.5 GFLOP per chunk, against ~41 MB of input and tails, i.e.
-// ~230 FLOP per byte of device memory traffic: fp32 compute bounds it
-// (67 TFLOP/s of fp32 FMA without tensor cores), not the 3.35 TB/s HBM.
+// cin = 16, cout = 2, H = 64) it reads 41.5 MB (input hops and tails) and
+// writes 4.8 MB; the rDFTs and irDFTs as FFTs are ~0.6 GFLOP.  So HBM
+// bounds it at ~0.014 ms, and what it must avoid is latency: few blocks,
+// serial channel loops and repeated reads of constants.  (The dense C/S and
+// A/B products of the first design cost 9.5 GFLOP a chunk and ran 128
+// blocks of one 9-warp block per SM.)
 //
 // What the design does about it:
-//   * the spectra never leave the SM: a block owns (stream, tile of 32
-//     output hops), loops over the cin channels, and keeps the fold, the
-//     38-frame spectrum and the per-ear decode accumulators in shared
-//     memory and registers; only the irDFT frames (S, cout, H, 256) go to
-//     a scratch buffer that is mostly L2-resident;
-//   * the rDFT is a register-tiled product: each thread owns one band and
-//     19 frames, so every C/S value it loads (through L1/L2; the two
-//     matrices are 264 KB, above the 227 KB a block may hold in shared
-//     memory) feeds 19 x 2 FMAs, and the frame samples come from shared
-//     memory as 16-byte broadcasts;
+//   * a thread-block cluster of cs = min(4, cin) blocks per (stream, tile
+//     of 32 output hops) splits the cin channels (block rank q takes
+//     channels q, q + cs, ...): 512 blocks at the flagship and at 4 sources;
+//   * per channel, each warp folds and transforms whole frames in registers
+//     (rdft256, afstft_common.cuh: no C/S reads) into the 38-frame spectrum
+//     in shared memory, while the next channel's 47 input hops arrive by
+//     cp.async; a thread per (band, hop group) then decodes it into per-ear
+//     accumulators in registers (the Nyquist band's in shared memory), two
+//     8-warp blocks an SM with 96 KB of shared memory each;
+//   * the blocks of a cluster sum their decoded spectra through
+//     distributed shared memory in rank order 0, 1, ..., so the result does
+//     not depend on scheduling, and split the irDFTs of the (ear, hop)
+//     frames between them (irdft256: no A/B reads); only those frames
+//     (S, cout, H, 256) go to a scratch buffer that is mostly L2-resident;
 //   * all arithmetic is fp32 FMA, no TF32, for every precision mode
 //     (ops/precision.py); the sums differ from the plain version only in
 //     their order.
 // A second, light launch does step 6, one thread per output sample
-// (`overlap_add`).  It, the hop load, the fold, the rDFT loop, the decode
-// and the irDFT are shared with the other kernels through
-// afstft_common.cuh.
-// Making the rDFT a tensor-core product (3xTF32 or a split-bf16 scheme as
-// on the TPU) is later work.
+// (`overlap_add`).  It, the hop load, the fold, the FFTs and the decode are
+// shared with the other kernels through afstft_common.cuh.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "afstft_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int TAIL_HOPS = 15;         // carried input hops (9 + 6)
-constexpr int TILE = 32;              // output hops per block
-constexpr int NF = TILE + 6;          // frames per block (6-hop context)
+constexpr int TILE = 32;              // output hops per cluster
+constexpr int NF = TILE + 6;          // frames per tile (6-hop context)
 constexpr int NHOPS_IN = NF + NT;     // input hops the frames span
-constexpr int GROUPS = 2;             // frame groups per band
-constexpr int FPG = NF / GROUPS;      // rDFT frames per thread
-constexpr int HPG = TILE / GROUPS;    // decoded hops per thread
+constexpr int HS = HOP + 4;           // hop stride in shared memory
+constexpr int GROUPS = 2;             // hop groups per band
+constexpr int HPG = TILE / GROUPS;    // decoded hops per band thread
 constexpr int EC = 2;                 // ears per pass over the channels
-constexpr int THREADS = 288;          // >= GROUPS * NB, whole warps
+constexpr int WARPS = 8;              // 16 warps an SM: 4 per scheduler,
+constexpr int THREADS = 32 * WARPS;   // so 128 registers a thread
+constexpr int MAX_CLUSTER = 4;
 
-static_assert(NF % GROUPS == 0 && TILE % GROUPS == 0, "even split");
-static_assert(THREADS >= GROUPS * NB && THREADS >= FRAME, "threads");
-static_assert(THREADS >= EC * TILE, "threads");
+static_assert(TILE % GROUPS == 0, "even split");
+static_assert(THREADS == GROUPS * HOP, "a thread per (band < 128, group)");
+static_assert(THREADS >= EC * TILE, "a thread per Nyquist accumulator");
 
-// shared memory carve-up, in floats (each part a multiple of 4)
-constexpr int SM_HOPS = NHOPS_IN * HOP;
-constexpr int SM_WIN = TOTAL_HOPS * HOP;
-constexpr int SM_FOLD = NF * FRAME;
+// shared memory carve-up, in floats (each part a multiple of 4); the
+// decoded spectra of the block (EC x TILE rows of NB_PAD bins) reuse the
+// hop buffers and the spectrum once the channel loop is over; the decode
+// of the Nyquist band (128) accumulates in shared memory
+constexpr int SM_HOPS = NHOPS_IN * HS;             // one hop buffer
 constexpr int SM_SPEC = NF * NB * 2;
+constexpr int SM_WIN = TOTAL_HOPS * HS;
+constexpr int SM_TW = 2 * FFT_TW;
+constexpr int SM_NYQ = EC * TILE * 2;
 constexpr int SM_OUT = EC * TILE * NB_PAD * 2;
-constexpr int SM_FLOATS = SM_HOPS + SM_WIN + SM_FOLD + SM_SPEC + SM_OUT;
-static_assert(SM_HOPS % 4 == 0 && SM_WIN % 4 == 0 && SM_FOLD % 4 == 0 &&
-              SM_SPEC % 4 == 0, "16-byte aligned parts");
-static_assert(SM_FLOATS * 4 <= 232448, "fits a block's shared memory");
+constexpr int SM_FLOATS = 2 * SM_HOPS + SM_SPEC + SM_WIN + SM_TW + SM_NYQ;
+static_assert(SM_HOPS % 4 == 0 && SM_SPEC % 4 == 0 && SM_WIN % 4 == 0 &&
+              SM_TW % 4 == 0, "16-byte aligned parts");
+static_assert(SM_OUT <= 2 * SM_HOPS + SM_SPEC, "decoded spectra fit");
+static_assert(SM_FLOATS * 4 <= 232448 / 2, "two blocks fit an SM");
 
-// Launch (a): analysis, decode and irDFT of one (stream, hop tile).
-// HYBRID: d at hop offset 3 with the hybrid context, else d at offset 6.
+// Launch (a): analysis, decode and irDFT of one (stream, hop tile) by a
+// cluster.  HYBRID: d at hop offset 3 with the hybrid context, else d at
+// offset 6.
 template <bool HYBRID>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
                       const float* __restrict__ x,        // (S, cin, H*HOP)
                       const float* __restrict__ taps,     // (cin, cout, 4, NB)
                                                           // per stream
                       long long taps_stride,              // 0: shared taps
                       const float* __restrict__ w_ana,    // (10*HOP)
-                      const float* __restrict__ Cm,       // (FRAME, NB)
-                      const float* __restrict__ Sm,       // (FRAME, NB)
-                      const float* __restrict__ Am,       // (NB_PAD, FRAME)
-                      const float* __restrict__ Bm,       // (NB_PAD, FRAME)
+                      const float2* __restrict__ tw_g,    // (FFT_TW)
                       float* __restrict__ frames,         // (S, cout, H, FRAME)
-                      int cin, int cout, int H, int n_tiles) {
+                      int cin, int cout, int H, int n_tiles, int low_delay) {
   extern __shared__ float4 smem4[];
-  float* hop_s = reinterpret_cast<float*>(smem4);
-  float* win_s = hop_s + SM_HOPS;
-  float* fold_s = win_s + SM_WIN;
-  float2* spec_s = reinterpret_cast<float2*>(fold_s + SM_FOLD);
-  float* out_s = fold_s + SM_FOLD + SM_SPEC;
+  float* hop_s = reinterpret_cast<float*>(smem4);      // 2 buffers
+  float2* spec_s = reinterpret_cast<float2*>(hop_s + 2 * SM_HOPS);
+  float* win_s = hop_s + 2 * SM_HOPS + SM_SPEC;
+  float2* tw = reinterpret_cast<float2*>(win_s + SM_WIN);
+  float2* nyq_s = tw + FFT_TW;                         // (EC, TILE)
+  float* out_s = hop_s;                                // after the channels
 
-  const int tid = threadIdx.x;
-  const int s = blockIdx.x / n_tiles;
-  const int h0 = (blockIdx.x % n_tiles) * TILE;
-  const int k = tid % NB;             // band of this thread
-  const int grp = tid / NB;           // frame/hop group; >= GROUPS: idle
-  const bool band_thread = grp < GROUPS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x / cs;
+  const int s = tile / n_tiles;
+  const int h0 = (tile % n_tiles) * TILE;
+  const int k = tid % HOP;            // band of this thread
+  const int grp = tid / HOP;          // its hop group
   const bool hyb = HYBRID && k < G_BANDS;
   constexpr int D_OFF = HYBRID ? 3 : 6;
   const float* tps = taps + s * taps_stride;
 
-  for (int i = tid; i < SM_WIN; i += THREADS) win_s[i] = w_ana[i];
+  for (int i = tid; i < TOTAL_HOPS * HOP; i += THREADS)
+    win_s[(i / HOP) * HS + i % HOP] = w_ana[i];
+  for (int i = tid; i < FFT_TW; i += THREADS) tw[i] = tw_g[i];
+
+  auto load = [&](int c, int buf) {
+    load_hops_async(hop_s + buf * SM_HOPS, HS,
+                    in_tail + ((size_t)s * cin + c) * (TAIL_HOPS * HOP),
+                    TAIL_HOPS, x + ((size_t)s * cin + c) * ((size_t)H * HOP),
+                    H, h0, NHOPS_IN, tid, THREADS);
+  };
 
   for (int e0 = 0; e0 < cout; e0 += EC) {
     const int ne = min(EC, cout - e0);
@@ -123,102 +147,156 @@ analysis_decode_irdft(const float* __restrict__ in_tail,  // (S, cin, 15*HOP)
     for (int e = 0; e < EC; ++e)
 #pragma unroll
       for (int hh = 0; hh < HPG; ++hh) acc_re[e][hh] = acc_im[e][hh] = 0.f;
+    if (tid < EC * TILE) nyq_s[tid] = make_float2(0.f, 0.f);
 
-    for (int c = 0; c < cin; ++c) {
-      // 1. input hops h0 .. h0+NHOPS_IN-1 of [in_tail | x]; zeros past the end
-      load_hops(hop_s, in_tail + ((size_t)s * cin + c) * (TAIL_HOPS * HOP),
-                TAIL_HOPS, x + ((size_t)s * cin + c) * ((size_t)H * HOP), H,
-                h0, NHOPS_IN, tid, THREADS);
+    // this block's channels rank, rank + cs, ... (cs <= cin: at least one)
+    load(rank, 0);
+    cp_async_commit();
+    int it = 0;
+    for (int c = rank; c < cin; c += cs, ++it) {
+      // 1. start the next channel's hops, wait for this channel's
+      if (c + cs < cin) load(c + cs, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
+      const float* hops = hop_s + (it & 1) * SM_HOPS;
 
-      // 2. window fold: parity p accumulates window hops p, p+2, ..., p+8
-      fold_frames(fold_s, hop_s, win_s, NF, tid);
-      __syncthreads();
-
-      // 3. rDFT: this thread's band k for frames grp*FPG .. grp*FPG+FPG-1
-      if (band_thread) {
-        float sr[FPG], si[FPG];
-        rdft_band<FPG>(fold_s + grp * FPG * FRAME, Cm, Sm, k, sr, si);
+      // 2. frame j per warp: fold, rDFT, spectrum to shared memory
+      for (int j = warp; j < NF; j += WARPS) {
+        float2 v[4];
+        fold_lane(v, hops, HS, j, lane, [&](int m, int r) {
+          return window_pair(win_s, HS, lane, m, r);
+        });
+        const float nyq = rdft256(v, tw, lane);
 #pragma unroll
-        for (int jj = 0; jj < FPG; ++jj)
-          spec_s[(grp * FPG + jj) * NB + k] = make_float2(sr[jj], si[jj]);
+        for (int r = 0; r < 4; ++r) spec_s[j * NB + lane + 32 * r] = v[r];
+        if (lane == 0) spec_s[j * NB + HOP] = make_float2(nyq, 0.f);
       }
       __syncthreads();
 
-      // 4. decode this channel into hops grp*HPG .. grp*HPG+HPG-1, band k
-      if (band_thread) {
-        const BandTaps<EC> t = load_taps<EC>(
-            tps + ((size_t)c * cout + e0) * 4 * NB + k, ne, hyb);
+      // 3. decode this channel into hops grp*HPG .. grp*HPG+HPG-1, band k
+      const float* tc = tps + ((size_t)c * cout + e0) * 4 * NB;
+      const BandTaps<EC> t = load_taps<EC>(tc + k, ne, hyb);
 #pragma unroll
-        for (int hh = 0; hh < HPG; ++hh) {
-          const int h = grp * HPG + hh;
-          const float2 d = spec_s[(h + D_OFF) * NB + k];
-          float2 w = make_float2(0.f, 0.f);
-          if (hyb) {
-            const float2 g = hybrid_context(
-                spec_s[h * NB + k], spec_s[(h + 2) * NB + k],
-                spec_s[(h + 4) * NB + k], spec_s[(h + 6) * NB + k]);
-            w = make_float2(-g.y, g.x);
-          }
-          decode_hop<EC, HPG>(t, d, w, acc_re, acc_im, hh);
+      for (int hh = 0; hh < HPG; ++hh) {
+        const int h = grp * HPG + hh;
+        const float2 d = spec_s[(h + D_OFF) * NB + k];
+        float2 w = make_float2(0.f, 0.f);
+        if (hyb) {
+          const float2 g = hybrid_context(
+              spec_s[h * NB + k], spec_s[(h + 2) * NB + k],
+              spec_s[(h + 4) * NB + k], spec_s[(h + 6) * NB + k]);
+          w = make_float2(-g.y, g.x);
         }
+        decode_hop<EC, HPG>(t, d, w, acc_re, acc_im, hh);
+      }
+      //    and the Nyquist band, one (ear, hop) a thread (A taps only)
+      if (tid < EC * TILE) {
+        const int e = tid / TILE, h = tid % TILE;
+        const BandTaps<1> tn = load_taps<1>(tc + 4 * e * NB + HOP,
+                                            e < ne ? 1 : 0, false);
+        const float2 d = spec_s[(h + D_OFF) * NB + HOP];
+        float2 a = nyq_s[tid];
+        a.x += tn.are[0] * d.x - tn.aim[0] * d.y;
+        a.y += tn.are[0] * d.y + tn.aim[0] * d.x;
+        nyq_s[tid] = a;
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // the spectrum is read; out_s reuses it
 
-    // 5. decoded spectra to shared memory as (re, im) pairs, band NB zeroed
-    if (band_thread)
-      store_decoded<EC, HPG, TILE>(out_s, acc_re, acc_im, grp * HPG, k);
-    zero_pad_band<EC, TILE>(out_s, tid);
-    __syncthreads();
+    // 4. this block's decoded spectra to shared memory as (re, im) pairs
+    store_decoded<EC, HPG, TILE>(out_s, acc_re, acc_im, grp * HPG, k);
+    if (tid < EC * TILE) {
+      out_s[(tid * NB_PAD + HOP) * 2 + 0] = nyq_s[tid].x;
+      out_s[(tid * NB_PAD + HOP) * 2 + 1] = nyq_s[tid].y;
+    }
+    cluster.sync();
 
-    // 6. irDFT: thread n computes sample n of every (ear, hop) frame
-    irdft_tile<EC, TILE>(out_s, Am, Bm,
-                         frames + ((size_t)s * cout + e0) * H * FRAME, H, h0,
-                         ne, tid);
-    __syncthreads();  // out_s is rewritten by the next ear pass
+    // 5. irDFT of this rank's (ear, hop) frames, their spectra summed over
+    //    the cluster's blocks in rank order
+    for (int f = rank + cs * warp; f < EC * TILE; f += cs * WARPS) {
+      const int e = f / TILE, hh = f % TILE;
+      if (e >= ne || h0 + hh >= H) continue;  // warp-uniform
+      float2 v[4] = {};
+      float nyq = 0.f;
+      for (int q = 0; q < cs; ++q) {
+        const float* o = cluster.map_shared_rank(out_s, q) + f * NB_PAD * 2;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 u =
+              *reinterpret_cast<const float2*>(o + 2 * (lane + 32 * r));
+          v[r] = make_float2(v[r].x + u.x, v[r].y + u.y);
+        }
+        nyq += o[2 * HOP];
+      }
+      if (low_delay && (lane & 1)) {  // (-1)^k on the odd bins
+#pragma unroll
+        for (int r = 0; r < 4; ++r) v[r] = make_float2(-v[r].x, -v[r].y);
+      }
+      irdft256(v, nyq, tw, lane);
+      float* fo = frames + (((size_t)s * cout + e0 + e) * H + h0 + hh) * FRAME;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<float2*>(fo + 2 * fft_in_index(lane, r)) = v[r];
+    }
+    cluster.sync();  // every rank has read out_s before it is rewritten
   }
 }
 
 template <bool HYBRID>
 cudaError_t launch(const float* in_tail, const float* x, const float* taps,
-                   long long taps_stride, const float* w_ana,
-                   const float* Cm, const float* Sm, const float* Am,
-                   const float* Bm, float* frames, int n_streams, int cin,
-                   int cout, int H, cudaStream_t st) {
+                   long long taps_stride, const float* w_ana, const float* tw,
+                   float* frames, int n_streams, int cin, int cout, int H,
+                   int low_delay, cudaStream_t st) {
   const int n_tiles = (H + TILE - 1) / TILE;
+  const int cs = cin < MAX_CLUSTER ? cin : MAX_CLUSTER;
   const int smem = SM_FLOATS * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       analysis_decode_irdft<HYBRID>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  analysis_decode_irdft<HYBRID><<<n_streams * n_tiles, THREADS, smem, st>>>(
-      in_tail, x, taps, taps_stride, w_ana, Cm, Sm, Am, Bm, frames, cin, cout,
-      H, n_tiles);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_streams * n_tiles * cs));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, analysis_decode_irdft<HYBRID>, in_tail, x,
+                            taps, taps_stride, w_ana,
+                            reinterpret_cast<const float2*>(tw), frames, cin,
+                            cout, H, n_tiles, low_delay);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches both kernels on `stream` and
-// returns the first CUDA error code (0 = success); allocates nothing.
-// hybrid != 0: a hybrid bank; per_stream != 0: taps (S, cin, cout, 4, NB).
-// For a low-delay bank the caller passes its windows and the signed A/B.
+// returns the first CUDA error code (0 = success; a refused cluster launch
+// returns its code); allocates nothing.  hybrid != 0: a hybrid bank;
+// per_stream != 0: taps (S, cin, cout, 4, NB); low_delay != 0: the odd-bin
+// sign before the irDFT (the caller passes the low-delay windows).  tw: the
+// FFT twiddle table W256^k, (256, 2) float32.
 extern "C" int saf_render_full_ri(const float* in_tail, const float* x,
                                   const float* ola_tail, const float* taps,
                                   const float* w_ana, const float* w_syn,
-                                  const float* Cm, const float* Sm,
-                                  const float* Am, const float* Bm,
-                                  float* frames, float* y, float* new_tail,
-                                  int n_streams, int cin, int cout, int H,
-                                  int hybrid, int per_stream, void* stream) {
+                                  const float* tw, float* frames, float* y,
+                                  float* new_tail, int n_streams, int cin,
+                                  int cout, int H, int hybrid, int per_stream,
+                                  int low_delay, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long taps_stride =
       per_stream ? (long long)cin * cout * 4 * NB : 0;
   const cudaError_t err =
-      hybrid ? launch<true>(in_tail, x, taps, taps_stride, w_ana, Cm, Sm, Am,
-                            Bm, frames, n_streams, cin, cout, H, st)
-             : launch<false>(in_tail, x, taps, taps_stride, w_ana, Cm, Sm,
-                             Am, Bm, frames, n_streams, cin, cout, H, st);
+      hybrid ? launch<true>(in_tail, x, taps, taps_stride, w_ana, tw, frames,
+                            n_streams, cin, cout, H, low_delay, st)
+             : launch<false>(in_tail, x, taps, taps_stride, w_ana, tw, frames,
+                             n_streams, cin, cout, H, low_delay, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_overlap_add(frames, w_syn, ola_tail, y, new_tail,
                                  (long long)n_streams * cout, H, st);

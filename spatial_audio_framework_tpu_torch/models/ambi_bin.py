@@ -132,14 +132,14 @@ def _fuma_conv(cfg: AmbiBinConfig) -> Optional[np.ndarray]:
 
 
 def weights_from_numpy(M_re: np.ndarray, M_im: np.ndarray,
-                       device: torch.device | str = "cpu"):
+                       device: torch.device | str | None = None):
     """(M_re, M_im) numpy arrays (e.g. the JAX package's ``design_ri``
     output) → float32 tensors on ``device``."""
     return f32_tensor(M_re, device), f32_tensor(M_im, device)
 
 
 def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,
-                     device: torch.device | str = "cpu"
+                     device: torch.device | str | None = None
                      ) -> ri.AfSTFTStateBatched:
     """A batched state (e.g. the JAX package's) from numpy arrays."""
     return ri.AfSTFTStateBatched(in_tail=f32_tensor(in_tail, device),
@@ -150,7 +150,7 @@ def design_ri(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
               hrir_dirs_deg: Optional[np.ndarray] = None,
               hrir_fs: Optional[int] = None,
               sofa_filepath: Optional[str] = None,
-              device: torch.device | str = "cpu"):
+              device: torch.device | str | None = None):
     """The initCodec pipeline (ambi_bin.c:167-380) → (M_re, M_im), each a
     (nBands, 2, nSH) float32 tensor on ``device``.  Pass an HRIR set via
     (hrirs, hrir_dirs_deg, hrir_fs), or nothing for the default set."""
@@ -159,7 +159,7 @@ def design_ri(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
 
 
 def init_state_batched(cfg: AmbiBinConfig, n_streams: int,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str | None = None
                        ) -> ri.AfSTFTStateBatched:
     return ri.init_state_batched(cfg.afstft, n_streams, cfg.nsh, C.NUM_EARS,
                                  device=device)

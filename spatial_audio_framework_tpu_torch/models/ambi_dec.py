@@ -135,7 +135,7 @@ def design_host(cfg: AmbiDecConfig, ls_dirs_deg: np.ndarray,
 
 
 def weights_from_numpy(M_re: np.ndarray, M_im: Optional[np.ndarray] = None,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str | None = None
                        ) -> AmbiDecWeightsRI:
     """Weights (e.g. the JAX package's ``design_ri`` output) from numpy
     arrays → float32 tensors on ``device``."""
@@ -145,7 +145,7 @@ def weights_from_numpy(M_re: np.ndarray, M_im: Optional[np.ndarray] = None,
 
 
 def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,
-                     device: torch.device | str = "cpu"
+                     device: torch.device | str | None = None
                      ) -> ri.AfSTFTStateBatched:
     """A batched state (e.g. the JAX package's) from numpy arrays."""
     return ri.AfSTFTStateBatched(in_tail=f32_tensor(in_tail, device),
@@ -154,7 +154,7 @@ def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,
 
 def design_ri(cfg: AmbiDecConfig, ls_dirs_deg: np.ndarray,
               order_per_band: Optional[np.ndarray] = None,
-              device: torch.device | str = "cpu") -> AmbiDecWeightsRI:
+              device: torch.device | str | None = None) -> AmbiDecWeightsRI:
     """Host design (:func:`design_host`) → weights for
     :func:`process_ri_batched`, on ``device``."""
     return weights_from_numpy(design_host(cfg, ls_dirs_deg, order_per_band),
@@ -162,7 +162,7 @@ def design_ri(cfg: AmbiDecConfig, ls_dirs_deg: np.ndarray,
 
 
 def init_state_batched(cfg: AmbiDecConfig, n_streams: int, n_ls: int,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str | None = None
                        ) -> ri.AfSTFTStateBatched:
     n_out = 2 if cfg.binauralise_ls else n_ls
     return ri.init_state_batched(cfg.afstft, n_streams, cfg.nsh, n_out,

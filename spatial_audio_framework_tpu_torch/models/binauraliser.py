@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from spatial_audio_framework_tpu_torch import f32_tensor
+from spatial_audio_framework_tpu_torch import default_device, f32_tensor
 from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.modules import hrir as hrir_mod, vbap
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
@@ -106,10 +106,12 @@ def _design_host(cfg: BinauraliserConfig, hrirs: Optional[np.ndarray] = None,
 
 
 def weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w, table_idx,
-                       freqs, device: torch.device | str = "cpu"
+                       freqs, device: torch.device | str | None = None
                        ) -> BinauraliserWeightsRI:
     """Weights from numpy arrays (e.g. the fields of the JAX package's
-    ``BinauraliserWeightsRI``) → tensors on ``device``."""
+    ``BinauraliserWeightsRI``) → tensors on ``device`` (default: the
+    card)."""
+    device = default_device() if device is None else device
     return BinauraliserWeightsRI(
         hrtf_re=f32_tensor(hrtf_re, device), hrtf_im=f32_tensor(hrtf_im, device),
         hrtf_mag=f32_tensor(hrtf_mag, device), itds=f32_tensor(itds, device),
@@ -119,7 +121,7 @@ def weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w, table_idx,
 
 
 def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,
-                     device: torch.device | str = "cpu"
+                     device: torch.device | str | None = None
                      ) -> ri.AfSTFTStateBatched:
     """A batched state (e.g. the JAX package's) from numpy arrays."""
     return ri.AfSTFTStateBatched(in_tail=f32_tensor(in_tail, device),
@@ -130,7 +132,7 @@ def design_ri(cfg: BinauraliserConfig, hrirs: Optional[np.ndarray] = None,
               hrir_dirs_deg: Optional[np.ndarray] = None,
               hrir_fs: Optional[int] = None,
               sofa_filepath: Optional[str] = None, rand_stream=None,
-              device: torch.device | str = "cpu") -> BinauraliserWeightsRI:
+              device: torch.device | str | None = None) -> BinauraliserWeightsRI:
     """The initCodec pipeline → weights on ``device``.  Pass an HRIR set via
     (hrirs, hrir_dirs_deg, hrir_fs), a SOFA path, or nothing for the
     default set; ``rand_stream`` as in ``vbap.find_ls_triplets``."""
@@ -141,7 +143,7 @@ def design_ri(cfg: BinauraliserConfig, hrirs: Optional[np.ndarray] = None,
 
 
 def init_state_batched(cfg: BinauraliserConfig, n_streams: int,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str | None = None
                        ) -> ri.AfSTFTStateBatched:
     return ri.init_state_batched(cfg.afstft, n_streams, cfg.n_sources,
                                  C.NUM_EARS, device=device)

@@ -20,7 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spatial_audio_framework_tpu_torch import data_path, f32_tensor
+from spatial_audio_framework_tpu_torch import (data_path, default_device,
+                                               f32_tensor)
 from spatial_audio_framework_tpu_torch.ops.fft import (_rdft_mats, irfft_op,
                                                        rfft_op)
 
@@ -110,7 +111,8 @@ class AfSTFT:
         return np.concatenate([stft2hyb * uni[src], uni[5:]]).astype(np.float32)
 
     def init_state(self, n_ch_in: int, n_ch_out: int,
-                   device: torch.device | str = "cpu") -> AfSTFTState:
+                   device: torch.device | str | None = None) -> AfSTFTState:
+        device = default_device() if device is None else device
         hop, h_len = self.hop, self.h_len
         return AfSTFTState(
             in_tail=torch.zeros((n_ch_in, h_len - hop), dtype=torch.float32,
@@ -214,7 +216,7 @@ def analyse(sig: np.ndarray, hop: int, low_delay: bool = False,
     n_slots = int(np.ceil(n / hop))
     buf = np.zeros((n_ch, n_slots * hop), np.float32)
     buf[:, :n] = sig
-    st = cfg.init_state(n_ch, 1)
+    st = cfg.init_state(n_ch, 1, device="cpu")
     out, _ = cfg.analysis(st, torch.from_numpy(buf))
     return out.numpy()
 

@@ -29,6 +29,11 @@ A_u = M for all other bands and B_u = 0.  :func:`decode_taps` builds the
 (A, B) taps; d = spec[h+3] and g = c1·(…) + c2·(…) on bands 0..15 are what
 the decode reads.  Non-hybrid banks decode d = spec[h+6] with A alone.
 
+``analysis_front_dg_ri`` and ``render_full_ri`` take their rDFT and
+irDFT as FFTs (``rdft256`` / ``irdft256`` in ``csrc/afstft_common.cuh``,
+twiddles from :func:`_fft_twiddles`); the other kernels still multiply by
+the dense C/S and A/B matrices.
+
 Each entry point launches its hand-written CUDA kernel for CUDA tensors
 (counted in ``<entry>.launches``) and uses its plain PyTorch version
 ``<entry>_reference`` for CPU tensors only.  The kernels take every option
@@ -55,7 +60,8 @@ from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
                                                           _TOTAL_HOPS,
                                                           _windows,
                                                           device_consts)
-from spatial_audio_framework_tpu_torch.ops.fft import _rdft_mats
+from spatial_audio_framework_tpu_torch.ops.fft import (_fft256_twiddles,
+                                                       _rdft_mats)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 
 _G_BANDS = 16   # lanes carried for the hybrid-FIR context g (the B taps are
@@ -137,6 +143,14 @@ def _check_inputs(what: str, x: torch.Tensor, expect: dict) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and "
                              "16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_twiddles(device: torch.device) -> torch.Tensor:
+    """The FFT-based kernels' twiddle table W₂₅₆ᵏ ((256, 2) float32,
+    :func:`~spatial_audio_framework_tpu_torch.ops.fft._fft256_twiddles`) on
+    ``device``, made once per device."""
+    return f32_tensor(_fft256_twiddles(), device)
 
 
 def _launch(what: str, fn: str, device: torch.device, *args) -> None:
@@ -304,7 +318,7 @@ def analysis_front_dg_ri(tail: torch.Tensor, x: torch.Tensor,
            for n in (hop + 1, hop + 1, _G_BANDS, _G_BANDS)]
     _launch("analysis_front_dg_ri", "saf_analysis_front_dg_ri", x.device,
             tail.data_ptr(), x.data_ptr(), k["w_ana"].data_ptr(),
-            k["C"].data_ptr(), k["S"].data_ptr(),
+            _fft_twiddles(x.device).data_ptr(),
             *(t.data_ptr() for t in out), B, t_hops, x_hops)
     analysis_front_dg_ri.launches += 1
     return tuple(out)
@@ -424,8 +438,9 @@ def synthesis_back_ri_reference(spec: torch.Tensor, tail: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel_consts(device: torch.device,
                    low_delay: bool = False) -> dict[str, torch.Tensor]:
-    """The windows and DFT matrices the renderer kernels take, on
-    ``device``, all row-major; A and B carry the low-delay odd-bin sign
+    """The windows and DFT matrices the decode + synthesis kernels
+    (``csrc/render_decode_synthesis_ri.cu``) take, on ``device``, all
+    row-major; A and B carry the low-delay odd-bin sign
     (pallas_afstft.py:466-469) and get a zero 130th row so the kernels read
     bands in pairs."""
     k = device_consts(_KERNEL_HOP, low_delay, device)
@@ -648,7 +663,7 @@ def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
     if S < 1 or H < 1:
         raise ValueError(f"render_full_ri: needs S >= 1 and H >= 1 hops "
                          f"(got S={S}, x length {x.shape[2]})")
-    k = _kernel_consts(x.device, low_delay)
+    k = device_consts(hop, low_delay, x.device)
     frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
                          device=x.device)
     y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x.device)
@@ -657,10 +672,9 @@ def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
     _launch("render_full_ri", "saf_render_full_ri", x.device,
             in_tail.data_ptr(), x.data_ptr(), ola_tail.data_ptr(),
             taps.data_ptr(), k["w_ana"].data_ptr(), k["w_syn"].data_ptr(),
-            k["C"].data_ptr(), k["S"].data_ptr(), k["A"].data_ptr(),
-            k["B"].data_ptr(), frames.data_ptr(), y.data_ptr(),
-            new_tail.data_ptr(), S, cin, cout, H, int(hybrid),
-            int(per_stream))
+            _fft_twiddles(x.device).data_ptr(), frames.data_ptr(),
+            y.data_ptr(), new_tail.data_ptr(), S, cin, cout, H, int(hybrid),
+            int(per_stream), int(low_delay))
     render_full_ri.launches += 1
     return y, new_tail
 

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from spatial_audio_framework_tpu_torch import default_device
 from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
                                                           _TOTAL_HOPS, AfSTFT,
                                                           device_consts)
@@ -57,15 +58,19 @@ class AfSTFTStateBatched(NamedTuple):
 
 # The widest input the one-pass kernel takes: the JAX package's choice at
 # the 64-hop chunk (order 3 runs one pass, orders 4-7 the (d, g) pair).  On
-# the H100 the one-pass grid is S·⌈H/32⌉ blocks whatever cin is, each block
-# looping over all cin channels, while the two-kernel front spreads S·cin
-# rows over the SMs.
+# the H100 the one-pass kernel's clusters split cin across at most 4
+# blocks, and it is the faster route at orders 3 and 7 (PERF.md); the
+# threshold stays the reference's until a chunk-level measurement moves it
+# (ROADMAP.md, Queue 4).
 _ONE_PASS_MAX_CIN = 16
 
 
 def init_state_batched(bank: AfSTFT, n_streams: int, n_ch_in: int,
-                       n_ch_out: int, device: torch.device | str = "cpu"
+                       n_ch_out: int, device: torch.device | str | None = None
                        ) -> AfSTFTStateBatched:
+    """Zero state of ``n_streams`` streams on ``device`` (default: the
+    card)."""
+    device = default_device() if device is None else device
     hop, h_len = bank.hop, bank.h_len
     S = n_streams
     return AfSTFTStateBatched(

@@ -201,7 +201,7 @@ def test_render_dispatch(monkeypatch, fused, cin, cout, expect):
     _spy(monkeypatch, calls)
     rng = np.random.default_rng(5)
     bank = taf.AfSTFT()
-    st = tri.init_state_batched(bank, 2, cin, cout)
+    st = tri.init_state_batched(bank, 2, cin, cout, device="cpu")
     M = torch.from_numpy(_u(rng, (133, cout, cin)))
     x = torch.from_numpy(_u(rng, (2, cin, 3 * 128)))
     y, _ = tri.render_tf_matrix_ri(bank, st, x, M, fused=fused)

@@ -29,7 +29,7 @@ def test_complex_afstft_round_trip_vs_jax(bank):
     kw = BANKS[bank]
     jb, tb = jaf.AfSTFT(**kw), taf.AfSTFT(**kw)
     rng = np.random.default_rng(0)
-    js, ts = jb.init_state(3, 3), tb.init_state(3, 3)
+    js, ts = jb.init_state(3, 3), tb.init_state(3, 3, device="cpu")
     for _ in range(2):
         x = _u(rng, (3, 4 * 128))
         jX, js = jb.analysis(js, jnp.asarray(x))
@@ -90,7 +90,7 @@ def test_render_tf_matrix_vs_jax(matrix, fused):
            else rng.standard_normal(shape).astype(np.float32))
     jb, tb = jaf.AfSTFT(), taf.AfSTFT()
     jst = jri.init_state_batched(jb, S, cin, cout)
-    tst = tri.init_state_batched(tb, S, cin, cout)
+    tst = tri.init_state_batched(tb, S, cin, cout, device="cpu")
     jM = (jnp.asarray(Mre), None if Mim is None else jnp.asarray(Mim))
     tM = (torch.from_numpy(Mre), None if Mim is None else torch.from_numpy(Mim))
     for _ in range(2):
@@ -129,7 +129,8 @@ def test_hop64_dispatch_takes_the_plain_path(shape, monkeypatch):
     M = rng.standard_normal((2, S, tb.n_bands, cout, cin)).astype(np.float32)
     tM = torch.from_numpy(M)
     jst = jri.init_state_batched(jb, S, cin, cout)
-    sts = {f: tri.init_state_batched(tb, S, cin, cout) for f in (True, False)}
+    sts = {f: tri.init_state_batched(tb, S, cin, cout, device="cpu")
+           for f in (True, False)}
     for _ in range(2):
         x = _u(rng, (S, cin, H * 64))
         ys = {}

@@ -27,7 +27,8 @@ def _jax_design(order, method, preproc="eq"):
 def test_design_ri_vs_jax(order, method, preproc):
     ref = _jax_design(order, method, preproc)
     got = tab.design_ri(tab.AmbiBinConfig(order=order, method=method,
-                                          hrir_preproc=preproc))
+                                          hrir_preproc=preproc),
+                        device="cpu")
     for a, b in zip(ref, got):
         assert b.dtype == torch.float32 and tuple(b.shape) == a.shape
         assert np.abs(a - b.numpy()).max() <= DESIGN_TOL
@@ -50,7 +51,7 @@ def _run_jax(cfg, w, xs):
 
 
 def _run_port(cfg, w, xs, fused=True):
-    st = tab.init_state_batched(cfg, xs[0].shape[0])
+    st = tab.init_state_batched(cfg, xs[0].shape[0], device="cpu")
     ys = []
     for x in xs:
         y, st = tab.process_ri_batched(cfg, w, st, torch.from_numpy(x),
@@ -75,7 +76,7 @@ def test_process_ri_batched_vs_jax_on_its_weights():
     tcfg = tab.AmbiBinConfig(order=1, mxu_precision="highest")
     xs = _chunks(np.random.default_rng(0), 2, 4)
     ys_j, st_j = _run_jax(jcfg, (jnp.asarray(Mre), jnp.asarray(Mim)), xs)
-    ys_t, st_t = _run_port(tcfg, tab.weights_from_numpy(Mre, Mim), xs)
+    ys_t, st_t = _run_port(tcfg, tab.weights_from_numpy(Mre, Mim, "cpu"), xs)
     _assert_close(ys_j, st_j, ys_t, st_t, RENDER_TOL)
 
 
@@ -88,7 +89,7 @@ def test_process_ri_batched_order7_vs_jax_on_its_weights():
     tcfg = tab.AmbiBinConfig(order=7, mxu_precision="highest")
     xs = _chunks(np.random.default_rng(7), 2, 64)
     ys_j, st_j = _run_jax(jcfg, (jnp.asarray(Mre), jnp.asarray(Mim)), xs)
-    ys_t, st_t = _run_port(tcfg, tab.weights_from_numpy(Mre, Mim), xs)
+    ys_t, st_t = _run_port(tcfg, tab.weights_from_numpy(Mre, Mim, "cpu"), xs)
     _assert_close(ys_j, st_j, ys_t, st_t, RENDER_TOL)
 
 
@@ -102,7 +103,7 @@ def test_process_ri_batched_fuma_vs_jax():
     ys_j, st_j = _run_jax(jab.AmbiBinConfig(**kw),
                           (jnp.asarray(M[0]), jnp.asarray(M[1])), xs)
     ys_t, st_t = _run_port(tab.AmbiBinConfig(**kw),
-                           tab.weights_from_numpy(M[0], M[1]), xs)
+                           tab.weights_from_numpy(M[0], M[1], "cpu"), xs)
     _assert_close(ys_j, st_j, ys_t, st_t, RENDER_TOL)
 
 
@@ -112,9 +113,10 @@ def test_fused_path_vs_plain_path():
     rng = np.random.default_rng(5)
     Mre, Mim = _jax_design(1, "magls")
     cfg = tab.AmbiBinConfig(order=1)
-    w = tab.weights_from_numpy(Mre, Mim)
+    w = tab.weights_from_numpy(Mre, Mim, "cpu")
     st0 = tab.state_from_numpy(
-        rng.uniform(-1, 1, (2, 4, 15 * 128)), rng.uniform(-1, 1, (2, 2, 9 * 128)))
+        rng.uniform(-1, 1, (2, 4, 15 * 128)), rng.uniform(-1, 1, (2, 2, 9 * 128)),
+        "cpu")
     xs = _chunks(rng, 2, 4)
     outs = []
     for fused in (True, False):

@@ -100,7 +100,7 @@ def test_design_ri_vs_jax(design, layout):
     opb = None
     if design == "mmd_order_per_band":
         opb = np.where(np.arange(133) < 40, 1, 3)
-    tw = tdec.design_ri(tdec.AmbiDecConfig(**kw), ls, opb)
+    tw = tdec.design_ri(tdec.AmbiDecConfig(**kw), ls, opb, device="cpu")
     jw = jdec.design_ri(jdec.AmbiDecConfig(**kw), ls, opb)
     assert tw.M_im is None and jw.M_im is None
     assert tw.M_re.shape == (133, ls.shape[0], 16)
@@ -111,7 +111,7 @@ def test_design_ri_input_conversion_vs_jax():
     """FuMa ordering and normalisation folded into an order-1 decoder."""
     kw = dict(master_order=1, ch_ordering="fuma", norm="fuma")
     ls = tpre.loudspeaker_preset("22.x")
-    tw = tdec.design_ri(tdec.AmbiDecConfig(**kw), ls)
+    tw = tdec.design_ri(tdec.AmbiDecConfig(**kw), ls, device="cpu")
     jw = jdec.design_ri(jdec.AmbiDecConfig(**kw), ls)
     assert np.abs(np.asarray(jw.M_re) - tw.M_re.numpy()).max() <= DESIGN_TOL
 
@@ -119,7 +119,7 @@ def test_design_ri_input_conversion_vs_jax():
 def test_binauralise_ls_is_not_ported_yet():
     cfg = tdec.AmbiDecConfig(master_order=3, binauralise_ls=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.design_ri(cfg, tpre.loudspeaker_preset("22.x"))
+        tdec.design_ri(cfg, tpre.loudspeaker_preset("22.x"), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +129,7 @@ def slice22():
     jcfg = jdec.AmbiDecConfig(master_order=3)
     tcfg = tdec.AmbiDecConfig(master_order=3)
     jw = jdec.design_ri(jcfg, ls)
-    tw = tdec.weights_from_numpy(np.asarray(jw.M_re))
+    tw = tdec.weights_from_numpy(np.asarray(jw.M_re), device="cpu")
     return jcfg, tcfg, jw, tw
 
 
@@ -146,7 +146,7 @@ def test_process_ri_batched_vs_jax(slice22, fused):
     jcfg, tcfg, jw, tw = slice22
     rng = np.random.default_rng(0)
     jst = jdec.init_state_batched(jcfg, 2, 22)
-    tst = tdec.init_state_batched(tcfg, 2, 22)
+    tst = tdec.init_state_batched(tcfg, 2, 22, device="cpu")
     tol = HIGH_TOL if fused else TOL
     for x in _inputs(rng, 2):
         jy, jst = jdec.process_ri_batched(jcfg, jw, jst, jnp.asarray(x),
@@ -166,7 +166,7 @@ def test_process_ri_batched_block_split(slice22):
     x = torch.from_numpy(_inputs(np.random.default_rng(1), 1, H=8)[0])
     st1 = tdec.state_from_numpy(
         np.random.default_rng(2).uniform(-1, 1, (2, 16, 15 * 128)),
-        np.random.default_rng(3).uniform(-1, 1, (2, 22, 9 * 128)))
+        np.random.default_rng(3).uniform(-1, 1, (2, 22, 9 * 128)), "cpu")
     y1, s1 = tdec.process_ri_batched(cfg, w, st1, x)
     st, ys = st1, []
     for i in range(4):

@@ -36,7 +36,7 @@ def _jax_design(mode):
 def _port_weights(mode):
     """The port's weights made from the JAX design (weights_from_numpy), so
     the render tests see identical tables."""
-    return tbin.weights_from_numpy(*_jax_design(mode))
+    return tbin.weights_from_numpy(*_jax_design(mode), device="cpu")
 
 
 @pytest.fixture
@@ -52,7 +52,8 @@ def exact_jax():
 @pytest.mark.parametrize("mode", MODES)
 def test_design_ri_vs_jax(mode):
     ref = _jax_design(mode)
-    got = tbin.design_ri(tbin.BinauraliserConfig(interp_mode=mode))
+    got = tbin.design_ri(tbin.BinauraliserConfig(interp_mode=mode),
+                         device="cpu")
     assert got._fields == jbin.BinauraliserWeightsRI._fields
     for name, a, b in zip(got._fields, ref, got):
         assert tuple(b.shape) == a.shape, name
@@ -190,7 +191,7 @@ def test_process_ri_batched_vs_jax(exact_jax, mode, n_src):
     jw = jbin.BinauraliserWeightsRI(*(jnp.asarray(a)
                                       for a in _jax_design(mode)))
     jst = jbin.init_state_batched(jcfg, 2)
-    tst = tbin.init_state_batched(tcfg, 2)
+    tst = tbin.init_state_batched(tcfg, 2, device="cpu")
     for x in xs:
         jy, jst = jbin.process_ri_batched(
             jcfg, jw, jst, jnp.asarray(x), jnp.asarray(dirs),
@@ -217,7 +218,7 @@ def test_fused_path_vs_plain_path(n_src):
     w = _port_weights(jbin.INTERP_TRI)
     dirs, ypr, _, xs = _stream_inputs(rng, 2, n_src)
     st0 = tbin.state_from_numpy(rng.uniform(-1, 1, (2, n_src, 15 * 128)),
-                                rng.uniform(-1, 1, (2, 2, 9 * 128)))
+                                rng.uniform(-1, 1, (2, 2, 9 * 128)), "cpu")
     outs = []
     for fused in (True, False):
         st, ys = st0, []
@@ -240,7 +241,7 @@ def test_rotation_off_ignores_ypr():
     w = _port_weights(jbin.INTERP_TRI)
     dirs, ypr, _, xs = _stream_inputs(rng, 2, 2)
     x, d = torch.from_numpy(xs[0]), torch.from_numpy(dirs)
-    st = tbin.init_state_batched(cfg, 2)
+    st = tbin.init_state_batched(cfg, 2, device="cpu")
     y0, _ = tbin.process_ri_batched(cfg, w, st, x, d)
     y1, _ = tbin.process_ri_batched(cfg, w, st, x, d,
                                     ypr=torch.from_numpy(ypr))

@@ -52,7 +52,7 @@ def test_ambi_bin_order4_end_to_end(g, route):
     default dispatch takes the two-kernel (d, g) route (cin = 25 > 16);
     "one_pass" forces the one-pass render_full_ri route."""
     cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d")
-    Mre, Mim = ambi_bin.design_ri(cfg)
+    Mre, Mim = ambi_bin.design_ri(cfg, device="cpu")
     R = geo.yaw_pitch_roll2_rzyx(np.pi, 0.0, 0.0).astype(np.float32)
     M_rot = torch.from_numpy(
         np.asarray(sh.get_sh_rot_mtx_real(R, 4), np.float32))
@@ -61,7 +61,7 @@ def test_ambi_bin_order4_end_to_end(g, route):
     x = torch.from_numpy(np.ascontiguousarray(
         g["ambi_bin_enc_y"][:, None] * g["ambi_bin_in_mono"][None, :],
         np.float32))[None]
-    st = ambi_bin.init_state_batched(cfg, 1)
+    st = ambi_bin.init_state_batched(cfg, 1, device="cpu")
     outs = []
     for f in range(x.shape[-1] // 512):
         xb = x[..., f * 512:(f + 1) * 512]
@@ -84,13 +84,13 @@ def test_binauraliser_end_to_end(g, case):
     the compiled C example's output."""
     rot = case == "brot"
     cfg = binauraliser.BinauraliserConfig(n_sources=2, enable_rotation=rot)
-    w = binauraliser.design_ri(cfg)
+    w = binauraliser.design_ri(cfg, device="cpu")
     dirs = torch.tensor([[[30.0, 0.0], [-45.0, 10.0]]])
     ypr = (torch.from_numpy(np.deg2rad([[40.0, -15.0, 10.0]]).astype(
         np.float32)) if rot else None)
     x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))[None]
     fsz = int(g["binaur_frame_size"][0])
-    st = binauraliser.init_state_batched(cfg, 1)
+    st = binauraliser.init_state_batched(cfg, 1, device="cpu")
     outs = []
     for f in range(x.shape[-1] // fsz):
         y, st = binauraliser.process_ri_batched(
@@ -125,9 +125,9 @@ def test_ambi_dec_end_to_end(g, case):
     cfg = ambi_dec.AmbiDecConfig(master_order=3, norm="n3d",
                                  transition_freq=800.0,
                                  **_AMBI_DEC_CASES[case])
-    w = ambi_dec.design_ri(cfg, ls, opb)
+    w = ambi_dec.design_ri(cfg, ls, opb, device="cpu")
     x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))[None]
-    st = ambi_dec.init_state_batched(cfg, 1, 9)
+    st = ambi_dec.init_state_batched(cfg, 1, 9, device="cpu")
     outs = []
     for f in range(x.shape[-1] // 128):
         y, st = ambi_dec.process_ri_batched(

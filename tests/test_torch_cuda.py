@@ -227,6 +227,71 @@ def test_analysis_front_dg_matches_plain_version(cuda, rows, H, low_delay):
         tail = torch.cat([tail, x], dim=-1)[:, H * 128:].contiguous()
 
 
+@pytest.mark.parametrize("rows,H,low_delay", [
+    (3, 31, False),        # odd H, one tile
+    (2, 33, True),
+    (2, 65, True),         # one hop into a second 64-hop tile
+    (2, 130, False),       # three tiles, the last partial
+    (4096, 64, False),     # the order-7 slice: 64 streams x 64 channels
+])
+def test_fft_front_dg_matches_plain_version(cuda, rows, H, low_delay):
+    """The FFT-based front around its 64-hop tile and at its main path's
+    rows (more tiles than the persistent grid has blocks)."""
+    rng = np.random.default_rng(rows + H)
+    tail = _u(rng, (rows, 15 * 128), cuda, amp=0.5)
+    x = _u(rng, (rows, H * 128), cuda, amp=0.5)
+    got = tak.analysis_front_dg_ri(tail, x, low_delay=low_delay)
+    ref = tak.analysis_front_dg_ri_reference(tail, x, low_delay=low_delay)
+    torch.cuda.synchronize()
+    for k, r in zip(got, ref):
+        assert (k - r).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("S,cin,cout,H,options", [
+    (2, 1, 2, 31, {}),     # a cluster of one block
+    (2, 3, 2, 33, {}),     # a cluster of three
+    (2, 5, 2, 64, {}),     # cin the cluster of four does not divide
+    (2, 16, 2, 64, {}),    # the flagship's width, four channels a block
+    (1, 64, 2, 1, {}),     # cout * cin = 128, H = 1
+    (2, 7, 1, 31, {}),     # one ear
+    (1, 6, 3, 64, {"low_delay": True}),           # ear passes of 2 and 1
+    (2, 5, 2, 33, {"per_stream": True}),
+    (2, 5, 2, 31, {"hybrid": False}),
+    (1, 127, 1, 4, {"hybrid": False, "low_delay": True}),
+])
+def test_cluster_render_matches_plain_version(cuda, S, cin, cout, H,
+                                              options):
+    """The FFT-based one-pass render on its thread-block clusters: every
+    cluster size, cin that the cluster size does not divide, each option;
+    two chained calls carrying both tails."""
+    rng = np.random.default_rng(S * cin + H)
+    taps = _taps(rng, S, cin, cout, options.get("per_stream", False),
+                 options.get("hybrid", True), cuda)
+    kt = rt = _u(rng, (S, cin, 15 * 128), cuda)
+    ko = ro = _u(rng, (S, cout, 9, 128), cuda)
+    for _ in range(2):
+        x = _u(rng, (S, cin, H * 128), cuda)
+        ky, ko = tak.render_full_ri(kt, x, ko, taps, **options)
+        ry, ro = tak.render_full_ri_reference(rt, x, ro, taps, **options)
+        torch.cuda.synchronize()
+        assert ky.shape == (S, cout, H * 128)
+        assert (ky - ry).abs().max().item() <= TOL
+        assert (ko - ro).abs().max().item() <= TOL
+        kt = rt = torch.cat([kt, x], dim=-1)[..., H * 128:].contiguous()
+
+
+def test_cluster_render_is_deterministic(cuda):
+    """The cluster's blocks sum their spectra in rank order: two launches
+    on the same inputs agree bit for bit."""
+    rng = np.random.default_rng(5)
+    taps = _taps(rng, 4, 16, 2, False, True, cuda)
+    args = (_u(rng, (4, 16, 15 * 128), cuda), _u(rng, (4, 16, 64 * 128), cuda),
+            _u(rng, (4, 2, 9, 128), cuda), taps)
+    y1, t1 = tak.render_full_ri(*args)
+    y2, t2 = tak.render_full_ri(*args)
+    assert torch.equal(y1, y2) and torch.equal(t1, t2)
+
+
 _RENDER_CASES = [  # S, cin, cout, H, low_delay, per_stream
     (3, 5, 2, 8, False, False),
     (2, 25, 2, 4, True, False),    # H < 9, low delay

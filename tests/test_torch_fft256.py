@@ -1,0 +1,252 @@
+"""A numpy mirror of the CUDA kernels' FFT-based 256-point rDFT / irDFT
+(``rdft256`` / ``irdft256`` in
+``spatial_audio_framework_tpu_torch/csrc/afstft_common.cuh``), step for step:
+one warp per frame, lane l holding four complex points v[0..3], the same
+stages, register/lane bit swaps, shuffles, twiddle indices and split
+formulas, and the host twiddle table (``ops/fft._fft256_twiddles``).
+
+The mirror runs forward against ``numpy.fft.rfft`` and inverse against the
+dense ``X.re @ A + X.im @ B`` of ``ops/fft._rdft_mats`` (the plain versions'
+operators), on random frames and on impulses at every index, and the
+kernels' fold + rDFT against the plain analysis front.  An index or
+twiddle mistake in the schedule fails here rather than on the card.
+Tolerance 1e-5 relative to the largest magnitude: float32 FFT rounding
+is ~1e-6 of it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from spatial_audio_framework_tpu_torch.ops import afstft_kernels as tak
+from spatial_audio_framework_tpu_torch.ops.fft import (_fft256_twiddles,
+                                                       _rdft_mats)
+
+TOL = 1e-5
+LANE = np.arange(32)
+TW = _fft256_twiddles()
+
+
+def tw(idx):
+    """W256^idx from the table, per lane (complex64)."""
+    t = TW[idx]
+    return (t[..., 0] + 1j * t[..., 1]).astype(np.complex64)
+
+
+def fft_in_index(lane, r):
+    """n of the point lane l holds in register r at the forward FFT's input
+    (and the inverse FFT's output): z[n] = f[2n] + i f[2n+1]."""
+    return 64 * (lane & 1) + 16 * r + 4 * ((lane >> 1) & 3) + (lane >> 3)
+
+
+def shfl(v, src):
+    """__shfl_sync: lane l receives v of lane src[l]."""
+    return v[src]
+
+
+def radix2_lanes(V):
+    """Radix-2 butterfly across lane bit 0: the lane with bit 0 clear keeps
+    a + b, its partner a − b."""
+    hi = (LANE & 1).astype(bool)
+    for r in range(4):
+        o = shfl(V[:, r], LANE ^ 1)
+        V[:, r] = np.where(hi, o - V[:, r], V[:, r] + o)
+
+
+def dft4(V, inverse):
+    a, b = V[:, 0] + V[:, 2], V[:, 0] - V[:, 2]
+    c, d = V[:, 1] + V[:, 3], V[:, 1] - V[:, 3]
+    jd = 1j * d
+    V[:, 0], V[:, 2] = a + c, a - c
+    V[:, 1], V[:, 3] = (b + jd, b - jd) if inverse else (b - jd, b + jd)
+
+
+def twiddle(V, step, inverse):
+    """v[q] *= W256^(step·q), q = 1..3 (conjugated for the inverse)."""
+    for q in (1, 2, 3):
+        w = tw(step * q)
+        V[:, q] = V[:, q] * (np.conj(w) if inverse else w)
+
+
+def swap_bit(V, j, b):
+    """Swap register bit j with lane bit b by one __shfl_xor_sync per pair
+    of registers: the lane with lane bit b set sends its register with
+    bit j clear and takes its partner's with bit j set, and vice versa."""
+    beta = ((LANE >> b) & 1).astype(bool)
+    for r0 in range(4):
+        if r0 >> j & 1:
+            continue
+        r1 = r0 | (1 << j)
+        recv = shfl(np.where(beta, V[:, r0], V[:, r1]), LANE ^ (1 << b))
+        V[:, r0] = np.where(beta, recv, V[:, r0])
+        V[:, r1] = np.where(beta, V[:, r1], recv)
+
+
+def fft128(V, inverse=False):
+    """The 128-point complex FFT, unnormalised: forward from the input
+    layout (fft_in_index) to Z[l + 32 r]; inverse (the adjoint schedule,
+    conjugate twiddles) back."""
+    stages = [(lambda: radix2_lanes(V)),
+              (32 * (LANE & 1)), (lambda: (swap_bit(V, 0, 1), swap_bit(V, 1, 2))),
+              (8 * (LANE & 7)), (lambda: (swap_bit(V, 0, 3), swap_bit(V, 1, 4))),
+              (2 * LANE)]
+    for st in (stages[::-1] if inverse else stages):
+        if callable(st):
+            st()
+        elif inverse:
+            dft4(V, True)
+            twiddle(V, st, True)
+        else:
+            twiddle(V, st, False)
+            dft4(V, False)
+
+
+def partner(V, r):
+    """Z[128 − k] for k = l + 32 r: lane (32 − l) & 31, register 3 − r;
+    lane 0 reads its own register (4 − r) & 3."""
+    p = shfl(V[:, 3 - r], (32 - LANE) & 31)
+    p[0] = V[0, (4 - r) & 3]
+    return p
+
+
+def rdft256(f):
+    """256 real samples (frames, 256) → (X[0..127] as (frames, 32, 4) with
+    X[l + 32 r] at [l, r], X[128])."""
+    out, nyq = [], []
+    for fr in f.astype(np.float32):
+        z = (fr[0::2] + 1j * fr[1::2]).astype(np.complex64)
+        V = z[fft_in_index(LANE[:, None], np.arange(4)[None, :])]
+        fft128(V)
+        P = np.stack([partner(V, r) for r in range(4)], axis=1)
+        W = tw(LANE[:, None] + 32 * np.arange(4)[None, :])
+        E = 0.5 * (V + np.conj(P))
+        D = V - np.conj(P)
+        out.append(E - 0.5j * W * D)
+        nyq.append(V[0, 0].real - V[0, 0].imag)
+    return np.stack(out), np.asarray(nyq, np.float32)
+
+
+def irdft256(X):
+    """(frames, 129) complex → (frames, 256) real, the imaginary parts of
+    bins 0 and 128 ignored, 1/256 scaled."""
+    out = []
+    for x in X.astype(np.complex64):
+        V = x[LANE[:, None] + 32 * np.arange(4)[None, :]].copy()
+        V[0, 0] = V[0, 0].real
+        P = np.stack([partner(V, r) for r in range(4)], axis=1)
+        P[0, 0] = x[128].real
+        W = tw(LANE[:, None] + 32 * np.arange(4)[None, :])
+        V = (V + np.conj(P)) + 1j * np.conj(W) * (V - np.conj(P))
+        fft128(V, inverse=True)
+        z = np.empty(128, np.complex64)
+        z[fft_in_index(LANE[:, None], np.arange(4)[None, :])] = V / 256
+        f = np.empty(256, np.float32)
+        f[0::2], f[1::2] = z.real, z.imag
+        out.append(f)
+    return np.stack(out)
+
+
+def _bins(V, nyq):
+    """(frames, 32, 4) + (frames,) → (frames, 129) in bin order."""
+    X = V.transpose(0, 2, 1).reshape(len(V), 128)
+    return np.concatenate([X, nyq[:, None].astype(np.complex64)], axis=1)
+
+
+def _frames(case):
+    if case.startswith("impulses"):
+        lo = 32 * int(case[-1])
+        return np.eye(256, dtype=np.float32)[lo:lo + 32]
+    return np.random.default_rng(int(case[-1])).uniform(
+        -1, 1, (8, 256)).astype(np.float32)
+
+
+CASES = [f"random{s}" for s in range(4)] + [f"impulses{b}" for b in range(8)]
+
+
+def test_twiddle_table():
+    """Float64 on the host, rounded once to float32; the kernels get it as
+    a contiguous (256, 2) tensor."""
+    ang = 2 * np.pi * np.arange(256) / 256
+    assert TW.dtype == np.float32 and TW.shape == (256, 2)
+    assert np.abs(TW[:, 0] - np.cos(ang)).max() <= 6e-8
+    assert np.abs(TW[:, 1] + np.sin(ang)).max() <= 6e-8
+    t = tak._fft_twiddles(torch.device("cpu"))
+    assert t.is_contiguous() and t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy(), TW)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_schedule_vs_numpy_rfft(case):
+    f = _frames(case)
+    V, nyq = rdft256(f)
+    ref = np.fft.rfft(f.astype(np.float64), axis=-1)
+    err = np.abs(_bins(V, nyq) - ref).max()
+    assert err <= TOL * max(1.0, np.abs(ref).max()), err
+    # X[0] and X[128] come out real
+    assert np.all(V[:, 0, 0].imag == 0)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_inverse_schedule_vs_dense_irdft(case):
+    """Spectra of the case's frames plus random imaginary parts on bins 0
+    and 128, which the dense operator ignores too."""
+    X = np.fft.rfft(_frames(case).astype(np.float64), axis=-1)
+    X[:, [0, 128]] += 1j * np.random.default_rng(9).uniform(-3, 3, (len(X), 2))
+    _, _, A, B = _rdft_mats(256)
+    ref = X.real @ A.astype(np.float64) + X.imag @ B.astype(np.float64)
+    err = np.abs(irdft256(X) - ref).max()
+    assert err <= TOL * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("bin_", [0, 1, 31, 32, 64, 97, 127, 128])
+def test_inverse_schedule_single_bins(bin_):
+    """A unit spectrum at one bin, real and imaginary."""
+    _, _, A, B = _rdft_mats(256)
+    for val in (1.0, 1j):
+        X = np.zeros((1, 129), np.complex128)
+        X[0, bin_] = val
+        ref = X.real @ A + X.imag @ B
+        assert np.abs(irdft256(X) - ref).max() <= TOL
+
+
+def fold_lane_frames(row, w_ana, n_frames):
+    """The kernels' per-lane fold (``fold_lane``): lane l, register r folds
+    samples 2n, 2n+1 (n = fft_in_index(l, r), parity p = l & 1, i = 2n mod
+    128) of frame j from hops j + 2m + p with window hops 2m + p, m = 0..4,
+    in fold_frames' order → the forward FFT's input, (frames, 32, 4)."""
+    hops, win = row.reshape(-1, 128), w_ana.reshape(10, 128)
+    lane, r = LANE[:, None], np.arange(4)[None, :]
+    p, i = lane & 1, 2 * (fft_in_index(lane, r) % 64)
+    out = []
+    for j in range(n_frames):
+        a = np.zeros((32, 4), np.float32)
+        b = np.zeros((32, 4), np.float32)
+        for m in range(5):
+            q, wq = j + 2 * m + p, 2 * m + p
+            a = a + hops[q, i] * win[wq, i]
+            b = b + hops[q, i + 1] * win[wq, i + 1]
+        out.append(a + 1j * b)
+    return np.stack(out).astype(np.complex64)
+
+
+@pytest.mark.parametrize("low_delay", [False, True])
+def test_fold_and_rdft_vs_plain_front(low_delay):
+    """Fold + FFT + split on a row of 9 + 5 hops vs
+    analysis_front_ri_reference (the dense fold and C/S product)."""
+    rng = np.random.default_rng(3)
+    tail = rng.uniform(-0.5, 0.5, (1, 9 * 128)).astype(np.float32)
+    x = rng.uniform(-0.5, 0.5, (1, 5 * 128)).astype(np.float32)
+    re, im = tak.analysis_front_ri_reference(
+        torch.from_numpy(tail), torch.from_numpy(x), low_delay=low_delay)
+    ref = re[0].numpy() + 1j * im[0].numpy()
+    w_ana = tak.device_consts(128, low_delay, torch.device("cpu"))["w_ana"]
+    Z = fold_lane_frames(np.concatenate([tail, x], 1)[0], w_ana.numpy(),
+                         ref.shape[0])
+    out, nyq = [], []
+    for V in Z:
+        fft128(V)
+        P = np.stack([partner(V, r) for r in range(4)], axis=1)
+        W = tw(LANE[:, None] + 32 * np.arange(4)[None, :])
+        out.append(0.5 * (V + np.conj(P)) - 0.5j * W * (V - np.conj(P)))
+        nyq.append(V[0, 0].real - V[0, 0].imag)
+    got = _bins(np.stack(out), np.asarray(nyq))
+    assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()

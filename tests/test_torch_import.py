@@ -17,8 +17,9 @@ from spatial_audio_framework_tpu_torch.utils import presets
 cfg = ambi_bin.AmbiBinConfig(order=1)
 rng = np.random.default_rng(0)
 w = ambi_bin.weights_from_numpy(
-    rng.standard_normal((133, 2, 4)), rng.standard_normal((133, 2, 4)))
-st = ambi_bin.init_state_batched(cfg, 2)
+    rng.standard_normal((133, 2, 4)), rng.standard_normal((133, 2, 4)),
+    "cpu")
+st = ambi_bin.init_state_batched(cfg, 2, device="cpu")
 x = torch.from_numpy(rng.uniform(-1, 1, (2, 4, 4 * 128)).astype(np.float32))
 y, st = ambi_bin.process_ri_batched(cfg, w, st, x)
 assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
@@ -30,22 +31,24 @@ from spatial_audio_framework_tpu_torch.ops import afstft_ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
 cfg4 = ambi_bin.AmbiBinConfig(order=4)
 w4 = ambi_bin.weights_from_numpy(
-    rng.standard_normal((133, 2, 25)), rng.standard_normal((133, 2, 25)))
-st4 = ambi_bin.init_state_batched(cfg4, 2)
+    rng.standard_normal((133, 2, 25)), rng.standard_normal((133, 2, 25)),
+    "cpu")
+st4 = ambi_bin.init_state_batched(cfg4, 2, device="cpu")
 x = torch.from_numpy(rng.uniform(-1, 1, (2, 25, 4 * 128)).astype(np.float32))
 y, st4 = ambi_bin.process_ri_batched(cfg4, w4, st4, x)
 assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
 bank = AfSTFT(hybrid=False)
 M = torch.from_numpy(rng.standard_normal((129, 2, 25)).astype(np.float32))
 y, _ = afstft_ri.render_tf_matrix_ri(
-    bank, afstft_ri.init_state_batched(bank, 2, 25, 2), x, M)
+    bank, afstft_ri.init_state_batched(bank, 2, 25, 2, device="cpu"), x, M)
 assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
 
 # ambi_dec: host design (presets, convhull3d, vbap, AllRAD), then a render
 # wide enough (order 2 -> 22.x: 9 x 22 > 128) for the analysis/synthesis path
 dcfg = ambi_dec.AmbiDecConfig(master_order=2)
-dw = ambi_dec.design_ri(dcfg, presets.loudspeaker_preset("22.x"))
-dst = ambi_dec.init_state_batched(dcfg, 2, 22)
+dw = ambi_dec.design_ri(dcfg, presets.loudspeaker_preset("22.x"),
+                        device="cpu")
+dst = ambi_dec.init_state_batched(dcfg, 2, 22, device="cpu")
 x = torch.from_numpy(rng.uniform(-1, 1, (2, 9, 4 * 128)).astype(np.float32))
 y, dst = ambi_dec.process_ri_batched(dcfg, dw, dst, x)
 assert y.shape == (2, 22, 512) and bool(torch.isfinite(y).all())
@@ -61,12 +64,12 @@ with tempfile.TemporaryDirectory() as tmp:
     sofa.sofa_save(path, h[::4].astype(np.float64), float(fs),
                    np.concatenate([d[::4], np.ones((len(d[::4]), 1))], 1))
     bw = binauraliser.design_ri(binauraliser.BinauraliserConfig(),
-                                sofa_filepath=path)
+                                sofa_filepath=path, device="cpu")
 assert bw.itds.shape == (len(d[::4]),)
 for n_src in (2, 17):
     bcfg = binauraliser.BinauraliserConfig(n_sources=n_src,
                                            enable_rotation=True)
-    bst = binauraliser.init_state_batched(bcfg, 2)
+    bst = binauraliser.init_state_batched(bcfg, 2, device="cpu")
     x = torch.from_numpy(rng.uniform(-1, 1, (2, n_src, 512)).astype(np.float32))
     dirs = torch.zeros((2, n_src, 2))
     y, bst = binauraliser.process_ri_batched(bcfg, bw, bst, x, dirs,

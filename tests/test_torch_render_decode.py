@@ -187,7 +187,7 @@ def test_render_routes(monkeypatch, cin, cout, bank, per_stream, expect):
     S, H = 2, 3
     shape = ((S,) if per_stream else ()) + (tb.n_bands, cout, cin)
     M = torch.from_numpy(_u(rng, (2,) + shape, amp=min(1.0, np.sqrt(16 / cin))))
-    st = tri.init_state_batched(tb, S, cin, cout)
+    st = tri.init_state_batched(tb, S, cin, cout, device="cpu")
     x = torch.from_numpy(_u(rng, (S, cin, H * 128)))
     y, _ = tri.render_tf_matrix_ri(tb, st, x, M[0], M[1])
     assert calls == expect and y.shape == (S, cout, H * 128)
@@ -206,7 +206,7 @@ def test_render_tf_matrix_fused_two_pass_vs_jax(bank):
     jb, tb = jaf.AfSTFT(**bank), taf.AfSTFT(**bank)
     M = _u(rng, (2, tb.n_bands, cout, cin), amp=0.8)
     jst = jri.init_state_batched(jb, S, cin, cout)
-    tst = pst = tri.init_state_batched(tb, S, cin, cout)
+    tst = pst = tri.init_state_batched(tb, S, cin, cout, device="cpu")
     for _ in range(2):
         x = _u(rng, (S, cin, H * 128))
         jy, jst = jri.render_tf_matrix_fused(

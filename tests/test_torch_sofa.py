@@ -153,8 +153,9 @@ def test_design_survives_a_bad_sofa_path(tmp_path):
     default-set design exactly (tests/test_error_handling.py)."""
     cfg = tab.AmbiBinConfig(order=1, method="ls")
     with pytest.warns(UserWarning):
-        w_bad = tab.design_ri(cfg, sofa_filepath=str(tmp_path / "no.sofa"))
-    w_def = tab.design_ri(cfg)
+        w_bad = tab.design_ri(cfg, sofa_filepath=str(tmp_path / "no.sofa"),
+                              device="cpu")
+    w_def = tab.design_ri(cfg, device="cpu")
     for a, b in zip(w_bad, w_def):
         assert torch.equal(a, b)
 
@@ -165,7 +166,8 @@ def test_binauraliser_design_from_sofa_vs_jax(tmp_path):
     hrirs, pos, fs = _subset(2)
     path = str(tmp_path / "half.sofa")
     tsofa.sofa_save(path, hrirs.astype(np.float64), float(fs), pos)
-    got = tbin.design_ri(tbin.BinauraliserConfig(), sofa_filepath=path)
+    got = tbin.design_ri(tbin.BinauraliserConfig(), sofa_filepath=path,
+                         device="cpu")
     ref = jbin.design_ri(jbin.BinauraliserConfig(), sofa_filepath=path)
     assert got.itds.shape == (hrirs.shape[0],)
     for name, a, b in zip(got._fields, ref, got):

@@ -17,6 +17,7 @@ can run on identical inputs.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -124,11 +125,16 @@ def _design_host(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
     return np.einsum("bes,st->bet", dec, conv)
 
 
-def _fuma_conv(cfg: AmbiBinConfig) -> Optional[np.ndarray]:
-    """The input conversion NOT folded at design time (FuMa only)."""
-    if cfg.ch_ordering != C.CH_FUMA:
+@functools.lru_cache(maxsize=None)
+def _fuma_conv(order: int, ch_ordering: str, norm: str,
+               device: torch.device) -> Optional[torch.Tensor]:
+    """The input conversion NOT folded at design time (FuMa only), on
+    ``device``; made once per (order, convention, device), since a
+    host-to-device copy per chunk would make the host wait for the
+    device."""
+    if ch_ordering != C.CH_FUMA:
         return None
-    return C.input_conversion_mtx(cfg.order, cfg.ch_ordering, cfg.norm)
+    return f32_tensor(C.input_conversion_mtx(order, ch_ordering, norm), device)
 
 
 def weights_from_numpy(M_re: np.ndarray, M_im: np.ndarray,
@@ -176,9 +182,8 @@ def process_ri_batched(cfg: AmbiBinConfig, w_ri, state: ri.AfSTFTStateBatched,
     """
     bank = cfg.afstft
     Mre, Mim = w_ri
-    conv = _fuma_conv(cfg)
-    if conv is not None:  # FuMa: conversion not folded at design time
-        cv = f32_tensor(conv, Mre.device)
+    cv = _fuma_conv(cfg.order, cfg.ch_ordering, cfg.norm, Mre.device)
+    if cv is not None:  # FuMa: conversion not folded at design time
         with fp32_matmul():
             Mre = torch.einsum("bes,st->bet", Mre, cv)
             Mim = torch.einsum("bes,st->bet", Mim, cv)

@@ -64,7 +64,8 @@ def device_consts(hop: int, low_delay: bool,
                   device: torch.device) -> dict[str, torch.Tensor]:
     """The windows (``w_ana``, ``w_syn``: (10·hop,)), the real-DFT
     matrices of length 2·hop (``C``, ``S``: (2·hop, hop+1); ``A``, ``B``:
-    (hop+1, 2·hop)) and the low-delay odd-bin ``sign`` (hop+1,), as
+    (hop+1, 2·hop)), the low-delay odd-bin ``sign`` (hop+1,) and the
+    hybrid stage's band-pair sign ``pair_sign`` [-1, 1, -1, 1], as
     contiguous float32 tensors on ``device``.  Made once per
     (hop, mode, device): copying them from the host every block would make
     each block wait for the device to drain."""
@@ -73,7 +74,7 @@ def device_consts(hop: int, low_delay: bool,
     sign = np.where(np.arange(hop + 1) % 2, -1.0, 1.0)
     return {name: f32_tensor(a, device) for name, a in (
         ("w_ana", w_ana), ("w_syn", w_syn), ("C", C), ("S", S), ("A", A),
-        ("B", B), ("sign", sign))}
+        ("B", B), ("sign", sign), ("pair_sign", [-1.0, 1.0, -1.0, 1.0]))}
 
 
 class AfSTFTState(NamedTuple):
@@ -128,11 +129,11 @@ class AfSTFT:
         hop, h_len = self.hop, self.h_len
         n_ch = x.shape[0]
         H = x.shape[1] // hop
-        w_ana, _ = _windows(hop, self.low_delay)
+        k = device_consts(hop, self.low_delay, x.device)
         buf = torch.cat([state.in_tail, x], dim=-1)
         hops = buf.reshape(n_ch, H + _TOTAL_HOPS - 1, hop)
         seg = torch.stack([hops[:, k:k + H] for k in range(_TOTAL_HOPS)], dim=2)
-        frames = seg.reshape(n_ch, H, h_len) * torch.from_numpy(w_ana).to(x.device)
+        frames = seg.reshape(n_ch, H, h_len) * k["w_ana"]
         # fold (time-alias) the windowed segment into a 2*hop frame: hop k of
         # the segment lands at offset (k % 2)*hop (afSTFT_internal.c:266-299)
         folded = frames.reshape(n_ch, H, _TOTAL_HOPS // 2, 2 * hop).sum(dim=2)
@@ -141,14 +142,14 @@ class AfSTFT:
         if not self.hybrid:
             return spec.permute(2, 0, 1), state._replace(in_tail=new_in_tail)
         full = torch.cat([state.hyb_tail, spec], dim=1)  # (n_ch, 6+H, hop+1)
-        out = _hybrid_forward(full, H)
+        out = _hybrid_forward(full, H, k["pair_sign"])
         return out.permute(2, 0, 1), state._replace(
             in_tail=new_in_tail, hyb_tail=full[:, H:H + 6])
 
     def synthesis(self, state: AfSTFTState, Y: torch.Tensor):
         """Y: (n_bands, n_ch, H) complex → ((n_ch, H*hop), state)."""
         hop, h_len = self.hop, self.h_len
-        _, w_syn = _windows(hop, self.low_delay)
+        k = device_consts(hop, self.low_delay, Y.device)
         Y = Y.permute(1, 2, 0)  # (n_ch, H, n_bands)
         n_ch, H = Y.shape[:2]
         if self.hybrid:
@@ -156,14 +157,11 @@ class AfSTFT:
         if self.low_delay:
             # odd-bin sign flip == circular shift by hop samples
             # (afSTFT_internal.c:364-367)
-            sign = torch.from_numpy(
-                np.where(np.arange(hop + 1) % 2, -1.0, 1.0).astype(np.float32))
-            Y = Y * sign.to(Y.device)
+            Y = Y * k["sign"]
         frame = irfft_op(Y, 2 * hop)  # 1/N-scaled
         # periodic extension × synthesis window; the contribution of hop t
         # spans output hops t..t+9 (afSTFT_internal.c:398-437)
-        contrib = (frame.repeat(1, 1, _TOTAL_HOPS // 2)
-                   * torch.from_numpy(w_syn).to(frame.device))
+        contrib = frame.repeat(1, 1, _TOTAL_HOPS // 2) * k["w_syn"]
         contrib = contrib.reshape(n_ch, H, _TOTAL_HOPS, hop)
         acc = torch.zeros((n_ch, H + _TOTAL_HOPS - 1, hop), dtype=frame.dtype,
                           device=frame.device)
@@ -174,10 +172,12 @@ class AfSTFT:
         return flat[:, :H * hop], state._replace(ola_tail=flat[:, H * hop:])
 
 
-def _hybrid_forward(full: torch.Tensor, H: int) -> torch.Tensor:
+def _hybrid_forward(full: torch.Tensor, H: int,
+                    s: torch.Tensor) -> torch.Tensor:
     """Split bands 1–4 in two via half-band FIRs along hop-time.
 
-    full: (n_ch, 6+H, hop+1) complex with 6 history frames in front.
+    full: (n_ch, 6+H, hop+1) complex with 6 history frames in front; s:
+    the band-pair sign [-1, 1, -1, 1] on full's device (``device_consts``).
     Returns (n_ch, H, hop+5).  afSTFT_internal.c:523-641.
     """
     d3 = full[:, 3:3 + H]  # group-delay-aligned main path (t-3)
@@ -187,8 +187,6 @@ def _hybrid_forward(full: torch.Tensor, H: int) -> torch.Tensor:
     c = 0.5 * d3[..., b]
     # the half-band order flips between odd/even source bands so hybrid
     # bands come out in ascending spectral order (afSTFT_internal.c:611-631)
-    s = torch.tensor([-1.0, 1.0, -1.0, 1.0], dtype=torch.float32,
-                     device=full.device)
     lo = c + s * hb
     hi = c - s * hb
     pairs = torch.stack([lo, hi], dim=-1).reshape(*lo.shape[:-1], 8)

@@ -61,7 +61,10 @@ Phases:
     stream in 128-sample blocks, without and with rotation, through the
     one-pass kernel with per-stream taps;
 12. a render at hop 64: the kernels take hop 128 only, so it runs the
-    plain path, launches nothing and equals ``fused=False``.
+    plain path, launches nothing and equals ``fused=False``;
+13. ambi_bin order 3 with FuMa channel order and normalisation (the
+    conversion applied per chunk on the card): 3 chunks enqueued behind a
+    spin kernel must not make the host wait for the device.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -69,9 +72,9 @@ second-to-last line is a JSON object describing each kernel; the last line is
 and prints no result.
 
 Usage (from the repository root): ``python chip_smoke.py [--seed N]``;
-``--profile`` instead profiles the ambi_bin order-3 and order-7 and the
-64-source binauraliser main paths with torch.profiler and prints each
-kernel's device time per chunk.
+``--profile`` instead profiles the ambi_bin order-3 and order-7, ambi_dec
+22.x, non-hybrid 64 -> 2 and 64-source binauraliser main paths with
+torch.profiler and prints each kernel's device time per chunk.
 """
 from __future__ import annotations
 
@@ -100,9 +103,13 @@ KERNELS = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri",
 # a spin kernel of this many cycles (~0.2 s on an H100) holds the stream
 # while a timed loop is enqueued, so the loop then runs back to back
 SPIN_CYCLES = 400_000_000
-# the flagship render_full_ri call with the dense C/S and A/B products,
-# before the FFT-based redesign (NVIDIA H100 80GB HBM3, 700 W)
+# the kernels' calls with the dense C/S and A/B products, before their
+# FFT-based redesigns (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the flagship
+# render_full_ri, and analysis_front_ri / synthesis_back_ri at the ambi_dec
+# slice's shapes
 EARLIER_RENDER_FULL_MS = 0.6558
+EARLIER_FRONT_MS = 0.3861
+EARLIER_BACK_MS = 0.6295
 # a library call vs the kernel it is timed beside: both fp32 (cuDNN TF32
 # off), relative to the kernel output's largest magnitude
 LIB_TOL = 2e-5
@@ -317,9 +324,13 @@ def phase_render_full(ak, dev, rng, card):
 
 def phase_analysis_front(ak, dev, rng, card):
     """analysis_front_ri vs its plain version; rows, tail hops, H, low
-    delay.  The last case is the ambi_dec slice: 64 streams x 16 channels."""
+    delay: one short tile (H = 1), the least tail, four tiles (130 and 136
+    frames), odd rows past the persistent grid.  The last case is the
+    ambi_dec slice: 64 streams x 16 channels."""
     worst = 0.0
     cases = ((5, 15, 4, False), (3, 9, 2, True), (7, 15, 40, True),
+             (3, 15, 1, False), (5, 9, 4, True), (7, 9, 130, False),
+             (3, 15, 130, True), (1027, 15, HOPS, False),
              (N_STREAMS * 16, 15, HOPS, False))
     for rows, t_hops, H, ld in cases:
         def step(x, tail, kernel):
@@ -343,7 +354,8 @@ def phase_analysis_front(ak, dev, rng, card):
     t = ab_times({"kernel": lambda: ak.analysis_front_ri(tail, x),
                   "plain": lambda: ak.analysis_front_ri_reference(tail, x)},
                  20, queued=True)
-    report_times("analysis_front_ri", t, card, "the ambi_dec slice's shape")
+    report_times("analysis_front_ri", t, card, "the ambi_dec slice's shape "
+                 f"(with the dense C/S product: {EARLIER_FRONT_MS} ms)")
     re, im = ak.analysis_front_ri(tail, x)
 
     def pairs(out):
@@ -356,11 +368,14 @@ def phase_analysis_front(ak, dev, rng, card):
 
 
 def phase_synthesis_back(ak, dev, rng, card):
-    """synthesis_back_ri vs its plain version; rows, H, low delay, hybrid.
-    The last case is the ambi_dec slice: 64 streams x 22 loudspeakers."""
+    """synthesis_back_ri vs its plain version; rows, H, low delay, hybrid:
+    one frame, H < 9, 17 steps of 8 frames (H = 130), odd rows.  The last
+    case is the ambi_dec slice: 64 streams x 22 loudspeakers."""
     worst = 0.0
     cases = ((5, 4, False, True), (3, 1, True, True), (6, 9, False, False),
-             (4, 33, True, False), (N_STREAMS * 22, HOPS, False, True))
+             (4, 33, True, False), (3, 1, False, False), (5, 4, True, True),
+             (7, 130, False, True), (2, 130, True, False),
+             (1411, HOPS, False, True), (N_STREAMS * 22, HOPS, False, True))
     for rows, H, ld, hyb in cases:
         K = 2 * (133 if hyb else 129)
 
@@ -384,7 +399,8 @@ def phase_synthesis_back(ak, dev, rng, card):
     t = ab_times({"kernel": lambda: ak.synthesis_back_ri(spec, tail),
                   "plain": lambda: ak.synthesis_back_ri_reference(spec, tail)},
                  20, queued=True)
-    report_times("synthesis_back_ri", t, card, "the ambi_dec slice's shape")
+    report_times("synthesis_back_ri", t, card, "the ambi_dec slice's shape "
+                 f"(with the dense [P.A; P.B] product: {EARLIER_BACK_MS} ms)")
     y, new_tail = ak.synthesis_back_ri(spec, tail)
     # the basis of each packed bin over the 10 hops a frame reaches:
     # frame half k % 2 times the synthesis window's hop k
@@ -768,6 +784,40 @@ def phase_hop64(ri, bank, ak, dev, rng):
           "hop 64 differs from the plain path")
 
 
+def phase_fuma(ambi_bin, ak, dev, rng, card):
+    """ambi_bin order 3, MagLS, FuMa channel order and normalisation: the
+    conversion is not folded at design time, so every chunk applies it on
+    the card, from a tensor cached per (order, convention, device).  After
+    one chunk, 3 chunks enqueued behind a spin kernel must not make the host
+    wait (a host-to-device copy per chunk would), and launch render_full_ri
+    once each."""
+    cfg = ambi_bin.AmbiBinConfig(order=3, method="magls", ch_ordering="fuma",
+                                 norm="fuma")
+    w = ambi_bin.design_ri(cfg, device=dev)
+    xs = [uniform(rng, (N_STREAMS, cfg.nsh, HOPS * 128), dev)
+          for _ in range(3)]
+    state = {"st": ambi_bin.init_state_batched(cfg, N_STREAMS, dev), "i": 0}
+    ys = []
+
+    def step():
+        y, state["st"] = ambi_bin.process_ri_batched(
+            cfg, w, state["st"], xs[state["i"] % len(xs)])
+        state["i"] += 1
+        ys.append(y)
+
+    step()
+    before = ak.render_full_ri.launches
+    dev_ms, host_ms, ahead = device_ms(step, len(xs))
+    n = ak.render_full_ri.launches - before
+    ok = all(bool(torch.isfinite(y).all()) for y in ys)
+    print(f"phase 13: ambi_bin order 3, FuMa input, {len(xs)} chunks behind "
+          f"a spin kernel [{card}]: device {dev_ms:.4f} ms, host enqueue "
+          f"{host_ms:.4f} ms per chunk; render_full_ri launches {n}; host "
+          f"enqueued ahead of the device: {ahead}")
+    check(n == len(xs) and ok, "FuMa chunks: launches or output wrong")
+    check(ahead, "FuMa: a chunk made the host wait for the device")
+
+
 def bound(in_floats: float, out_floats: float, flop: float) -> dict:
     """The least time of a kernel's work on the card (see HBM_BYTES_PER_S):
     the larger of its bytes over the HBM rate and its operations over the
@@ -781,9 +831,9 @@ def bound(in_floats: float, out_floats: float, flop: float) -> dict:
 def kernel_bounds() -> dict:
     """bound() of each kernel at its main path's shape, the one phase 2
     times: 64 streams, H = 64, 15 tail hops; the constants each takes
-    (windows, C/S, A/B, twiddles) counted as inputs."""
+    (windows, A/B, twiddles) counted as inputs."""
     S, H, T, NB = N_STREAMS, HOPS, 15, 129
-    win, tw, cs, ab = 1280, 512, 2 * 256 * NB, 2 * 130 * 256
+    win, tw, ab = 1280, 512, 2 * 130 * 256
     ola = (H + 9) * 128           # output samples per row, y and tail
     rdft = FOLD_FLOP + FFT_FLOP   # fold and rDFT of a frame
     b = {}
@@ -794,7 +844,7 @@ def kernel_bounds() -> dict:
         S * cin * (H + 6) * rdft + S * cin * cout * H * (NB + 16) * 8
         + S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
     R = S * 16                    # analysis_front_ri: the ambi_dec slice
-    b["analysis_front_ri"] = bound(R * (T + H) * 128 + win + cs,
+    b["analysis_front_ri"] = bound(R * (T + H) * 128 + win + tw,
                                    2 * R * (T + H - 9) * NB,
                                    R * (T + H - 9) * rdft)
     R = S * 64                    # analysis_front_dg_ri: order 7
@@ -802,7 +852,7 @@ def kernel_bounds() -> dict:
         R * (T + H) * 128 + win + tw, R * H * (NB + 16) * 2,
         R * (H + 6) * rdft + R * H * 16 * 2 * 4)
     R, K = S * 22, 266            # synthesis_back_ri: the ambi_dec slice
-    b["synthesis_back_ri"] = bound(R * H * K + R * 9 * 128 + K * 256 + win,
+    b["synthesis_back_ri"] = bound(R * H * K + R * 9 * 128 + tw + win,
                                    R * ola,
                                    R * H * FFT_FLOP + R * ola * OLA_FLOP)
     cin = 64                      # the renders from spectra and from (d, g)
@@ -868,9 +918,14 @@ def profile_slice(label, process, init_state, n_in, dev, rng, card):
 
 
 def profile(dev, rng, card) -> None:
-    """--profile: the flagship, order-7 and 64-source binauraliser main
-    paths under torch.profiler, nothing else."""
-    from spatial_audio_framework_tpu_torch.models import ambi_bin, binauraliser
+    """--profile: the flagship, order-7, ambi_dec 22.x, non-hybrid 64 -> 2
+    and 64-source binauraliser main paths under torch.profiler, nothing
+    else."""
+    from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
+                                                          binauraliser)
+    from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
+    from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+    from spatial_audio_framework_tpu_torch.utils import presets
 
     for order in (3, 7):
         cfg = ambi_bin.AmbiBinConfig(order=order, method="magls")
@@ -880,6 +935,22 @@ def profile(dev, rng, card) -> None:
             lambda st, x: ambi_bin.process_ri_batched(cfg, w, st, x),
             lambda: ambi_bin.init_state_batched(cfg, N_STREAMS, dev),
             cfg.nsh, dev, rng, card)
+    dcfg = ambi_dec.AmbiDecConfig(master_order=3)
+    ls = presets.loudspeaker_preset("22.x")
+    dw = ambi_dec.design_ri(dcfg, ls, device=dev)
+    profile_slice(
+        "ambi_dec 22.x",
+        lambda st, x: ambi_dec.process_ri_batched(dcfg, dw, st, x),
+        lambda: ambi_dec.init_state_batched(dcfg, N_STREAMS, len(ls), dev),
+        dcfg.nsh, dev, rng, card)
+    nh_bank = AfSTFT(hop=128, hybrid=False)
+    nh_M = uniform(rng, (2, nh_bank.n_bands, 2, 64), dev, 0.5)
+    profile_slice(
+        "non-hybrid 64 -> 2",
+        lambda st, x: ri.render_tf_matrix_ri(nh_bank, st, x, nh_M[0],
+                                             nh_M[1]),
+        lambda: ri.init_state_batched(nh_bank, N_STREAMS, 64, 2, dev),
+        64, dev, rng, card)
     cfg = binauraliser.BinauraliserConfig(n_sources=64, enable_rotation=True)
     w = binauraliser.design_ri(cfg, device=dev)
     dirs = uniform(rng, (N_STREAMS, 64, 2), dev) * torch.tensor(
@@ -897,8 +968,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="only profile the ambi_bin order-3 and order-7 and "
-                         "the 64-source binauraliser main paths")
+                    help="only profile the ambi_bin order-3 and order-7, "
+                         "ambi_dec 22.x, non-hybrid 64 -> 2 and 64-source "
+                         "binauraliser main paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the card "
@@ -1041,6 +1113,7 @@ def main() -> int:
          "render_decode_synthesis_dg_ri": N_CHUNKS})
     phase_binauraliser_c_parity(binauraliser, binw, ak, dev, card)
     phase_hop64(ri, AfSTFT(hop=64, hybrid=True), ak, dev, rng)
+    phase_fuma(ambi_bin, ak, dev, rng, card)
 
     bounds = kernel_bounds()
     for name in KERNELS:

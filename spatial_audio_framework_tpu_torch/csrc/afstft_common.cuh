@@ -1,18 +1,17 @@
 // Device code shared by the port's afSTFT kernels (hop 128, 129 uniform
-// bands, 10-hop prototype): the input-hop load (plain and cp.async), the
-// analysis window fold, the rDFT and irDFT of a frame, the hybrid-FIR
+// bands, 10-hop prototype): the cp.async hop and span loads, the FFT-based
+// rDFT and irDFT of a frame with the analysis window fold, the hybrid-FIR
 // context, the per-band decode with A/B taps, and the synthesis window /
 // overlap-add / tail-merge launch.
 //
-// Two forms of the 256-point real DFT live here side by side:
+// Two forms of the 256-point real DFT live here:
 //   * rdft256 / irdft256: one warp per frame, a 128-point complex FFT in
 //     registers plus the real/complex split, ~5 k FLOP per frame, twiddles
-//     from a 2 KB table (analysis_front_dg_ri.cu, render_full_ri.cu);
-//   * rdft_band / irdft_tile: the dense products with C/S and A/B
-//     (256 x 129 each), ~132 k FLOP per frame, kept only until
-//     analysis_front_ri.cu, synthesis_back_ri.cu and
-//     render_decode_synthesis_ri.cu move to the FFT form (ROADMAP.md,
-//     Queue 4); then they go.
+//     from a 2 KB table (analysis_front_ri.cu, analysis_front_dg_ri.cu,
+//     render_full_ri.cu, synthesis_back_ri.cu);
+//   * irdft_tile: the dense product with A/B (129 x 256 each), ~132 k FLOP
+//     per frame, kept only until render_decode_synthesis_ri.cu moves to the
+//     FFT form (ROADMAP.md, Queue 2, "still open" item 3); then it goes.
 //
 // Included by every kernel source in csrc/.  Everything here has internal
 // linkage, so each translation unit keeps its own copy.
@@ -33,58 +32,25 @@ constexpr int G_BANDS = 16;           // bands carrying the hybrid context
 constexpr float COEFF1 = 0.031273141818515176604f;
 constexpr float COEFF2 = 0.28127313041521179171f;
 
-// Hops q0 .. q0+n-1 of the row [tail | x] (t_hops + x_hops hops) into
-// dst, zeros past the end.  float4 loads: both rows are whole hops long,
-// so every hop starts 16-byte aligned when the row bases are.
-__device__ __forceinline__ void load_hops(float* dst, const float* tail,
-                                          int t_hops, const float* x,
-                                          int x_hops, int q0, int n, int tid,
-                                          int nthreads) {
-  for (int i = tid; i < n * HOP / 4; i += nthreads) {
-    const int q = q0 + (4 * i) / HOP;
-    const int off = (4 * i) % HOP;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q < t_hops)
-      v = *reinterpret_cast<const float4*>(tail + (size_t)q * HOP + off);
-    else if (q < t_hops + x_hops)
-      v = *reinterpret_cast<const float4*>(x + (size_t)(q - t_hops) * HOP +
-                                           off);
-    reinterpret_cast<float4*>(dst)[i] = v;
-  }
-}
-
-// Window fold of nf frames from nf + 9 hops: thread tid < FRAME computes
-// sample tid of every frame; parity p = tid / HOP accumulates window hops
-// p, p+2, ..., p+8.  win: the 10-hop analysis window (shared or global).
-__device__ __forceinline__ void fold_frames(float* fold, const float* hops,
-                                            const float* win, int nf,
-                                            int tid) {
-  if (tid < FRAME) {
-    const int p = tid / HOP, i = tid % HOP;
-    float w[TOTAL_HOPS / 2];
-#pragma unroll
-    for (int m = 0; m < TOTAL_HOPS / 2; ++m)
-      w[m] = win[(2 * m + p) * HOP + i];
-    for (int j = 0; j < nf; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int m = 0; m < TOTAL_HOPS / 2; ++m)
-        a += hops[(j + 2 * m + p) * HOP + i] * w[m];
-      fold[j * FRAME + tid] = a;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Asynchronous hop load (cp.async, 16 bytes a copy, L2 only)
+// Asynchronous loads (cp.async)
 // ---------------------------------------------------------------------------
 
+// 16 bytes, L2 only; src_bytes < 16 zero-fills the rest.
 __device__ __forceinline__ void cp_async16(void* dst_shared, const void* src,
                                            int src_bytes) {
   const unsigned dst =
       static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
+}
+
+// 8 bytes; src and dst 8-byte aligned (cached in L1 too: .cg takes 16 only).
+__device__ __forceinline__ void cp_async8(void* dst_shared, const void* src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -319,7 +285,7 @@ __device__ __forceinline__ void irdft256(float2 (&v)[4], float nyq,
 // The fold of the lane's points of frame j into the FFT input layout:
 // v[r] = (f[2n], f[2n+1]) with n = fft_in_index(l, r), parity p = l & 1,
 // i = 2n mod 128, f[p*128 + i] = sum over m = 0..4 of hop (j + 2m + p)
-// sample i times window hop (2m + p) sample i, in fold_frames' order.
+// sample i times window hop (2m + p) sample i, summed in the order of m.
 // hops: hop q at hops + q * hs; win(m, r): the window pair (float2) of
 // window hop 2m + p at sample i of register r.
 template <class Win>
@@ -349,38 +315,6 @@ __device__ __forceinline__ float2 window_pair(const float* win, int ws,
   const int i = 2 * (fft_in_index(lane, r) & (HOP / 2 - 1));
   return *reinterpret_cast<const float2*>(win + (2 * m + (lane & 1)) * ws +
                                           i);
-}
-
-// rDFT of band k for FPG consecutive folded frames starting at frow (in
-// shared memory, FRAME floats each): sr/si = frame . C[:, k] / S[:, k].
-// Every C/S value loaded feeds FPG x 2 FMAs; the frame samples are read as
-// 16-byte broadcasts.
-template <int FPG>
-__device__ __forceinline__ void rdft_band(const float* frow,
-                                          const float* __restrict__ Cm,
-                                          const float* __restrict__ Sm, int k,
-                                          float (&sr)[FPG], float (&si)[FPG]) {
-#pragma unroll
-  for (int jj = 0; jj < FPG; ++jj) sr[jj] = si[jj] = 0.f;
-#pragma unroll 2
-  for (int t = 0; t < FRAME; t += 4) {
-    const float c0 = __ldg(Cm + (t + 0) * NB + k);
-    const float c1 = __ldg(Cm + (t + 1) * NB + k);
-    const float c2 = __ldg(Cm + (t + 2) * NB + k);
-    const float c3 = __ldg(Cm + (t + 3) * NB + k);
-    const float s0 = __ldg(Sm + (t + 0) * NB + k);
-    const float s1 = __ldg(Sm + (t + 1) * NB + k);
-    const float s2 = __ldg(Sm + (t + 2) * NB + k);
-    const float s3 = __ldg(Sm + (t + 3) * NB + k);
-#pragma unroll
-    for (int jj = 0; jj < FPG; ++jj) {
-      const float4 f = *reinterpret_cast<const float4*>(frow + jj * FRAME + t);
-      sr[jj] = fmaf(f.w, c3, fmaf(f.z, c2, fmaf(f.y, c1,
-               fmaf(f.x, c0, sr[jj]))));
-      si[jj] = fmaf(f.w, s3, fmaf(f.z, s2, fmaf(f.y, s1,
-               fmaf(f.x, s0, si[jj]))));
-    }
-  }
 }
 
 // Hybrid-FIR context of one band from its spectra at hops h, h+2, h+4 and

@@ -118,9 +118,9 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.saf_render_full_ri.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
     lib.saf_render_full_ri.restype = i32
-    lib.saf_analysis_front_ri.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.saf_analysis_front_ri.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.saf_analysis_front_ri.restype = i32
-    lib.saf_synthesis_back_ri.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.saf_synthesis_back_ri.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.saf_synthesis_back_ri.restype = i32
     lib.saf_analysis_front_dg_ri.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
     lib.saf_analysis_front_dg_ri.restype = i32

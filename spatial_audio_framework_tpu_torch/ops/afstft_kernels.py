@@ -12,9 +12,9 @@
   (d, g) pair (``csrc/render_decode_synthesis_ri.cu``);
 * :func:`render_full_ri` — the one-pass TF-matrix renderer
   (``csrc/render_full_ri.cu``), analysis ⊗ decode ⊗ synthesis in one call;
-* :func:`synthesis_back_ri` — [re | im] spectra @ [P·A; P·B] (hybrid
-  inverse and low-delay sign folded into the irDFT), synthesis window,
-  overlap-add and tail merge (``csrc/synthesis_back_ri.cu``).
+* :func:`synthesis_back_ri` — hybrid inverse, low-delay sign and irDFT of
+  [re | im] spectra, synthesis window, overlap-add and tail merge
+  (``csrc/synthesis_back_ri.cu``).
 
 For a per-band mixing (decode) matrix M over the 133 HYBRID bands, the chain
 hybrid-forward → per-band M → hybrid-inverse collapses into a 7-tap FIR along
@@ -29,10 +29,10 @@ A_u = M for all other bands and B_u = 0.  :func:`decode_taps` builds the
 (A, B) taps; d = spec[h+3] and g = c1·(…) + c2·(…) on bands 0..15 are what
 the decode reads.  Non-hybrid banks decode d = spec[h+6] with A alone.
 
-``analysis_front_dg_ri`` and ``render_full_ri`` take their rDFT and
-irDFT as FFTs (``rdft256`` / ``irdft256`` in ``csrc/afstft_common.cuh``,
-twiddles from :func:`_fft_twiddles`); the other kernels still multiply by
-the dense C/S and A/B matrices.
+Four kernels take their rDFT and irDFT as FFTs (``rdft256`` / ``irdft256``
+in ``csrc/afstft_common.cuh``, twiddles from :func:`_fft_twiddles`); the
+renders from spectra and from (d, g) still multiply by the dense A/B
+matrices (ROADMAP.md, Queue 2, "still open" item 3).
 
 Each entry point launches its hand-written CUDA kernel for CUDA tensors
 (counted in ``<entry>.launches``) and uses its plain PyTorch version
@@ -249,7 +249,7 @@ def analysis_front_ri(tail: torch.Tensor, x: torch.Tensor,
     im = torch.empty_like(re)
     _launch("analysis_front_ri", "saf_analysis_front_ri", x.device,
             tail.data_ptr(), x.data_ptr(), k["w_ana"].data_ptr(),
-            k["C"].data_ptr(), k["S"].data_ptr(), re.data_ptr(),
+            _fft_twiddles(x.device).data_ptr(), re.data_ptr(),
             im.data_ptr(), B, t_hops, H)
     analysis_front_ri.launches += 1
     return re, im
@@ -361,9 +361,10 @@ def _hybrid_inverse_mtx(n_bands_hyb: int, hop: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _syn_consts(hop: int, low_delay: bool, hybrid: bool,
                 device: torch.device) -> dict[str, torch.Tensor]:
-    """The synthesis kernel's constants on ``device``, row-major:
+    """The plain synthesis back end's constants on ``device``, row-major:
     ``AB`` = [P·A; P·B] (2·n_bands, 2·hop), with the low-delay odd-bin
-    sign folded into A and B (pallas_afstft.py:899-906), and ``w_syn``."""
+    sign folded into A and B (pallas_afstft.py:899-906), and ``w_syn``.
+    (The kernel takes the window and the FFT twiddles instead.)"""
     _, w_syn = _windows(hop, low_delay)
     _, _, A, Bm = _rdft_mats(2 * hop)
     P = _hybrid_inverse_mtx(hop + (5 if hybrid else 1), hop)
@@ -402,16 +403,14 @@ def synthesis_back_ri(spec: torch.Tensor, tail: torch.Tensor,
                          f"{K}); got {tuple(spec.shape)}")
     _check_inputs("synthesis_back_ri", spec, {
         "spec": (spec, (B, H, K)), "tail": (tail, (B, _NT, hop))})
-    c = _syn_consts(hop, low_delay, hybrid, spec.device)
-    frames = torch.empty((B, H, 2 * hop), dtype=torch.float32,
-                         device=spec.device)
+    w_syn = device_consts(hop, low_delay, spec.device)["w_syn"]
     y = torch.empty((B, H, hop), dtype=torch.float32, device=spec.device)
     new_tail = torch.empty((B, _NT, hop), dtype=torch.float32,
                            device=spec.device)
     _launch("synthesis_back_ri", "saf_synthesis_back_ri", spec.device,
-            spec.data_ptr(), tail.data_ptr(), c["AB"].data_ptr(),
-            c["w_syn"].data_ptr(), frames.data_ptr(), y.data_ptr(),
-            new_tail.data_ptr(), B, H, K)
+            spec.data_ptr(), tail.data_ptr(), w_syn.data_ptr(),
+            _fft_twiddles(spec.device).data_ptr(), y.data_ptr(),
+            new_tail.data_ptr(), B, H, int(hybrid), int(low_delay))
     synthesis_back_ri.launches += 1
     return y, new_tail
 

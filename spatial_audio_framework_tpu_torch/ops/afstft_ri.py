@@ -61,7 +61,7 @@ class AfSTFTStateBatched(NamedTuple):
 # the H100 the one-pass kernel's clusters split cin across at most 4
 # blocks, and it is the faster route at orders 3 and 7 (PERF.md); the
 # threshold stays the reference's until a chunk-level measurement moves it
-# (ROADMAP.md, Queue 4).
+# (ROADMAP.md, Queue 2, "still open" item 5).
 _ONE_PASS_MAX_CIN = 16
 
 

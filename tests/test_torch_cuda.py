@@ -133,7 +133,7 @@ def test_analysis_front_matches_plain_version(cuda, rows, t_hops, H,
     (3, 1, True, True),    # low delay, one hop
     (6, 9, False, False),  # non-hybrid (K = 258)
     (4, 33, True, False),  # low delay and non-hybrid
-    (3, 64, False, True),  # the slice's H; M = 192 rows: a partial tile
+    (3, 64, False, True),  # the slice's H: 8 steps of 8 frames
 ])
 def test_synthesis_back_matches_plain_version(cuda, rows, H, low_delay,
                                               hybrid):
@@ -152,6 +152,81 @@ def test_synthesis_back_matches_plain_version(cuda, rows, H, low_delay,
         assert ky.shape == (rows, H, 128) and kt.shape == (rows, 9, 128)
         assert (ky - ry).abs().max().item() <= TOL
         assert (kt - rt).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows,t_hops,H,low_delay", [
+    (3, 15, 1, False),     # 7 frames, one short tile
+    (5, 9, 4, True),       # the least tail: 4 frames, low delay
+    (7, 9, 130, False),    # 130 frames: four tiles of 33, 33, 33, 31
+    (3, 15, 130, True),    # 136 frames: four tiles of 34
+    (1027, 15, 64, False), # 70 frames, two tiles of 35; more tiles than
+                           # the persistent grid has blocks, odd rows
+])
+def test_fft_front_matches_plain_version(cuda, rows, t_hops, H, low_delay):
+    """The FFT-based front around its tiles of at most 40 frames (equal
+    tiles of a row, none empty) and past its main path's rows."""
+    rng = np.random.default_rng(rows + t_hops + H)
+    tail = _u(rng, (rows, t_hops * 128), cuda, amp=0.5)
+    x = _u(rng, (rows, H * 128), cuda, amp=0.5)
+    kre, kim = tak.analysis_front_ri(tail, x, low_delay=low_delay)
+    rre, rim = tak.analysis_front_ri_reference(tail, x, low_delay=low_delay)
+    torch.cuda.synchronize()
+    assert kre.shape == (rows, t_hops + H - 9, 129)
+    assert (kre - rre).abs().max().item() <= TOL
+    assert (kim - rim).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows,H,low_delay,hybrid", [
+    (3, 1, False, False),  # one frame: the new tail is the old one moved
+    (5, 4, True, True),    # H < 9, low delay
+    (7, 130, False, True), # 17 steps of 8 frames, the last partial
+    (2, 130, True, False),
+    (1411, 64, False, True),  # past the ambi_dec slice's 1408 rows
+])
+def test_fft_back_matches_plain_version(cuda, rows, H, low_delay, hybrid):
+    """The FFT-based back end around its 8-frame steps and 17-frame ring,
+    two chained calls carrying the overlap tail."""
+    rng = np.random.default_rng(rows + H)
+    K = 2 * (133 if hybrid else 129)
+    kt = rt = _u(rng, (rows, 9, 128), cuda)
+    for _ in range(2):
+        spec = _u(rng, (rows, H, K), cuda, amp=10.0)
+        ky, kt = tak.synthesis_back_ri(spec, kt, low_delay=low_delay,
+                                       hybrid=hybrid)
+        ry, rt = tak.synthesis_back_ri_reference(spec, rt,
+                                                 low_delay=low_delay,
+                                                 hybrid=hybrid)
+        torch.cuda.synchronize()
+        assert (ky - ry).abs().max().item() <= TOL
+        assert (kt - rt).abs().max().item() <= TOL
+
+
+def test_interp_hrtfs_bad_directions_on_card(cuda, binauraliser_weights):
+    """Directions past the VBAP table, negative rows and NaN directions
+    neither assert on the card nor synchronise the host, and give what the
+    same weights give on the CPU (NaN past the table, as the JAX
+    package)."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    cfg = binauraliser.BinauraliserConfig(n_sources=6)
+    dirs = torch.tensor([[10.0, 95.0], [10.0, -100.0], [float("nan"), 10.0],
+                         [10.0, float("nan")], [10.0, 1e9], [30.0, 0.0]])
+    w_cpu = type(binauraliser_weights)(*(t.cpu()
+                                         for t in binauraliser_weights))
+    dirs_cuda = dirs.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = binauraliser.interp_hrtfs_ri(cfg, binauraliser_weights,
+                                           dirs_cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = binauraliser.interp_hrtfs_ri(cfg, w_cpu, dirs)
+    for g, r in zip(got, ref):
+        g = g.cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert bool(torch.isnan(r[..., [0, 4]]).all())
+        assert (g - r).nan_to_num().abs().max().item() <= 1e-6
 
 
 def test_wide_render_takes_the_two_kernels(cuda, monkeypatch):

@@ -108,41 +108,55 @@ def partner(V, r):
     return p
 
 
+LANE_BIN = LANE[:, None] + 32 * np.arange(4)[None, :]   # k = l + 32 r
+
+
+def rdft_lanes(V):
+    """rdft256 of one frame from the FFT's input layout V (32, 4) (changed
+    in place) → (X[l + 32 r] at [l, r], X[128])."""
+    fft128(V)
+    P = np.stack([partner(V, r) for r in range(4)], axis=1)
+    W = tw(LANE_BIN)
+    E = 0.5 * (V + np.conj(P))
+    D = V - np.conj(P)
+    return E - 0.5j * W * D, np.float32(V[0, 0].real - V[0, 0].imag)
+
+
 def rdft256(f):
     """256 real samples (frames, 256) → (X[0..127] as (frames, 32, 4) with
     X[l + 32 r] at [l, r], X[128])."""
     out, nyq = [], []
     for fr in f.astype(np.float32):
         z = (fr[0::2] + 1j * fr[1::2]).astype(np.complex64)
-        V = z[fft_in_index(LANE[:, None], np.arange(4)[None, :])]
-        fft128(V)
-        P = np.stack([partner(V, r) for r in range(4)], axis=1)
-        W = tw(LANE[:, None] + 32 * np.arange(4)[None, :])
-        E = 0.5 * (V + np.conj(P))
-        D = V - np.conj(P)
-        out.append(E - 0.5j * W * D)
-        nyq.append(V[0, 0].real - V[0, 0].imag)
+        X, n = rdft_lanes(z[fft_in_index(LANE[:, None], np.arange(4)[None, :])])
+        out.append(X)
+        nyq.append(n)
     return np.stack(out), np.asarray(nyq, np.float32)
+
+
+def irdft_lanes(V, nyq):
+    """irdft256 of one frame from its bins in the lanes, V (32, 4) with
+    X[l + 32 r] at [l, r] and nyq = Re X[128] → 256 real samples, the
+    imaginary parts of bins 0 and 128 ignored, 1/256 scaled."""
+    V = V.astype(np.complex64).copy()
+    V[0, 0] = V[0, 0].real
+    P = np.stack([partner(V, r) for r in range(4)], axis=1)
+    P[0, 0] = nyq
+    W = tw(LANE_BIN)
+    V = (V + np.conj(P)) + 1j * np.conj(W) * (V - np.conj(P))
+    fft128(V, inverse=True)
+    z = np.empty(128, np.complex64)
+    z[fft_in_index(LANE[:, None], np.arange(4)[None, :])] = V / 256
+    f = np.empty(256, np.float32)
+    f[0::2], f[1::2] = z.real, z.imag
+    return f
 
 
 def irdft256(X):
     """(frames, 129) complex → (frames, 256) real, the imaginary parts of
     bins 0 and 128 ignored, 1/256 scaled."""
-    out = []
-    for x in X.astype(np.complex64):
-        V = x[LANE[:, None] + 32 * np.arange(4)[None, :]].copy()
-        V[0, 0] = V[0, 0].real
-        P = np.stack([partner(V, r) for r in range(4)], axis=1)
-        P[0, 0] = x[128].real
-        W = tw(LANE[:, None] + 32 * np.arange(4)[None, :])
-        V = (V + np.conj(P)) + 1j * np.conj(W) * (V - np.conj(P))
-        fft128(V, inverse=True)
-        z = np.empty(128, np.complex64)
-        z[fft_in_index(LANE[:, None], np.arange(4)[None, :])] = V / 256
-        f = np.empty(256, np.float32)
-        f[0::2], f[1::2] = z.real, z.imag
-        out.append(f)
-    return np.stack(out)
+    return np.stack([irdft_lanes(x[LANE_BIN], x[128].real)
+                     for x in X.astype(np.complex64)])
 
 
 def _bins(V, nyq):
@@ -250,3 +264,138 @@ def test_fold_and_rdft_vs_plain_front(low_delay):
         nyq.append(V[0, 0].real - V[0, 0].imag)
     got = _bins(np.stack(out), np.asarray(nyq))
     assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# The two kernels built on this FFT, mirrored around it: analysis_front_ri
+# (csrc/analysis_front_ri.cu) and synthesis_back_ri (csrc/synthesis_back_ri.cu)
+# ---------------------------------------------------------------------------
+
+NF_MAX = 40   # analysis_front_ri.cu: frames per tile, at most
+WARPS = 8     # synthesis_back_ri.cu: frames per step, one a warp
+
+
+def front_tiles(n_out):
+    """The launcher's tiles: n_tiles tiles of nf <= NF_MAX frames, as equal
+    as they come, none empty."""
+    n0 = -(-n_out // NF_MAX)
+    nf = -(-n_out // n0)
+    return nf, -(-n_out // nf)
+
+
+def front_kernel_mirror(tail, x, w_ana):
+    """analysis_front_ri's kernel: per (row, tile) the fold + rDFT of each
+    of the tile's frames from the tile's nf + 9 hops (fold_lane, rdft256),
+    its bins written from the lanes to row f0 + j."""
+    rows, t_hops, H = x.shape[0], tail.shape[1] // 128, x.shape[1] // 128
+    n_out = t_hops + H - 9
+    nf, n_tiles = front_tiles(n_out)
+    out = np.full((rows, n_out, 129), np.nan, np.complex64)
+    written = np.zeros((rows, n_out), int)
+    for row in range(rows):
+        hops = np.concatenate([tail[row], x[row]]).reshape(-1, 128)
+        for t in range(n_tiles):
+            f0 = t * nf
+            n = min(nf, n_out - f0)
+            Z = fold_lane_frames(hops[f0:f0 + n + 9].ravel(), w_ana, n)
+            for j in range(n):
+                X, nyq = rdft_lanes(Z[j])
+                out[row, f0 + j, LANE_BIN] = X
+                out[row, f0 + j, 128] = nyq
+                written[row, f0 + j] += 1
+    assert (written == 1).all()      # every frame once, no tile overlaps
+    return out.real, out.imag
+
+
+@pytest.mark.parametrize("t_hops,H,low_delay", [
+    (15, 1, False), (15, 4, True), (9, 9, False), (15, 64, False),
+    (9, 64, True), (15, 130, False)])
+def test_front_kernel_layout_vs_plain_front(t_hops, H, low_delay):
+    """Tiles (70 frames: two of 35; 136: four of 34) and each frame's hops
+    and output row, on 3 rows vs analysis_front_ri_reference."""
+    rng = np.random.default_rng(t_hops + H)
+    tail = rng.uniform(-0.5, 0.5, (3, t_hops * 128)).astype(np.float32)
+    x = rng.uniform(-0.5, 0.5, (3, H * 128)).astype(np.float32)
+    ref = tak.analysis_front_ri_reference(
+        torch.from_numpy(tail), torch.from_numpy(x), low_delay=low_delay)
+    w_ana = tak.device_consts(128, low_delay, torch.device("cpu"))["w_ana"]
+    got = front_kernel_mirror(tail, x, w_ana.numpy())
+    scale = max(np.abs(r.numpy()).max() for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == tuple(r.shape)
+        assert np.abs(g - r.numpy()).max() <= TOL * scale
+
+
+def test_front_tiles_cover_every_frame():
+    for n_out in range(1, 2000):
+        nf, n_tiles = front_tiles(n_out)
+        assert nf <= NF_MAX and 0 < n_out - (n_tiles - 1) * nf <= nf
+
+
+def back_lanes(fr, hybrid, low_delay):
+    """synthesis_back_ri's bins of one packed row [re | im] in irdft256's
+    layout: uniform bin k = l + 32 r in lane l, register r is hybrid band k
+    (k = 0), the sum of bands 2k-1 and 2k (k = 1..4) or band k + 4 (k >= 5);
+    non-hybrid: band k; the odd bins negated for low delay → (V, nyq)."""
+    nbh = fr.size // 2
+    shift = nbh - 129
+    b = np.where((LANE_BIN >= 5) & hybrid, LANE_BIN + shift, LANE_BIN)
+    V = (fr[b] + 1j * fr[nbh + b]).astype(np.complex64)
+    if hybrid:
+        lane = np.arange(1, 5)
+        V[lane, 0] = ((fr[2 * lane - 1] + fr[2 * lane])
+                      + 1j * (fr[nbh + 2 * lane - 1] + fr[nbh + 2 * lane]))
+    if low_delay:
+        V[1::2] = -V[1::2]
+    return V, np.float32(fr[128 + shift])
+
+
+def back_kernel_mirror(spec, tail, w_syn, hybrid, low_delay):
+    """synthesis_back_ri's kernel: per row, steps of WARPS irDFT frames; a
+    thread per sample adds each frame in order into 10 accumulators (output
+    hops f .. f+9 of the next frame f): frame f completes hop f, which
+    leaves with the old tail added for f < 9; after the last frame the 9
+    hops still accumulating, with the old tail where p < 9, are the new
+    tail."""
+    rows, H, _ = spec.shape
+    ws = w_syn.reshape(10, 128)
+    y = np.full((rows, H, 128), np.nan, np.float32)
+    new_tail = np.full((rows, 9, 128), np.nan, np.float32)
+    for row in range(rows):
+        acc = np.zeros((10, 128), np.float32)
+        for f0 in range(0, H, WARPS):
+            frames = [irdft_lanes(*back_lanes(spec[row, f], hybrid,
+                                              low_delay))
+                      for f in range(f0, min(f0 + WARPS, H))]
+            for j, fr in enumerate(frames):
+                p = f0 + j
+                for k in range(10):
+                    acc[k] = acc[k] + fr[(k & 1) * 128:(k & 1) * 128 + 128] * ws[k]
+                y[row, p] = acc[0] + tail[row, p] if p < 9 else acc[0]
+                acc = np.concatenate([acc[1:], np.zeros((1, 128), np.float32)])
+        for k in range(9):
+            p = H + k
+            new_tail[row, k] = acc[k] + tail[row, p] if p < 9 else acc[k]
+    return y, new_tail
+
+
+@pytest.mark.parametrize("H", [1, 4, 9, 64])
+@pytest.mark.parametrize("hybrid,low_delay", [(True, False), (False, True),
+                                              (True, True)])
+def test_back_kernel_layout_vs_plain_back(H, hybrid, low_delay):
+    """The packed-row → lane mapping (hybrid pair sums, odd-bin sign,
+    Nyquist bin), the accumulators' 9-hop carry across steps and into the
+    new tail (H < 9: the old tail's later hops too), on 2 rows with spectra
+    of scale 10, vs synthesis_back_ri_reference."""
+    rng = np.random.default_rng(H + 2 * hybrid + low_delay)
+    K = 2 * (133 if hybrid else 129)
+    spec = rng.uniform(-10, 10, (2, H, K)).astype(np.float32)
+    tail = rng.uniform(-1, 1, (2, 9, 128)).astype(np.float32)
+    ry, rt = tak.synthesis_back_ri_reference(
+        torch.from_numpy(spec), torch.from_numpy(tail), low_delay=low_delay,
+        hybrid=hybrid)
+    w_syn = tak.device_consts(128, low_delay, torch.device("cpu"))["w_syn"]
+    gy, gt = back_kernel_mirror(spec, tail, w_syn.numpy(), hybrid, low_delay)
+    scale = max(1.0, np.abs(ry.numpy()).max())
+    assert np.abs(gy - ry.numpy()).max() <= TOL * scale
+    assert np.abs(gt - rt.numpy()).max() <= TOL * scale

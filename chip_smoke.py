@@ -282,6 +282,11 @@ def phase_render_full(ak, dev, rng, card):
              (2, 6, 3, 64, True, False, True),
              (1, 127, 1, 5, False, False, False),
              (1, 64, 2, 64, False, False, True),
+             # cout above 3: ear passes of 2, 2, .., 1
+             (2, 4, 5, 33, False, False, True),
+             (2, 4, 5, 9, False, True, True),
+             (2, 4, 11, 33, False, False, True),
+             (1, 4, 11, 9, True, True, True),
              (N_STREAMS, 4, 2, HOPS, False, True, True),
              (N_STREAMS, 16, 2, HOPS, False, False, True))
     for S, cin, cout, H, ld, ps, hyb in cases:
@@ -500,6 +505,18 @@ def phase_render_decode(ak, dev, rng, card, dg):
              (2, 25, 2, 1, True, True, True),
              (2, 17, 3, 9, False, True, False),
              (1, 64, 2, 40, True, False, False),
+             # the most ears the dispatch sends (cin >= 17: cout <= 7)
+             (2, 17, 7, 9, False, False, True),
+             (2, 17, 7, 4, True, True, False),
+             (1, 25, 5, 17, True, True, True),
+             (1, 25, 5, 17, False, False, False),
+             # S * cin odd at H = 1, 9, 130: rows of 129 floats that start
+             # off a 16-byte boundary
+             (3, 5, 2, 1, True, False, True),
+             (1, 5, 3, 9, False, True, True),
+             (1, 17, 2, 130, False, False, True),
+             (1, 5, 2, 9, False, False, False),
+             (1, 17, 3, 130, True, False, False),
              (N_STREAMS, 64, 2, HOPS, False, False, dg))
     worst = 0.0
     for S, cin, cout, H, ld, ps, hyb in cases:
@@ -529,6 +546,11 @@ def phase_render_decode(ak, dev, rng, card, dg):
         check(err <= KERNEL_TOL, f"{name} disagrees with plain: {err}")
         worst = max(worst, err)
     spec = make_x()
+    (y1, t1), (y2, t2) = (kern(*spec, ola, taps, **kw) for _ in range(2))
+    check(torch.equal(y1, y2) and torch.equal(t1, t2),
+          f"{name}: two launches on the same inputs differ")
+    print(f"phase 2: {name}: two launches at its main path's shape agree "
+          "bit for bit")
     t = ab_times({"kernel": lambda: kern(*spec, ola, taps, **kw),
                   "plain": lambda: plain(*spec, ola, taps, **kw)}, 20,
                  queued=True)

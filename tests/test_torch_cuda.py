@@ -333,6 +333,10 @@ def test_fft_front_dg_matches_plain_version(cuda, rows, H, low_delay):
     (2, 5, 2, 33, {"per_stream": True}),
     (2, 5, 2, 31, {"hybrid": False}),
     (1, 127, 1, 4, {"hybrid": False, "low_delay": True}),
+    (2, 4, 5, 33, {}),     # cout above 3: ear passes of 2, 2 and 1
+    (2, 4, 5, 9, {"per_stream": True}),
+    (2, 4, 11, 33, {}),    # six ear passes
+    (1, 4, 11, 9, {"per_stream": True, "low_delay": True}),
 ])
 def test_cluster_render_matches_plain_version(cuda, S, cin, cout, H,
                                               options):
@@ -372,6 +376,13 @@ _RENDER_CASES = [  # S, cin, cout, H, low_delay, per_stream
     (2, 25, 2, 4, True, False),    # H < 9, low delay
     (2, 17, 3, 1, False, True),    # an ear pass of 2 and one of 1
     (1, 64, 2, 40, True, True),    # the order-7 width, partial hop tile
+    (2, 17, 7, 9, False, False),   # the most ears the dispatch sends
+    (1, 25, 5, 17, True, True),    # five ears, one hop into a second tile
+    # S * cin odd at H = 1, 9, 130: rows of 129 floats that start off a
+    # 16-byte boundary
+    (3, 5, 2, 1, True, False),
+    (1, 5, 3, 9, False, True),
+    (1, 17, 2, 130, False, False),
 ]
 
 
@@ -420,6 +431,29 @@ def test_render_decode_synthesis_dg_matches_plain_version(
         assert ky.shape == (S, cout, H * 128)
         assert (ky - ry).abs().max().item() <= TOL
         assert (kt - rt).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("form", ["dg", "hybrid", "plain"])
+def test_render_decode_synthesis_is_deterministic(cuda, form):
+    """Two launches on the same inputs agree bit for bit, at the order-7
+    width and at an odd one."""
+    for S, cin, cout, H in ((4, 64, 2, 64), (3, 17, 3, 9)):
+        rng = np.random.default_rng(cin)
+        taps = _taps(rng, S, cin, cout, False, form != "plain", cuda)
+        front = (tak.analysis_front_dg_ri_reference if form == "dg"
+                 else tak.analysis_front_ri_reference)
+        spec = [t.reshape(S, cin, -1, t.shape[-1]).contiguous() for t in
+                front(_u(rng, (S * cin, 15 * 128), cuda, amp=0.5),
+                      _u(rng, (S * cin, H * 128), cuda, amp=0.5))]
+        tail = _u(rng, (S, cout, 9, 128), cuda)
+        if form == "dg":
+            run = lambda: tak.render_decode_synthesis_dg_ri(  # noqa: E731
+                *spec, tail, taps)
+        else:
+            run = lambda: tak.render_decode_synthesis_ri(  # noqa: E731
+                *spec, tail, taps, hybrid=form == "hybrid")
+        (y1, t1), (y2, t2) = run(), run()
+        assert torch.equal(y1, y2) and torch.equal(t1, t2)
 
 
 @pytest.mark.parametrize("hybrid", [True, False])

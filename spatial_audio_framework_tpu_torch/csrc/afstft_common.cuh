@@ -4,14 +4,10 @@
 // context, the per-band decode with A/B taps, and the synthesis window /
 // overlap-add / tail-merge launch.
 //
-// Two forms of the 256-point real DFT live here:
-//   * rdft256 / irdft256: one warp per frame, a 128-point complex FFT in
-//     registers plus the real/complex split, ~5 k FLOP per frame, twiddles
-//     from a 2 KB table (analysis_front_ri.cu, analysis_front_dg_ri.cu,
-//     render_full_ri.cu, synthesis_back_ri.cu);
-//   * irdft_tile: the dense product with A/B (129 x 256 each), ~132 k FLOP
-//     per frame, kept only until render_decode_synthesis_ri.cu moves to the
-//     FFT form (ROADMAP.md, Queue 2, "still open" item 3); then it goes.
+// The 256-point real DFT and its inverse are rdft256 / irdft256: one warp
+// per frame, a 128-point complex FFT in registers plus the real/complex
+// split, ~5 k FLOP per frame, twiddles from a 2 KB table.  Every kernel
+// source uses them; none reads a dense DFT matrix.
 //
 // Included by every kernel source in csrc/.  Everything here has internal
 // linkage, so each translation unit keeps its own copy.
@@ -26,7 +22,7 @@ constexpr int NB = HOP + 1;           // uniform bands
 constexpr int FRAME = 2 * HOP;        // folded frame length
 constexpr int TOTAL_HOPS = 10;        // prototype length in hops
 constexpr int NT = TOTAL_HOPS - 1;    // overlap-add tail hops
-constexpr int NB_PAD = NB + 1;        // A/B rows and decoded rows, even count
+constexpr int NB_PAD = NB + 1;        // bins of a decoded row in shared memory
 constexpr int G_BANDS = 16;           // bands carrying the hybrid context
 // half-band ("hybrid") filter coefficients, afSTFT_internal.h:73-76
 constexpr float COEFF1 = 0.031273141818515176604f;
@@ -50,6 +46,14 @@ __device__ __forceinline__ void cp_async8(void* dst_shared, const void* src) {
   const unsigned dst =
       static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// 4 bytes.
+__device__ __forceinline__ void cp_async4(void* dst_shared, const void* src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src));
 }
 
@@ -86,6 +90,35 @@ __device__ __forceinline__ void load_hops_async(float* dst, int hs,
     }
     cp_async16(dst + qq * hs + off, src, bytes);
   }
+}
+
+// A span of floats in device memory starts anywhere in a 16-byte word:
+// span_offset is the floats it lies past the word's start (0..3).
+__device__ __forceinline__ int span_offset(const float* src) {
+  return (int)((reinterpret_cast<unsigned long long>(src) >> 2) & 3);
+}
+
+// Floats of shared memory for a span of n floats at any span_offset, in
+// whole 16-byte words.
+constexpr int span_room(int n) { return (n + 6) / 4 * 4; }
+
+// Starts the copy of the n floats at src to dst + span_offset(src) (dst
+// 16-byte aligned, span_room(n) floats): the copy keeps the span's place
+// within its 16-byte word, so all but its first and last (up to 3) floats
+// go as 16-byte copies.  Completes at the caller's next cp_async_commit /
+// cp_async_wait.
+__device__ __forceinline__ void load_span_async(float* dst, const float* src,
+                                                int n, int tid,
+                                                int nthreads) {
+  const int off = span_offset(src);
+  const int head = min(n, (4 - off) & 3);
+  const int body = (n - head) / 4;
+  const int done = head + 4 * body;
+  dst += off;
+  if (tid < head) cp_async4(dst + tid, src + tid);
+  for (int i = tid; i < body; i += nthreads)
+    cp_async16(dst + head + 4 * i, src + head + 4 * i, 16);
+  if (tid < n - done) cp_async4(dst + done + tid, src + done + tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,56 +412,6 @@ __device__ __forceinline__ void store_decoded(float* dec_s,
       dec_s[(row * NB_PAD + k) * 2 + 0] = acc_re[e][hh];
       dec_s[(row * NB_PAD + k) * 2 + 1] = acc_im[e][hh];
     }
-}
-
-// Zero the pad band NB of each of dec_s's EC * TILE rows (threads
-// tid < EC * TILE), so the irDFT can read bands in pairs.
-template <int EC, int TILE>
-__device__ __forceinline__ void zero_pad_band(float* dec_s, int tid) {
-  if (tid < EC * TILE) {
-    dec_s[(tid * NB_PAD + NB) * 2 + 0] = 0.f;
-    dec_s[(tid * NB_PAD + NB) * 2 + 1] = 0.f;
-  }
-}
-
-// irDFT of the EC x TILE decoded rows of dec_s against A/B (NB_PAD x FRAME,
-// row-major, the pad row zero): thread n < FRAME computes sample n of every
-// (ear, hop) frame and stores those of ears < ne and hops h0 + h < H to
-// fr = &frames[s, e0, 0, 0] of an (S, cout, H, FRAME) buffer.
-template <int EC, int TILE>
-__device__ __forceinline__ void irdft_tile(const float* dec_s,
-                                           const float* __restrict__ Am,
-                                           const float* __restrict__ Bm,
-                                           float* __restrict__ fr_out, int H,
-                                           int h0, int ne, int tid) {
-  if (tid >= FRAME) return;
-  const int n = tid;
-  float fr[EC][TILE];
-#pragma unroll
-  for (int e = 0; e < EC; ++e)
-#pragma unroll
-    for (int h = 0; h < TILE; ++h) fr[e][h] = 0.f;
-  for (int kk = 0; kk < NB_PAD; kk += 2) {
-    const float a0 = __ldg(Am + kk * FRAME + n);
-    const float a1 = __ldg(Am + (kk + 1) * FRAME + n);
-    const float b0 = __ldg(Bm + kk * FRAME + n);
-    const float b1 = __ldg(Bm + (kk + 1) * FRAME + n);
-#pragma unroll
-    for (int e = 0; e < EC; ++e)
-#pragma unroll
-      for (int h = 0; h < TILE; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            dec_s + ((e * TILE + h) * NB_PAD + kk) * 2);
-        fr[e][h] = fmaf(v.w, b1, fmaf(v.z, a1, fmaf(v.y, b0,
-                   fmaf(v.x, a0, fr[e][h]))));
-      }
-  }
-#pragma unroll
-  for (int e = 0; e < EC; ++e)
-#pragma unroll
-    for (int h = 0; h < TILE; ++h)
-      if (e < ne && h0 + h < H)
-        fr_out[((size_t)e * H + h0 + h) * FRAME + n] = fr[e][h];
 }
 
 // Synthesis window, overlap-add over 10 hops and the tail merge; one

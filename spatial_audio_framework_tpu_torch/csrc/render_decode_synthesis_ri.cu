@@ -24,154 +24,423 @@
 //      only (decode_taps makes them zero above band 4); shared taps
 //      (cin, cout, 4, 129) or per-stream taps (S, cin, cout, 4, 129), a
 //      pointer offset per stream;
-//   2. irDFT against A/B (129 x 256; for a low-delay bank the wrapper
-//      passes them with the odd-bin sign folded in);
+//   2. the odd-bin sign of a low-delay bank, then the irDFT (129 bins ->
+//      256 samples);
 //   3. synthesis window, overlap-add over 10 hops, merge of the 9-hop tail
 //      (`overlap_add`, a second light launch, as in render_full_ri.cu).
 //
-// What bounds it on the H100: at the ambi_bin order-7 slice (S = 64
+// What bounds it on the H100: bytes.  At the ambi_bin order-7 slice (S = 64
 // streams, cin = 64, cout = 2, H = 64) step 1 reads the (d, g) pair, 64 x
-// 64 x 64 x (129 + 16) x 8 B = 304 MB per call, for 0.27 GFLOP of decode;
-// the irDFT is 1.1 GFLOP.  Reading d and g from device memory bounds it:
-// 0.09 ms at 3.35 TB/s.
+// 64 x 64 x (129 + 16) x 8 B = 304 MB per call, for 0.5 GFLOP of decode and
+// 0.04 GFLOP of irDFTs as FFTs: 0.09 ms at 3.35 TB/s.  What it must do is
+// keep enough of those bytes in flight on every SM from the first cycle of
+// a block to the last, and read them from device memory once whatever the
+// number of ears.
 //
 // What the design does about it:
-//   * one block per (stream, tile of 16 output hops), 256 blocks at the
-//     order-7 shape, each thread owning one band and 8 hops: for every
-//     channel a warp reads whole 129-float rows of d, coalesced over the
-//     bands, with 8 x 2 independent loads per thread in flight;
-//   * registers are capped for two blocks per SM (__launch_bounds__ 2:
-//     96 registers, a few bytes spilled): on the H100 that took the (d, g)
-//     form from 0.66 to 0.36 ms at the order-7 shape, where 168 registers
-//     had left one block per SM and the loads too few to hide latency;
-//   * the decode accumulates over cin in registers, per ear, with the same
-//     device code as render_full_ri.cu (afstft_common.cuh), and only the
-//     decoded tile (33 KB) goes to shared memory;
-//   * the irDFT is the one of render_full_ri.cu: thread n computes sample n
-//     of every (ear, hop) frame, every A/B value loaded feeds 32 FMAs;
+//   * the hops of a tile are one contiguous span per (stream, channel) and
+//     array (16 x 129 floats of d.re, the same of d.im, 16 x 16 of each g,
+//     and the channel's taps for every ear of the pass); each span goes by
+//     cp.async into a ring of four shared-memory stages, three channels
+//     ahead of the decode, so no thread waits on a load it issued itself.
+//     A span starts at (row H + h0) 129 floats, 16-byte aligned only where
+//     row H + h0 is a multiple of 4: load_span_async keeps the span's place
+//     within its 16-byte word in shared memory, so all but its first and
+//     last few floats go as 16-byte copies at any H, row and pointer;
+//   * cin is split over a thread-block cluster of min(4, cin) blocks per
+//     (stream, tile of 16 hops): rank q decodes channels q, q + cs, ..., and
+//     the ranks' decoded tiles are summed through distributed shared memory
+//     in rank order 0, 1, ..., so the result does not depend on scheduling
+//     (1024 blocks at the order-7 shape, two an SM).  A cluster rather than
+//     warps of one block: the ring of one block per (stream, tile) would
+//     hold a quarter of the bytes in flight, and 256 blocks do not fill 132
+//     SMs evenly;
+//   * a thread owns one band and 8 hops (4 above two ears) and keeps the
+//     accumulators of every ear of the pass in registers: up to 8 ears are
+//     decoded from one load of a channel's stage (above 4, in two passes
+//     over the stage, not over device memory); only calls with more than 8
+//     ears read their inputs again, once per 8 ears;
+//   * the spectra forms read their context from the stage: the hybrid form
+//     stages 16 + 6 hops, the non-hybrid form 16 (d = s[h+6] alone);
+//   * each rank then transforms its share of the (ear, hop) frames with
+//     irdft256 (afstft_common.cuh: one warp a frame, bins l + 32 r in lane
+//     l register r, the low-delay sign applied to the summed bins): no A/B
+//     reads, 5 k FLOP a frame;
+//   * per-stream taps ride the same ring, so each of a stream's hop tiles
+//     reads that stream's taps once: ceil(H / 16) reads per call, all but
+//     the first from L2 when the set fits it;
 //   * all arithmetic is fp32 FMA, no TF32, for every precision mode; the
 //     sums differ from the plain version only in their order.
-// Splitting cin across warps (more bytes in flight per block) and tensor-
-// core irDFTs are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "afstft_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int TILE = 16;              // output hops per block
-constexpr int GROUPS = 2;             // hop groups per band
-constexpr int HPG = TILE / GROUPS;    // decoded hops per thread
-constexpr int EC = 2;                 // ears per pass over the channels
-constexpr int THREADS = 288;          // >= GROUPS * NB, whole warps
-
-static_assert(TILE % GROUPS == 0, "even split");
-static_assert(THREADS >= GROUPS * NB && THREADS >= FRAME, "threads");
-static_assert(THREADS >= EC * TILE, "threads");
+constexpr int TILE = 16;              // output hops per cluster
+constexpr int MAX_EARS = 8;           // ears per pass over device memory
 
 // the input forms
 constexpr int FORM_DG = 0;            // (d, g) pair, H hops
 constexpr int FORM_HYBRID = 1;        // spectra of H + 6 hops, hybrid bank
 constexpr int FORM_PLAIN = 2;         // spectra of H + 6 hops, non-hybrid
 
-// Launch (a): decode and irDFT of one (stream, hop tile).
-template <int FORM>
-__global__ void __launch_bounds__(THREADS, 2)
+int g_walk = 0;                       // EXPERIMENT: overlap-add design
+int g_cluster = 4;                    // EXPERIMENT: cluster size
+
+// Block shape and shared-memory carve-up (floats) of one instantiation: EC
+// ears a pass; WALK: a cluster walks the tiles of a stream and overlap-adds.
+template <int FORM, int EC, bool WALK>
+struct Cfg {
+  static constexpr int HPG = EC <= 2 ? 8 : 4;     // hops per band thread
+  static constexpr int GROUPS = TILE / HPG;       // hop groups per band
+  static constexpr int THREADS = GROUPS * HOP;    // a thread per (band < 128,
+  static constexpr int WARPS = THREADS / 32;      // group)
+  static constexpr int EB = EC < 4 ? EC : 4;      // ears whose taps a thread
+                                                  // holds at once
+  static constexpr int NSTAGE = WALK ? 3 : 4;
+  static constexpr int HOPS_IN = FORM == FORM_HYBRID ? TILE + 6 : TILE;
+  static constexpr int SM_D = span_room(HOPS_IN * NB);
+  static constexpr int SM_G = FORM == FORM_DG ? span_room(TILE * G_BANDS) : 0;
+  static constexpr int SM_TAPS = span_room(EC * 4 * NB);
+  static constexpr int SM_STAGE = 2 * SM_D + 2 * SM_G + SM_TAPS;
+  // the decoded tile reuses the ring once the channel loop is over
+  static constexpr int SM_OUT = EC * TILE * NB_PAD * 2;
+  static constexpr int SM_MAIN =
+      NSTAGE * SM_STAGE > SM_OUT ? NSTAGE * SM_STAGE : SM_OUT;
+  static constexpr int SM_FR = WALK ? EC * TILE * FRAME : 0;
+  static constexpr int EPT = (EC + GROUPS - 1) / GROUPS;
+  static constexpr int SM_FLOATS = SM_MAIN + SM_FR + 2 * FFT_TW;
+  static_assert(EC * TILE <= THREADS, "a thread per Nyquist accumulator");
+  static_assert(SM_FLOATS * 4 <= 232448, "fits an SM");
+};
+
+// Launch (a): decode and irDFT of one (stream, hop tile) by a cluster.
+template <int FORM, int EC, bool WALK>
+__global__ void __launch_bounds__(Cfg<FORM, EC, WALK>::THREADS,
+                                  EC <= 2 ? 2 : 1)
 decode_irdft(const float* __restrict__ re,    // d or spectra, real part
              const float* __restrict__ im,    // d or spectra, imaginary part
              const float* __restrict__ g_re,  // FORM_DG: (S, cin, H, 16)
              const float* __restrict__ g_im,
              const float* __restrict__ taps,  // (cin, cout, 4, NB) per stream
              long long taps_stride,           // 0 for shared taps
-             const float* __restrict__ Am,    // (NB_PAD, FRAME)
-             const float* __restrict__ Bm,    // (NB_PAD, FRAME)
+             const float2* __restrict__ tw_g, // (FFT_TW)
+             const float* __restrict__ w_syn,
+             const float* __restrict__ ola_tail,
              float* __restrict__ frames,      // (S, cout, H, FRAME)
-             int cin, int cout, int H, int n_tiles) {
-  __shared__ __align__(16) float dec_s[EC * TILE * NB_PAD * 2];
+             float* __restrict__ y, float* __restrict__ new_tail,
+             int cin, int cout, int H, int n_tiles, int low_delay) {
+  using C = Cfg<FORM, EC, WALK>;
+  constexpr int HPG = C::HPG, EB = C::EB, NSTAGE = C::NSTAGE;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* out_s = ring;                               // after the channels
+  float* fr_s = ring + C::SM_MAIN;
+  float2* tw = reinterpret_cast<float2*>(fr_s + C::SM_FR);
 
-  const int tid = threadIdx.x;
-  const int s = blockIdx.x / n_tiles;
-  const int h0 = (blockIdx.x % n_tiles) * TILE;
-  const int k = tid % NB;             // band of this thread
-  const int grp = tid / NB;           // hop group; >= GROUPS: idle
-  const bool band_thread = grp < GROUPS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x / cs;
+  const int s = WALK ? tile : tile / n_tiles;
+  const int t_first = WALK ? 0 : tile % n_tiles;
+  const int t_end = WALK ? n_tiles : t_first + 1;
+  const int k = tid % HOP;            // band of this thread
+  const int grp = tid / HOP;          // its hop group
   const bool hyb = FORM != FORM_PLAIN && k < G_BANDS;
   const int n_in = FORM == FORM_DG ? H : H + 6;    // hops per channel row
-  const int d_off = FORM == FORM_DG ? 0 : (FORM == FORM_HYBRID ? 3 : 6);
+  constexpr int D_OFF = FORM == FORM_HYBRID ? 3 : 0;  // d's hop in the stage
   const float* tps = taps + s * taps_stride;
+  const int n_ch = (cin - rank + cs - 1) / cs;     // this rank's channels
+
+  for (int i = tid; i < FFT_TW; i += C::THREADS) tw[i] = tw_g[i];
 
   for (int e0 = 0; e0 < cout; e0 += EC) {
     const int ne = min(EC, cout - e0);
-    float acc_re[EC][HPG], acc_im[EC][HPG];
+    float w[TOTAL_HOPS], oacc[C::EPT][TOTAL_HOPS];
+    if (WALK) {
 #pragma unroll
-    for (int e = 0; e < EC; ++e)
+      for (int q = 0; q < TOTAL_HOPS; ++q) {
+        w[q] = w_syn[q * HOP + k];
 #pragma unroll
-      for (int hh = 0; hh < HPG; ++hh) acc_re[e][hh] = acc_im[e][hh] = 0.f;
+        for (int j = 0; j < C::EPT; ++j) oacc[j][q] = 0.f;
+      }
+    }
+    for (int t = t_first; t < t_end; ++t) {
+      const int h0 = t * TILE;
+      const int nh = min(TILE, H - h0);
+      // the hops of a channel row the stage holds: [in0, in0 + n_ld)
+      const int in0 = h0 + (FORM == FORM_PLAIN ? 6 : 0);
+      const int n_ld = nh + (FORM == FORM_HYBRID ? 6 : 0);
 
-    // 1. decode, summed over the channels: band k, hops grp*HPG + hh
-    if (band_thread) {
-      for (int c = 0; c < cin; ++c) {
-        const BandTaps<EC> t = load_taps<EC>(
-            tps + ((size_t)c * cout + e0) * 4 * NB + k, ne, hyb);
-        const size_t row = (size_t)s * cin + c;
-        const float* r = re + row * n_in * NB + k;
-        const float* i = im + row * n_in * NB + k;
+      // the spans of channel c in device memory
+      auto src_re = [&](const float* base, int c) {
+        return base + (((size_t)s * cin + c) * n_in + in0) * NB;
+      };
+      auto src_g = [&](const float* base, int c) {
+        return base + (((size_t)s * cin + c) * H + h0) * G_BANDS;
+      };
+      auto src_taps = [&](int c) {
+        return tps + ((size_t)c * cout + e0) * 4 * NB;
+      };
+      auto load = [&](int c, int stage) {
+        float* st = ring + stage * C::SM_STAGE;
+        load_span_async(st, src_re(re, c), n_ld * NB, tid, C::THREADS);
+        load_span_async(st + C::SM_D, src_re(im, c), n_ld * NB, tid,
+                        C::THREADS);
+        if (FORM == FORM_DG) {
+          load_span_async(st + 2 * C::SM_D, src_g(g_re, c), nh * G_BANDS, tid,
+                          C::THREADS);
+          load_span_async(st + 2 * C::SM_D + C::SM_G, src_g(g_im, c),
+                          nh * G_BANDS, tid, C::THREADS);
+        }
+        load_span_async(st + 2 * C::SM_D + 2 * C::SM_G, src_taps(c),
+                        ne * 4 * NB, tid, C::THREADS);
+      };
+
+      float acc_re[EC][HPG], acc_im[EC][HPG];
 #pragma unroll
-        for (int hh = 0; hh < HPG; ++hh) {
-          const int h = h0 + grp * HPG + hh;
-          if (h < H) {
-            const float2 d = make_float2(__ldg(r + (h + d_off) * NB),
-                                         __ldg(i + (h + d_off) * NB));
-            float2 w = make_float2(0.f, 0.f);
-            if (hyb) {
-              float2 g;
-              if (FORM == FORM_DG) {
-                const size_t o = (row * H + h) * G_BANDS + k;
-                g = make_float2(__ldg(g_re + o), __ldg(g_im + o));
-              } else {
-                g = hybrid_context(
-                    make_float2(__ldg(r + h * NB), __ldg(i + h * NB)),
-                    make_float2(__ldg(r + (h + 2) * NB),
-                                __ldg(i + (h + 2) * NB)),
-                    make_float2(__ldg(r + (h + 4) * NB),
-                                __ldg(i + (h + 4) * NB)),
-                    make_float2(__ldg(r + (h + 6) * NB),
-                                __ldg(i + (h + 6) * NB)));
-              }
-              w = make_float2(-g.y, g.x);
+      for (int e = 0; e < EC; ++e)
+#pragma unroll
+        for (int hh = 0; hh < HPG; ++hh) acc_re[e][hh] = acc_im[e][hh] = 0.f;
+      float2 nyq_acc = make_float2(0.f, 0.f);  // tid < EC * TILE: band 128
+
+      // 1. decode, summed over this rank's channels rank, rank + cs, ...:
+      //    NSTAGE - 1 channels in flight ahead of the one decoded
+      for (int p = 0; p < NSTAGE - 1; ++p) {
+        if (p < n_ch) load(rank + p * cs, p);
+        cp_async_commit();
+      }
+      for (int it = 0; it < n_ch; ++it) {
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();  // channel it has landed; stage it - 1 is free
+        if (it + NSTAGE - 1 < n_ch)
+          load(rank + (it + NSTAGE - 1) * cs, (it + NSTAGE - 1) % NSTAGE);
+        cp_async_commit();
+
+        const int c = rank + it * cs;
+        const float* st = ring + (it % NSTAGE) * C::SM_STAGE;
+        const float* dre = st + span_offset(src_re(re, c));
+        const float* dim = st + C::SM_D + span_offset(src_re(im, c));
+        const float* gre = st + 2 * C::SM_D;
+        const float* gim = gre + C::SM_G;
+        if (FORM == FORM_DG) {
+          gre += span_offset(src_g(g_re, c));
+          gim += span_offset(src_g(g_im, c));
+        }
+        const float* tp =
+            st + 2 * C::SM_D + 2 * C::SM_G + span_offset(src_taps(c));
+
+        // band k, hops grp*HPG + hh, EB ears at a time
+#pragma unroll
+        for (int eb = 0; eb < EC; eb += EB) {
+          if (eb < ne) {
+            BandTaps<EB> tb;
+#pragma unroll
+            for (int e = 0; e < EB; ++e) {
+              const bool on = eb + e < ne;
+              const float* te = tp + (eb + e) * 4 * NB + k;
+              tb.are[e] = on ? te[0] : 0.f;
+              tb.aim[e] = on ? te[NB] : 0.f;
+              tb.bre[e] = (on && hyb) ? te[2 * NB] : 0.f;
+              tb.bim[e] = (on && hyb) ? te[3 * NB] : 0.f;
             }
-            decode_hop<EC, HPG>(t, d, w, acc_re, acc_im, hh);
+#pragma unroll
+            for (int hh = 0; hh < HPG; ++hh) {
+              const int h = grp * HPG + hh;
+              if (h < nh) {
+                const float2 d = make_float2(dre[(h + D_OFF) * NB + k],
+                                             dim[(h + D_OFF) * NB + k]);
+                float2 wv = make_float2(0.f, 0.f);
+                if (hyb) {
+                  float2 g;
+                  if (FORM == FORM_DG)
+                    g = make_float2(gre[h * G_BANDS + k], gim[h * G_BANDS + k]);
+                  else
+                    g = hybrid_context(
+                        make_float2(dre[h * NB + k], dim[h * NB + k]),
+                        make_float2(dre[(h + 2) * NB + k],
+                                    dim[(h + 2) * NB + k]),
+                        make_float2(dre[(h + 4) * NB + k],
+                                    dim[(h + 4) * NB + k]),
+                        make_float2(dre[(h + 6) * NB + k],
+                                    dim[(h + 6) * NB + k]));
+                  wv = make_float2(-g.y, g.x);
+                }
+#pragma unroll
+                for (int e = 0; e < EB; ++e) {
+                  acc_re[eb + e][hh] += (tb.are[e] * d.x - tb.aim[e] * d.y)
+                                        + (tb.bre[e] * wv.x - tb.bim[e] * wv.y);
+                  acc_im[eb + e][hh] += (tb.are[e] * d.y + tb.aim[e] * d.x)
+                                        + (tb.bre[e] * wv.y + tb.bim[e] * wv.x);
+                }
+              }
+            }
+          }
+        }
+        //    and the Nyquist band, one (ear, hop) a thread (A taps only)
+        if (tid < EC * TILE) {
+          const int e = tid / TILE, h = tid % TILE;
+          if (e < ne && h < nh) {
+            const float are = tp[(e * 4 + 0) * NB + HOP];
+            const float aim = tp[(e * 4 + 1) * NB + HOP];
+            const float2 d = make_float2(dre[(h + D_OFF) * NB + HOP],
+                                         dim[(h + D_OFF) * NB + HOP]);
+            nyq_acc.x += are * d.x - aim * d.y;
+            nyq_acc.y += are * d.y + aim * d.x;
           }
         }
       }
-      store_decoded<EC, HPG, TILE>(dec_s, acc_re, acc_im, grp * HPG, k);
-    }
-    zero_pad_band<EC, TILE>(dec_s, tid);
-    __syncthreads();
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is read; out_s reuses it
 
-    // 2. irDFT: thread n computes sample n of every (ear, hop) frame
-    irdft_tile<EC, TILE>(dec_s, Am, Bm,
-                         frames + ((size_t)s * cout + e0) * H * FRAME, H, h0,
-                         ne, tid);
-    __syncthreads();  // dec_s is rewritten by the next ear pass
+      // 2. this rank's decoded tile to shared memory as (re, im) pairs
+      store_decoded<EC, HPG, TILE>(out_s, acc_re, acc_im, grp * HPG, k);
+      if (tid < EC * TILE) {
+        out_s[(tid * NB_PAD + HOP) * 2 + 0] = nyq_acc.x;
+        out_s[(tid * NB_PAD + HOP) * 2 + 1] = nyq_acc.y;
+      }
+      cluster.sync();
+
+      // 3. irDFT of this rank's (ear, hop) frames, their spectra summed
+      //    over the cluster's ranks in rank order
+      for (int f = rank + cs * warp; f < EC * TILE; f += cs * C::WARPS) {
+        const int e = f / TILE, hh = f % TILE;
+        if (e >= ne || hh >= nh) continue;  // warp-uniform
+        float2 v[4] = {};
+        float nyq = 0.f;
+        for (int q = 0; q < cs; ++q) {
+          const float* o = cluster.map_shared_rank(out_s, q) + f * NB_PAD * 2;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 u =
+                *reinterpret_cast<const float2*>(o + 2 * (lane + 32 * r));
+            v[r] = make_float2(v[r].x + u.x, v[r].y + u.y);
+          }
+          nyq += o[2 * HOP];
+        }
+        if (low_delay && (lane & 1)) {  // (-1)^k on the odd bins
+#pragma unroll
+          for (int r = 0; r < 4; ++r) v[r] = make_float2(-v[r].x, -v[r].y);
+        }
+        irdft256(v, nyq, tw, lane);
+        float* fo =
+            WALK ? cluster.map_shared_rank(fr_s, 0) + f * FRAME
+                 : frames +
+                       (((size_t)s * cout + e0 + e) * H + h0 + hh) * FRAME;
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<float2*>(fo + 2 * fft_in_index(lane, r)) = v[r];
+      }
+      cluster.sync();  // every rank has read out_s before it is rewritten
+
+      if (WALK && rank == 0) {
+#pragma unroll
+        for (int j = 0; j < C::EPT; ++j) {
+          const int e = grp + C::GROUPS * j;
+          if (e < ne) {
+            const size_t row = (size_t)s * cout + e0 + e;
+            for (int hh = 0; hh < nh; ++hh) {
+              const float a = fr_s[(e * TILE + hh) * FRAME + k];
+              const float b = fr_s[(e * TILE + hh) * FRAME + HOP + k];
+#pragma unroll
+              for (int q = 0; q < TOTAL_HOPS; ++q)
+                oacc[j][q] = fmaf(q & 1 ? b : a, w[q], oacc[j][q]);
+              const int p = h0 + hh;
+              y[(row * H + p) * HOP + k] =
+                  p < NT ? oacc[j][0] + ola_tail[(row * NT + p) * HOP + k]
+                         : oacc[j][0];
+#pragma unroll
+              for (int q = 0; q + 1 < TOTAL_HOPS; ++q)
+                oacc[j][q] = oacc[j][q + 1];
+              oacc[j][TOTAL_HOPS - 1] = 0.f;
+            }
+          }
+        }
+      }
+    }
+    if (WALK && rank == 0) {
+#pragma unroll
+      for (int j = 0; j < C::EPT; ++j) {
+        const int e = grp + C::GROUPS * j;
+        if (e < ne) {
+          const size_t row = (size_t)s * cout + e0 + e;
+#pragma unroll
+          for (int q = 0; q < NT; ++q) {
+            const int p = H + q;
+            new_tail[(row * NT + q) * HOP + k] =
+                p < NT ? oacc[j][q] + ola_tail[(row * NT + p) * HOP + k]
+                       : oacc[j][q];
+          }
+        }
+      }
+    }
   }
 }
 
+template <int FORM, int EC, bool WALK>
+cudaError_t launch_decode(const float* re, const float* im, const float* g_re,
+                          const float* g_im, const float* taps,
+                          long long taps_stride, const float* tw,
+                          const float* w_syn, const float* ola_tail,
+                          float* frames, float* y, float* new_tail,
+                          int n_streams, int cin, int cout, int H,
+                          int low_delay, cudaStream_t st) {
+  using C = Cfg<FORM, EC, WALK>;
+  const int n_tiles = (H + TILE - 1) / TILE;
+  const int cs = cin < g_cluster ? cin : g_cluster;
+  const int smem = C::SM_FLOATS * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      decode_irdft<FORM, EC, WALK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3((unsigned)((WALK ? n_streams : n_streams * n_tiles) * cs));
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_irdft<FORM, EC, WALK>, re, im, g_re,
+                            g_im, taps, taps_stride,
+                            reinterpret_cast<const float2*>(tw), w_syn,
+                            ola_tail, frames, y, new_tail, cin, cout, H,
+                            n_tiles, low_delay);
+}
+
+// Both launches: the decode + irDFT with the fewest ears a pass that hold
+// the call's (2, 4 or 8), then the overlap-add.
 template <int FORM>
 cudaError_t launch(const float* re, const float* im, const float* g_re,
                    const float* g_im, const float* taps, int per_stream,
-                   const float* Am, const float* Bm, const float* w_syn,
-                   const float* ola_tail, float* frames, float* y,
-                   float* new_tail, int n_streams, int cin, int cout, int H,
-                   cudaStream_t st) {
-  const int n_tiles = (H + TILE - 1) / TILE;
+                   const float* tw, const float* w_syn, const float* ola_tail,
+                   float* frames, float* y, float* new_tail, int n_streams,
+                   int cin, int cout, int H, int low_delay, cudaStream_t st) {
+  if (n_streams < 1 || cin < 1 || cout < 1 || H < 1)
+    return cudaErrorInvalidValue;
   const long long taps_stride =
       per_stream ? (long long)cin * cout * 4 * NB : 0;
-  decode_irdft<FORM><<<n_streams * n_tiles, THREADS, 0, st>>>(
-      re, im, g_re, g_im, taps, taps_stride, Am, Bm, frames, cin, cout, H,
-      n_tiles);
-  const cudaError_t err = cudaGetLastError();
+#define SAF_DECODE(EC, WALK)                                                \
+  launch_decode<FORM, EC, WALK>(re, im, g_re, g_im, taps, taps_stride, tw,  \
+                                w_syn, ola_tail, frames, y, new_tail,       \
+                                n_streams, cin, cout, H, low_delay, st)
+  if (g_walk && cout <= 2) return SAF_DECODE(2, true);
+  const cudaError_t err = cout <= 2   ? SAF_DECODE(2, false)
+                          : cout <= 4 ? SAF_DECODE(4, false)
+                                      : SAF_DECODE(MAX_EARS, false);
+#undef SAF_DECODE
   if (err != cudaSuccess) return err;
   return launch_overlap_add(frames, w_syn, ola_tail, y, new_tail,
                             (long long)n_streams * cout, H, st);
@@ -180,33 +449,45 @@ cudaError_t launch(const float* re, const float* im, const float* g_re,
 }  // namespace
 
 // C interface, loaded with ctypes.  Each launches both kernels on `stream`
-// and returns the first CUDA error code (0 = success); allocates nothing.
+// and returns the first CUDA error code (0 = success; a refused cluster
+// launch returns its code); allocates nothing.  per_stream != 0: taps (S,
+// cin, cout, 4, NB); low_delay != 0: the odd-bin sign before the irDFT (the
+// caller passes the low-delay synthesis window).  tw: the FFT twiddle table
+// W256^k, (256, 2) float32.
 
 // From the spectra of H + 6 hops (S, cin, H+6, NB); hybrid != 0: d at hop
 // offset 3 with the hybrid context, else d at offset 6 and no context.
 extern "C" int saf_render_decode_synthesis_ri(
-    const float* sre, const float* sim, const float* taps, const float* Am,
-    const float* Bm, const float* w_syn, const float* ola_tail, float* frames,
-    float* y, float* new_tail, int n_streams, int cin, int cout, int H,
-    int hybrid, int per_stream, void* stream) {
+    const float* sre, const float* sim, const float* taps, const float* tw,
+    const float* w_syn, const float* ola_tail, float* frames, float* y,
+    float* new_tail, int n_streams, int cin, int cout, int H, int hybrid,
+    int per_stream, int low_delay, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hybrid)
     return (int)launch<FORM_HYBRID>(sre, sim, nullptr, nullptr, taps,
-                                    per_stream, Am, Bm, w_syn, ola_tail,
-                                    frames, y, new_tail, n_streams, cin, cout,
-                                    H, st);
+                                    per_stream, tw, w_syn, ola_tail, frames,
+                                    y, new_tail, n_streams, cin, cout, H,
+                                    low_delay, st);
   return (int)launch<FORM_PLAIN>(sre, sim, nullptr, nullptr, taps, per_stream,
-                                 Am, Bm, w_syn, ola_tail, frames, y, new_tail,
-                                 n_streams, cin, cout, H, st);
+                                 tw, w_syn, ola_tail, frames, y, new_tail,
+                                 n_streams, cin, cout, H, low_delay, st);
 }
 
 // From the (d, g) pair: d (S, cin, H, NB), g (S, cin, H, G_BANDS).
 extern "C" int saf_render_decode_synthesis_dg_ri(
     const float* dre, const float* dim, const float* gre, const float* gim,
-    const float* taps, const float* Am, const float* Bm, const float* w_syn,
+    const float* taps, const float* tw, const float* w_syn,
     const float* ola_tail, float* frames, float* y, float* new_tail,
-    int n_streams, int cin, int cout, int H, int per_stream, void* stream) {
-  return (int)launch<FORM_DG>(dre, dim, gre, gim, taps, per_stream, Am, Bm,
-                              w_syn, ola_tail, frames, y, new_tail, n_streams,
-                              cin, cout, H, static_cast<cudaStream_t>(stream));
+    int n_streams, int cin, int cout, int H, int per_stream, int low_delay,
+    void* stream) {
+  return (int)launch<FORM_DG>(dre, dim, gre, gim, taps, per_stream, tw, w_syn,
+                              ola_tail, frames, y, new_tail, n_streams, cin,
+                              cout, H, low_delay,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// EXPERIMENT
+extern "C" void saf_render_decode_tune(int walk, int cluster) {
+  g_walk = walk;
+  g_cluster = cluster;
 }

@@ -124,11 +124,13 @@ def load_library() -> ctypes.CDLL:
     lib.saf_synthesis_back_ri.restype = i32
     lib.saf_analysis_front_dg_ri.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
     lib.saf_analysis_front_dg_ri.restype = i32
-    lib.saf_render_decode_synthesis_ri.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.saf_render_decode_synthesis_ri.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
     lib.saf_render_decode_synthesis_ri.restype = i32
-    lib.saf_render_decode_synthesis_dg_ri.argtypes = ([ptr] * 12 + [i32] * 5
+    lib.saf_render_decode_synthesis_dg_ri.argtypes = ([ptr] * 11 + [i32] * 6
                                                       + [ptr])
     lib.saf_render_decode_synthesis_dg_ri.restype = i32
+    lib.saf_render_decode_tune.argtypes = [i32, i32]  # EXPERIMENT
+    lib.saf_render_decode_tune.restype = None
     lib.saf_cuda_error_string.argtypes = [i32]
     lib.saf_cuda_error_string.restype = ctypes.c_char_p
     return lib

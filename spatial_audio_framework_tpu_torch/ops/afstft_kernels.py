@@ -29,10 +29,10 @@ A_u = M for all other bands and B_u = 0.  :func:`decode_taps` builds the
 (A, B) taps; d = spec[h+3] and g = c1·(…) + c2·(…) on bands 0..15 are what
 the decode reads.  Non-hybrid banks decode d = spec[h+6] with A alone.
 
-Four kernels take their rDFT and irDFT as FFTs (``rdft256`` / ``irdft256``
-in ``csrc/afstft_common.cuh``, twiddles from :func:`_fft_twiddles`); the
-renders from spectra and from (d, g) still multiply by the dense A/B
-matrices (ROADMAP.md, Queue 2, "still open" item 3).
+Every kernel takes its rDFT and irDFT as FFTs (``rdft256`` / ``irdft256``
+in ``csrc/afstft_common.cuh``, twiddles from :func:`_fft_twiddles`); only
+the plain versions multiply by the dense DFT matrices of
+:func:`~spatial_audio_framework_tpu_torch.ops.afstft.device_consts`.
 
 Each entry point launches its hand-written CUDA kernel for CUDA tensors
 (counted in ``<entry>.launches``) and uses its plain PyTorch version
@@ -434,22 +434,6 @@ def synthesis_back_ri_reference(spec: torch.Tensor, tail: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_consts(device: torch.device,
-                   low_delay: bool = False) -> dict[str, torch.Tensor]:
-    """The windows and DFT matrices the decode + synthesis kernels
-    (``csrc/render_decode_synthesis_ri.cu``) take, on ``device``, all
-    row-major; A and B carry the low-delay odd-bin sign
-    (pallas_afstft.py:466-469) and get a zero 130th row so the kernels read
-    bands in pairs."""
-    k = device_consts(_KERNEL_HOP, low_delay, device)
-    A, B = k["A"], k["B"]
-    if low_delay:
-        A, B = A * k["sign"][:, None], B * k["sign"][:, None]
-    pad = torch.zeros((1, 2 * _KERNEL_HOP), dtype=torch.float32, device=device)
-    return {**k, "A": torch.cat([A, pad]), "B": torch.cat([B, pad])}
-
-
 def _launch_decode_synthesis(what: str, fn: str, inputs: dict,
                              tail: torch.Tensor, taps: torch.Tensor,
                              low_delay: bool, per_stream: bool, S: int,
@@ -467,17 +451,17 @@ def _launch_decode_synthesis(what: str, fn: str, inputs: dict,
     taps_shape = ((S,) if per_stream else ()) + (cin, cout, 4, hop + 1)
     _check_inputs(what, x0, {**inputs, "tail": (tail, (S, cout, _NT, hop)),
                              "taps": (taps, taps_shape)})
-    k = _kernel_consts(x0.device, low_delay)
+    w_syn = device_consts(hop, low_delay, x0.device)["w_syn"]
     frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
                          device=x0.device)
     y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x0.device)
     new_tail = torch.empty((S, cout, _NT, hop), dtype=torch.float32,
                            device=x0.device)
     _launch(what, fn, x0.device, *(t.data_ptr() for t, _ in inputs.values()),
-            taps.data_ptr(), k["A"].data_ptr(), k["B"].data_ptr(),
-            k["w_syn"].data_ptr(), tail.data_ptr(), frames.data_ptr(),
+            taps.data_ptr(), _fft_twiddles(x0.device).data_ptr(),
+            w_syn.data_ptr(), tail.data_ptr(), frames.data_ptr(),
             y.data_ptr(), new_tail.data_ptr(), S, cin, cout, H,
-            *(int(f) for f in flags))
+            *(int(f) for f in flags), int(low_delay))
     return y, new_tail
 
 

@@ -43,10 +43,16 @@ def shfl(v, src):
     return v[src]
 
 
+def per_lane(a, like):
+    """A per-lane array shaped to broadcast against ``like``, whose leading
+    axes are a's and whose trailing axes (a batch of frames) are not."""
+    return a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
+
+
 def radix2_lanes(V):
     """Radix-2 butterfly across lane bit 0: the lane with bit 0 clear keeps
     a + b, its partner a − b."""
-    hi = (LANE & 1).astype(bool)
+    hi = per_lane((LANE & 1).astype(bool), V[:, 0])
     for r in range(4):
         o = shfl(V[:, r], LANE ^ 1)
         V[:, r] = np.where(hi, o - V[:, r], V[:, r] + o)
@@ -63,7 +69,7 @@ def dft4(V, inverse):
 def twiddle(V, step, inverse):
     """v[q] *= W256^(step·q), q = 1..3 (conjugated for the inverse)."""
     for q in (1, 2, 3):
-        w = tw(step * q)
+        w = per_lane(tw(step * q), V[:, q])
         V[:, q] = V[:, q] * (np.conj(w) if inverse else w)
 
 
@@ -71,7 +77,7 @@ def swap_bit(V, j, b):
     """Swap register bit j with lane bit b by one __shfl_xor_sync per pair
     of registers: the lane with lane bit b set sends its register with
     bit j clear and takes its partner's with bit j set, and vice versa."""
-    beta = ((LANE >> b) & 1).astype(bool)
+    beta = per_lane(((LANE >> b) & 1).astype(bool), V[:, 0])
     for r0 in range(4):
         if r0 >> j & 1:
             continue
@@ -137,17 +143,18 @@ def rdft256(f):
 def irdft_lanes(V, nyq):
     """irdft256 of one frame from its bins in the lanes, V (32, 4) with
     X[l + 32 r] at [l, r] and nyq = Re X[128] → 256 real samples, the
-    imaginary parts of bins 0 and 128 ignored, 1/256 scaled."""
+    imaginary parts of bins 0 and 128 ignored, 1/256 scaled.  A batch of
+    frames: V (32, 4, n), nyq (n,) → (256, n)."""
     V = V.astype(np.complex64).copy()
     V[0, 0] = V[0, 0].real
     P = np.stack([partner(V, r) for r in range(4)], axis=1)
     P[0, 0] = nyq
-    W = tw(LANE_BIN)
+    W = per_lane(tw(LANE_BIN), V)
     V = (V + np.conj(P)) + 1j * np.conj(W) * (V - np.conj(P))
     fft128(V, inverse=True)
-    z = np.empty(128, np.complex64)
+    z = np.empty((128,) + V.shape[2:], np.complex64)
     z[fft_in_index(LANE[:, None], np.arange(4)[None, :])] = V / 256
-    f = np.empty(256, np.float32)
+    f = np.empty((256,) + V.shape[2:], np.float32)
     f[0::2], f[1::2] = z.real, z.imag
     return f
 
@@ -397,5 +404,136 @@ def test_back_kernel_layout_vs_plain_back(H, hybrid, low_delay):
     w_syn = tak.device_consts(128, low_delay, torch.device("cpu"))["w_syn"]
     gy, gt = back_kernel_mirror(spec, tail, w_syn.numpy(), hybrid, low_delay)
     scale = max(1.0, np.abs(ry.numpy()).max())
+    assert np.abs(gy - ry.numpy()).max() <= TOL * scale
+    assert np.abs(gt - rt.numpy()).max() <= TOL * scale
+
+
+# ---------------------------------------------------------------------------
+# The decode + synthesis render (csrc/render_decode_synthesis_ri.cu),
+# mirrored around the irDFT: the split of cin over a cluster's ranks, the
+# stage each channel's tile is decoded from, the rank-order sum, the lane
+# layout, and the overlap-add
+# ---------------------------------------------------------------------------
+
+R_TILE = 16        # output hops per cluster
+R_CLUSTER = 4      # ranks per cluster, at most
+R_MAX_EARS = 8     # ears per pass over the inputs
+
+
+def render_stage(form, spec, s, c, h0, nh):
+    """What one ring stage holds of channel c for the tile at h0 and what
+    the decode reads from it → (d, w = j g), each (nh, 129).  (d, g) pair:
+    nh hops of d and of g; hybrid spectra: nh + 6 hops, d at stage hop
+    hh + 3 and g from stage hops hh, hh + 2, hh + 4, hh + 6 on bands 0..15;
+    non-hybrid spectra: the nh hops from h0 + 6, no g."""
+    g = np.zeros((nh, 129), np.complex64)
+    if form == "dg":
+        dre, dim_, gre, gim = spec
+        d = dre[s, c, h0:h0 + nh] + 1j * dim_[s, c, h0:h0 + nh]
+        g[:, :16] = gre[s, c, h0:h0 + nh] + 1j * gim[s, c, h0:h0 + nh]
+    elif form == "hybrid":
+        st = (spec[0][s, c, h0:h0 + nh + 6]
+              + 1j * spec[1][s, c, h0:h0 + nh + 6]).astype(np.complex64)
+        assert len(st) == nh + 6 <= R_TILE + 6
+        d = st[3:3 + nh]
+        lo = st[:, :16]
+        g[:, :16] = (np.float32(tak._COEFF1) * (lo[6:6 + nh] - lo[0:nh])
+                     + np.float32(tak._COEFF2) * (lo[4:4 + nh] - lo[2:2 + nh]))
+    else:
+        d = (spec[0][s, c, h0 + 6:h0 + 6 + nh]
+             + 1j * spec[1][s, c, h0 + 6:h0 + 6 + nh])
+    return d.astype(np.complex64), (1j * g).astype(np.complex64)
+
+
+def render_kernel_mirror(form, spec, taps, tail, w_syn, low_delay,
+                         per_stream):
+    """render_decode_synthesis_ri.cu: per (stream, tile of R_TILE hops) a
+    cluster of min(R_CLUSTER, cin) ranks; rank q decodes channels q, q + cs,
+    ... of every ear of the pass in channel order, the ranks' tiles are
+    summed in rank order, each (ear, hop) row goes to irdft256's lanes (bin
+    l + 32 r at [l, r], the odd lanes negated for low delay, Re X[128]
+    apart) and its frame to the (S, cout, H, 256) buffer; then the
+    overlap-add launch: output hop p sums frame p - k's half k % 2 times
+    window hop k, plus the old tail for p < 9."""
+    S, cin = spec[0].shape[:2]
+    H = spec[0].shape[2] - (0 if form == "dg" else 6)
+    cout = taps.shape[-3]
+    cs = min(R_CLUSTER, cin)
+    frames = np.full((S, cout, H, 256), np.nan, np.float32)
+    for s in range(S):
+        tp = taps[s] if per_stream else taps          # (cin, cout, 4, 129)
+        for e0 in range(0, cout, R_MAX_EARS):
+            ears = slice(e0, min(e0 + R_MAX_EARS, cout))
+            for h0 in range(0, H, R_TILE):
+                nh = min(R_TILE, H - h0)
+                tile = np.zeros((ears.stop - e0, nh, 129), np.complex64)
+                for rank in range(cs):
+                    dec = np.zeros_like(tile)
+                    for c in range(rank, cin, cs):
+                        d, w = render_stage(form, spec, s, c, h0, nh)
+                        A = (tp[c, ears, 0] + 1j * tp[c, ears, 1])[:, None]
+                        B = (tp[c, ears, 2] + 1j * tp[c, ears, 3])[:, None]
+                        dec = dec + (A.astype(np.complex64) * d
+                                     + B.astype(np.complex64) * w)
+                    tile = tile + dec
+                # the tile's (ear, hop) rows as a batch of frames
+                rows = tile.reshape(-1, 129)
+                V = np.moveaxis(rows[:, LANE_BIN], 0, -1).copy()
+                if low_delay:
+                    V[1::2] = -V[1::2]
+                assert np.isnan(frames[s, ears, h0:h0 + nh]).all()
+                frames[s, ears, h0:h0 + nh] = irdft_lanes(
+                    V, rows[:, 128].real).T.reshape(-1, nh, 256)
+    assert not np.isnan(frames).any()     # every frame once
+    ws = w_syn.reshape(10, 128)
+    out = np.zeros((S, cout, H + 9, 128), np.float32)
+    for p in range(H + 9):
+        for k in range(10):
+            if 0 <= p - k < H:
+                half = frames[:, :, p - k, (k & 1) * 128:(k & 1) * 128 + 128]
+                out[:, :, p] = out[:, :, p] + half * ws[k]
+        if p < 9:
+            out[:, :, p] = out[:, :, p] + tail[:, :, p]
+    return out[:, :, :H].reshape(S, cout, H * 128), out[:, :, H:]
+
+
+@pytest.mark.parametrize("low_delay,per_stream", [
+    (False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("form", ["dg", "hybrid", "plain"])
+@pytest.mark.parametrize("cout", [2, 3, 7])
+@pytest.mark.parametrize("cin", [5, 17, 64])
+@pytest.mark.parametrize("H", [1, 4, 9, 17, 64])
+def test_render_kernel_layout_vs_plain_render(H, cin, cout, form, low_delay,
+                                              per_stream):
+    """One stream (two with per-stream taps) of spectra of scale 4 and
+    taps scaled as a wide render's, vs the plain versions."""
+    S = 2 if per_stream else 1
+    rng = np.random.default_rng(H + cin + cout)
+    u = lambda *shape: rng.uniform(-4, 4, shape).astype(np.float32)  # noqa: E731
+    if form == "dg":
+        spec = (u(S, cin, H, 129), u(S, cin, H, 129), u(S, cin, H, 16),
+                u(S, cin, H, 16))
+    else:
+        spec = (u(S, cin, H + 6, 129), u(S, cin, H + 6, 129))
+    hybrid = form != "plain"
+    M = torch.from_numpy(
+        min(1.0, (16 / cin) ** 0.5) * rng.uniform(
+            -1, 1, (2,) + ((S,) if per_stream else ())
+            + (133 if hybrid else 129, cout, cin)).astype(np.float32))
+    taps = tak.decode_taps(M[0], M[1], hybrid=hybrid).contiguous()
+    tail = rng.uniform(-1, 1, (S, cout, 9, 128)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in spec]
+    kw = dict(low_delay=low_delay, per_stream=per_stream)
+    if form == "dg":
+        ry, rt = tak.render_decode_synthesis_dg_ri_reference(
+            *t, torch.from_numpy(tail), taps, **kw)
+    else:
+        ry, rt = tak.render_decode_synthesis_ri_reference(
+            *t, torch.from_numpy(tail), taps, hybrid=hybrid, **kw)
+    w_syn = tak.device_consts(128, low_delay, torch.device("cpu"))["w_syn"]
+    gy, gt = render_kernel_mirror(form, spec, taps.numpy(), tail,
+                                  w_syn.numpy(), low_delay, per_stream)
+    scale = max(1.0, np.abs(ry.numpy()).max())
+    assert gy.shape == tuple(ry.shape) and gt.shape == tuple(rt.shape)
     assert np.abs(gy - ry.numpy()).max() <= TOL * scale
     assert np.abs(gt - rt.numpy()).max() <= TOL * scale

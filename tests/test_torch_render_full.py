@@ -87,19 +87,33 @@ def test_cpu_wrapper_is_the_reference_and_not_counted():
 
 
 def test_kernel_constants_are_row_major():
-    """The CUDA kernel indexes its windows and DFT matrices as row-major
-    arrays; _rdft_mats' A and B are Fortran-ordered numpy arrays, so a copy
-    that kept their strides would feed the kernel A transposed."""
-    from spatial_audio_framework_tpu_torch.ops.fft import _rdft_mats
+    """The CUDA kernels index what they take (the windows and the FFT
+    twiddle table) and the plain versions what they multiply by (the DFT
+    matrices) as row-major arrays; _rdft_mats' A and B are Fortran-ordered
+    numpy arrays, so a copy that kept their strides would hand A over
+    transposed.  Each equals its float64 source rounded once."""
+    from spatial_audio_framework_tpu_torch.ops.afstft import _windows
+    from spatial_audio_framework_tpu_torch.ops.fft import (_fft256_twiddles,
+                                                           _rdft_mats)
 
-    k = tak._kernel_consts(torch.device("cpu"))
-    C, S, A, B = _rdft_mats(256)
-    expect = {"C": C, "S": S, "A": np.concatenate([A, np.zeros((1, 256))]),
-              "B": np.concatenate([B, np.zeros((1, 256))])}
-    for name, ref in expect.items():
-        assert k[name].is_contiguous(), name
-        np.testing.assert_array_equal(k[name].numpy(), ref.astype(np.float32))
-    assert all(t.is_contiguous() for t in k.values())
+    cpu = torch.device("cpu")
+    for low_delay in (False, True):
+        k = tak.device_consts(128, low_delay, cpu)
+        w_ana, w_syn = _windows(128, low_delay)
+        C, S, A, B = _rdft_mats(256)
+        expect = {"w_ana": w_ana, "w_syn": w_syn, "C": C, "S": S, "A": A,
+                  "B": B}
+        for name, ref in expect.items():
+            assert k[name].is_contiguous(), name
+            np.testing.assert_array_equal(k[name].numpy(),
+                                          ref.astype(np.float32))
+        assert all(t.is_contiguous() for t in k.values())
+    tw = tak._fft_twiddles(cpu)
+    ang = 2 * np.pi * np.arange(256) / 256
+    assert tw.is_contiguous() and tw.shape == (256, 2)
+    np.testing.assert_array_equal(tw.numpy(), _fft256_twiddles())
+    np.testing.assert_array_equal(
+        tw.numpy(), np.stack([np.cos(ang), -np.sin(ang)], 1).astype(np.float32))
 
 
 _FLAGSHIP = dict(per_stream=False, hop=128, low_delay=False, hybrid=True,

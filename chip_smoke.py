@@ -517,6 +517,8 @@ def phase_render_decode(ak, dev, rng, card, dg):
              (1, 17, 2, 130, False, False, True),
              (1, 5, 2, 9, False, False, False),
              (1, 17, 3, 130, True, False, False),
+             # 360 (stream, tile) pairs: more than stay resident at once
+             (40, 5, 2, 130, False, False, True),
              (N_STREAMS, 64, 2, HOPS, False, False, dg))
     worst = 0.0
     for S, cin, cout, H, ld, ps, hyb in cases:
@@ -853,9 +855,9 @@ def bound(in_floats: float, out_floats: float, flop: float) -> dict:
 def kernel_bounds() -> dict:
     """bound() of each kernel at its main path's shape, the one phase 2
     times: 64 streams, H = 64, 15 tail hops; the constants each takes
-    (windows, A/B, twiddles) counted as inputs."""
+    (windows, twiddles) counted as inputs."""
     S, H, T, NB = N_STREAMS, HOPS, 15, 129
-    win, tw, ab = 1280, 512, 2 * 130 * 256
+    win, tw = 1280, 512
     ola = (H + 9) * 128           # output samples per row, y and tail
     rdft = FOLD_FLOP + FFT_FLOP   # fold and rDFT of a frame
     b = {}
@@ -878,7 +880,7 @@ def kernel_bounds() -> dict:
                                    R * ola,
                                    R * H * FFT_FLOP + R * ola * OLA_FLOP)
     cin = 64                      # the renders from spectra and from (d, g)
-    back = (cin * cout * 4 * NB + S * cout * 9 * 128 + ab + win,
+    back = (cin * cout * 4 * NB + S * cout * 9 * 128 + tw + win,
             S * cout * ola,
             S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
     b["render_decode_synthesis_ri"] = bound(

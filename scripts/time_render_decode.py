@@ -7,12 +7,12 @@ render (spectra of H + 6 hops, shared taps).
 
 Each render is first held against its plain version (tolerance 2e-5), then
 timed with CUDA events behind a spin kernel, so the times are device times.
-Where the library exports ``saf_render_decode_tune(walk, cluster)`` (a
-build that carries both overlap-add designs), every (design, cluster size)
-named by ``--variants`` is checked and timed, in turns, in the same call.
+Beside each, as a yardstick of the read rate the card reaches, ``torch.sum``
+over each of the same spectral inputs (one launch a tensor) is timed the
+same way.
 
 Usage (from the repository root, on a machine with an NVIDIA GPU and nvcc):
-``python scripts/time_render_decode.py [--variants 0:4,0:8,1:8] [--rounds 3]``
+``python scripts/time_render_decode.py [--rounds 3]``
 """
 from __future__ import annotations
 
@@ -30,9 +30,6 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default="",
-                    help="walk:cluster pairs, e.g. 0:4,1:8 (needs a build "
-                         "with saf_render_decode_tune)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -44,9 +41,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(card)
-    lib = _build.load_library()
-    variants = [tuple(int(v) for v in p.split(":"))
-                for p in args.variants.split(",") if p] or [None]
+    _build.load_library()
     rng = np.random.default_rng(args.seed)
     S, cin, cout, H = cs.N_STREAMS, 64, 2, cs.HOPS
     shapes = {}
@@ -67,29 +62,29 @@ def main() -> int:
         ref = getattr(ak, f"{name}_reference")(*spec, ola, taps, **kw)
         shapes[label] = (getattr(ak, name), spec, ola, taps, kw, ref)
 
-    def select(v):
-        if v is not None:
-            lib.saf_render_decode_tune(*v)
-
-    times = {(label, v): [] for label in shapes for v in variants}
+    times = {label: [] for label in shapes}
     for label, (fn, spec, ola, taps, kw, ref) in shapes.items():
-        for v in variants:
-            select(v)
-            out = fn(*spec, ola, taps, **kw)
-            torch.cuda.synchronize()
-            err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-            print(f"{label}, variant {v}: max |err| vs plain = {err:.3e}")
-            cs.check(err <= cs.KERNEL_TOL, f"{label} {v}: {err}")
-        order = variants + variants[::-1]
-        for _ in range(args.rounds):
-            for v in order:
-                select(v)
-                times[label, v].append(cs.cuda_ms(
-                    lambda: fn(*spec, ola, taps, **kw), 20, queued=True))
-    for (label, v), r in times.items():
-        print(f"{label}, variant (walk, cluster) = {v} [{card}]: "
-              f"{np.mean(r):.4f} ms per call (runs "
-              f"{['%.4f' % t for t in r]})")
+        out = fn(*spec, ola, taps, **kw)
+        torch.cuda.synchronize()
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        print(f"{label}: max |err| vs plain = {err:.3e}")
+        cs.check(err <= cs.KERNEL_TOL, f"{label}: {err}")
+    for _ in range(args.rounds):
+        for label, (fn, spec, ola, taps, kw, ref) in shapes.items():
+            times[label].append(cs.cuda_ms(
+                lambda: fn(*spec, ola, taps, **kw), 20, queued=True))
+    for label, r in times.items():
+        spec = shapes[label][1]
+        mb = sum(t.numel() for t in spec) * 4 / 1e6
+        for t in spec:
+            t.sum()
+        rd = [cs.cuda_ms(lambda: [t.sum() for t in spec], 20, queued=True)
+              for _ in range(args.rounds)]
+        print(f"{label} [{card}]: {np.mean(r):.4f} ms per call (runs "
+              f"{['%.4f' % t for t in r]}) = {mb / np.mean(r) / 1e3:.3f} TB/s "
+              f"over its {mb:.1f} MB of spectra; torch.sum over the same "
+              f"tensors {np.mean(rd):.4f} ms = {mb / np.mean(rd) / 1e3:.3f} "
+              "TB/s")
     return 0
 
 

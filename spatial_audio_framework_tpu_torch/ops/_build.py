@@ -129,8 +129,6 @@ def load_library() -> ctypes.CDLL:
     lib.saf_render_decode_synthesis_dg_ri.argtypes = ([ptr] * 11 + [i32] * 6
                                                       + [ptr])
     lib.saf_render_decode_synthesis_dg_ri.restype = i32
-    lib.saf_render_decode_tune.argtypes = [i32, i32]  # EXPERIMENT
-    lib.saf_render_decode_tune.restype = None
     lib.saf_cuda_error_string.argtypes = [i32]
     lib.saf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -383,6 +383,7 @@ _RENDER_CASES = [  # S, cin, cout, H, low_delay, per_stream
     (3, 5, 2, 1, True, False),
     (1, 5, 3, 9, False, True),
     (1, 17, 2, 130, False, False),
+    (40, 5, 2, 130, False, False), # 360 tiles: more than stay resident
 ]
 
 

@@ -416,8 +416,21 @@ def test_back_kernel_layout_vs_plain_back(H, hybrid, low_delay):
 # ---------------------------------------------------------------------------
 
 R_TILE = 16        # output hops per cluster
-R_CLUSTER = 4      # ranks per cluster, at most
+R_MAX_CLUSTER = 8  # ranks per cluster, at most
 R_MAX_EARS = 8     # ears per pass over the inputs
+
+
+def render_cluster_size(S, n_tiles, cin, cout, n_sm):
+    """The launcher's cluster: the largest power of two, up to
+    R_MAX_CLUSTER and cin, that keeps the grid of S * n_tiles clusters
+    resident at once on n_sm SMs (four blocks an SM up to two ears, one
+    above)."""
+    places = n_sm * (4 if cout <= 2 else 1)
+    cs = 1
+    while (2 * cs <= R_MAX_CLUSTER and 2 * cs <= cin
+           and 2 * cs * S * n_tiles <= places):
+        cs *= 2
+    return cs
 
 
 def render_stage(form, spec, s, c, h0, nh):
@@ -446,9 +459,9 @@ def render_stage(form, spec, s, c, h0, nh):
 
 
 def render_kernel_mirror(form, spec, taps, tail, w_syn, low_delay,
-                         per_stream):
+                         per_stream, n_sm):
     """render_decode_synthesis_ri.cu: per (stream, tile of R_TILE hops) a
-    cluster of min(R_CLUSTER, cin) ranks; rank q decodes channels q, q + cs,
+    cluster of render_cluster_size ranks; rank q decodes channels q, q + cs,
     ... of every ear of the pass in channel order, the ranks' tiles are
     summed in rank order, each (ear, hop) row goes to irdft256's lanes (bin
     l + 32 r at [l, r], the odd lanes negated for low delay, Re X[128]
@@ -458,7 +471,7 @@ def render_kernel_mirror(form, spec, taps, tail, w_syn, low_delay,
     S, cin = spec[0].shape[:2]
     H = spec[0].shape[2] - (0 if form == "dg" else 6)
     cout = taps.shape[-3]
-    cs = min(R_CLUSTER, cin)
+    cs = render_cluster_size(S, -(-H // R_TILE), cin, cout, n_sm)
     frames = np.full((S, cout, H, 256), np.nan, np.float32)
     for s in range(S):
         tp = taps[s] if per_stream else taps          # (cin, cout, 4, 129)
@@ -497,14 +510,28 @@ def render_kernel_mirror(form, spec, taps, tail, w_syn, low_delay,
     return out[:, :, :H].reshape(S, cout, H * 128), out[:, :, H:]
 
 
-@pytest.mark.parametrize("low_delay,per_stream", [
-    (False, False), (True, False), (False, True), (True, True)])
+def test_render_cluster_sizes():
+    """On 132 SMs: 2 at the main paths' shape (512 blocks for 528 places),
+    8 for a single stream, 1 past 264 tiles, never more ranks than
+    channels."""
+    assert render_cluster_size(64, 4, 64, 2, 132) == 2
+    assert render_cluster_size(1, 1, 64, 2, 132) == 8
+    assert render_cluster_size(1, 4, 5, 2, 132) == 4
+    assert render_cluster_size(40, 9, 5, 2, 132) == 1
+    assert render_cluster_size(8, 4, 17, 7, 132) == 4
+    assert render_cluster_size(1, 1, 1, 2, 132) == 1
+
+
+# n_sm: the card's 132 SMs, and counts that force clusters of 1 and 2
+@pytest.mark.parametrize("low_delay,per_stream,n_sm", [
+    (False, False, 132), (True, False, 1), (False, True, 2),
+    (True, True, 132)])
 @pytest.mark.parametrize("form", ["dg", "hybrid", "plain"])
 @pytest.mark.parametrize("cout", [2, 3, 7])
 @pytest.mark.parametrize("cin", [5, 17, 64])
 @pytest.mark.parametrize("H", [1, 4, 9, 17, 64])
 def test_render_kernel_layout_vs_plain_render(H, cin, cout, form, low_delay,
-                                              per_stream):
+                                              per_stream, n_sm):
     """One stream (two with per-stream taps) of spectra of scale 4 and
     taps scaled as a wide render's, vs the plain versions."""
     S = 2 if per_stream else 1
@@ -532,7 +559,7 @@ def test_render_kernel_layout_vs_plain_render(H, cin, cout, form, low_delay,
             *t, torch.from_numpy(tail), taps, hybrid=hybrid, **kw)
     w_syn = tak.device_consts(128, low_delay, torch.device("cpu"))["w_syn"]
     gy, gt = render_kernel_mirror(form, spec, taps.numpy(), tail,
-                                  w_syn.numpy(), low_delay, per_stream)
+                                  w_syn.numpy(), low_delay, per_stream, n_sm)
     scale = max(1.0, np.abs(ry.numpy()).max())
     assert gy.shape == tuple(ry.shape) and gt.shape == tuple(rt.shape)
     assert np.abs(gy - ry.numpy()).max() <= TOL * scale

@@ -27,9 +27,12 @@ Phases:
    CUDA kernels from ``spatial_audio_framework_tpu_torch/csrc``;
 2. each kernel vs its plain PyTorch version on the card, at small shapes
    (rows not a multiple of 8, H < 9, low-delay and non-hybrid banks,
-   per-stream taps; for ``render_full_ri`` cin that its cluster of
-   min(4, cin) blocks does not divide) and at its main path's shape, two
-   chained calls carrying the tails; then both timed with CUDA events at
+   per-stream taps, up to 11 outputs; for ``render_full_ri`` cin that its
+   cluster of min(4, cin) blocks does not divide; for the two-kernel
+   renders rows of spectra that start off a 16-byte boundary and more
+   tiles than stay resident) and at its main path's shape, two chained
+   calls carrying the tails, and for the two-kernel renders two launches
+   that must agree bit for bit; then both timed with CUDA events at
    the main path's shape, the kernel enqueued behind a spin kernel so its
    time is device time (the plain version as it comes: its hundreds of
    launches a call overflow the launch queue); where one PyTorch call

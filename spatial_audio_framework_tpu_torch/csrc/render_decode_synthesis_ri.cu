@@ -42,7 +42,7 @@
 //     and the channel's taps for every ear of the pass); each span goes by
 //     cp.async into a ring of shared-memory stages, so the next channel
 //     arrives while this one is decoded and no thread waits on a load it
-//     issued itself.  Two stages and four 8-warp blocks an SM were fastest
+//     started itself.  Two stages and four 8-warp blocks an SM were fastest
 //     (64 registers a thread); three or four stages with two blocks an SM
 //     and six with one were slower: while a block sums, transforms and
 //     stores it loads nothing, and only other blocks on the SM cover that.

@@ -58,8 +58,8 @@ class AfSTFTStateBatched(NamedTuple):
 
 # The widest input the one-pass kernel takes: the JAX package's choice at
 # the 64-hop chunk (order 3 runs one pass, orders 4-7 the (d, g) pair).  On
-# the H100 the one-pass kernel's clusters split cin across at most 4
-# blocks, and it is the faster route at orders 3 and 7 (PERF.md); the
+# the H100 the two routes are within 5 % of each other per call at order 3
+# and the two-kernel route is 10 % faster at order 7 (PERF.md); the
 # threshold stays the reference's until a chunk-level measurement moves it
 # (ROADMAP.md, Queue 2, "still open" item 5).
 _ONE_PASS_MAX_CIN = 16

@@ -85,6 +85,23 @@ def round_half_up(x: torch.Tensor) -> torch.Tensor:
     return torch.floor(x + 0.5)
 
 
+def table_row(row: torch.Tensor, n_rows: int):
+    """A gain-table row computed in floating point (``elev_idx * n_azi +
+    azi_idx`` of :func:`round_half_up` indices) → (row as int64, clamped
+    into the table; ``outside`` mask), as the JAX package converts and
+    gathers it (``astype(int32)`` then ``jnp.take``), with device ops only:
+    a NaN row is row 0 (XLA's float → int conversion), a negative row
+    counts from the table's end, and a row still outside the table is
+    flagged ``outside`` (``jnp.take`` fills it with NaN; the caller masks
+    what it gathered there).  The returned row always indexes the table, so
+    no direction can raise on the CPU or assert on the card."""
+    row = torch.nan_to_num(row, nan=0.0)
+    row = row.clamp(-n_rows - 1, n_rows).long()
+    row = torch.where(row < 0, row + n_rows, row)
+    outside = (row < 0) | (row >= n_rows)
+    return row.clamp(0, n_rows - 1), outside
+
+
 def input_conversion_mtx(order: int, ch_ordering: str, norm: str) -> np.ndarray:
     """(nSH, nSH) matrix converting an input SH frame in (ch_ordering, norm)
     to (ACN, N3D) — the conversions at the top of every example's process()
@@ -101,3 +118,20 @@ def input_conversion_mtx(order: int, ch_ordering: str, norm: str) -> np.ndarray:
         M = P @ M
     g = hoa.norm_gains(order, _NORM[norm], _NORM[NORM_N3D])
     return (g[:, None] * M).astype(np.float32)
+
+
+def output_conversion_mtx(order: int, ch_ordering: str, norm: str) -> np.ndarray:
+    """(nSH, nSH) matrix converting (ACN, N3D) output to (ch_ordering, norm)
+    — the conversions at the bottom of the encoder examples."""
+    from spatial_audio_framework_tpu_torch.modules import hoa
+
+    nsh = (order + 1) ** 2
+    M = np.eye(nsh, dtype=np.float32)
+    if _CH[ch_ordering] == _CH[CH_FUMA]:
+        P = np.zeros((nsh, nsh), np.float32)
+        # ACN WYZX → FuMa WXYZ (saf_hoa.c:63-66: fuma[1]=acn[3],
+        # fuma[2]=acn[1], fuma[3]=acn[2]); rows ≥ 4 stay zero
+        P[0, 0] = P[1, 3] = P[2, 1] = P[3, 2] = 1.0
+        M = P @ M
+    g = hoa.norm_gains(order, _NORM[NORM_N3D], _NORM[norm])
+    return (M * g[None, :]).astype(np.float32)

@@ -162,22 +162,19 @@ def interp_hrtfs_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
     2) → (Hre, Him), each (..., nBands, 2, nSrc).
 
     The table row is C's (int)(x + 0.5f) of the azimuth taken modulo 360
-    (floor-mod, as jnp.mod) and of the elevation, converted as the JAX
-    package converts and gathers it, with device ops only: a NaN row is
-    row 0 (XLA's float → int conversion), a negative row counts from the
-    table's end (jnp.take), and a row outside the table gives the source
-    NaN weights (jnp.take's fill), hence NaN HRTFs.  Every gather index is
-    clamped into its table, so no direction can make the card assert."""
+    (floor-mod, as jnp.mod) and of the elevation, converted and clamped by
+    :func:`models._common.table_row` as the JAX package converts and
+    gathers it: a NaN row is row 0, a negative row counts from the table's
+    end, and a row outside the table gives the source NaN weights
+    (jnp.take's fill), hence NaN HRTFs.  Every gather index is clamped into
+    its table, so no direction can make the card assert."""
     n_azi = int(360.0 / cfg.azi_res + 0.5) + 1
-    n_rows, n_dirs = w.table_w.shape[0], w.hrtf_re.shape[-1]
+    n_dirs = w.hrtf_re.shape[-1]
     azi_idx = C.round_half_up(
         torch.remainder(dirs_deg[..., 0] + 180.0, 360.0) / cfg.azi_res)
     elev_idx = C.round_half_up((dirs_deg[..., 1] + 90.0) / cfg.elev_res)
-    row = torch.nan_to_num(elev_idx * n_azi + azi_idx, nan=0.0)
-    row = row.clamp(-n_rows - 1, n_rows).long()       # (..., nSrc)
-    row = torch.where(row < 0, row + n_rows, row)
-    outside = (row < 0) | (row >= n_rows)
-    row = row.clamp(0, n_rows - 1)
+    row, outside = C.table_row(elev_idx * n_azi + azi_idx,
+                               w.table_w.shape[0])        # (..., nSrc)
     w3 = torch.where(outside[..., None], math.nan,
                      w.table_w[row])                  # (..., nSrc, 3)
     i3 = w.table_idx[row].clamp(0, n_dirs - 1)

@@ -20,7 +20,7 @@ pipeline.
 ``weights_from_numpy`` / ``state_from_numpy`` take the JAX package's
 ``design_ri`` weights and batched state as numpy arrays, so both packages
 can run on identical inputs.  The single-stream complex ``design`` /
-``init_state`` / ``process`` are not ported (ROADMAP.md, Queue 1, item 6).
+``init_state`` / ``process`` are not ported (ROADMAP.md, Queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ INTERP_TRI = "tri"
 INTERP_TRI_PS = "tri_ps"
 
 _SINGLE_STREAM = ("the single-stream complex binauraliser entry points are "
-                  "not ported yet (ROADMAP.md, Queue 1, item 6); use "
+                  "not ported yet (ROADMAP.md, Queue 1, item 2); use "
                   "design_ri / init_state_batched / process_ri_batched")
 
 

@@ -5,10 +5,8 @@ are designed once per configuration, as the reference's initCodec does.
 Ported decoders (saf_hoa.h:413,447; internals saf_hoa_internal.c):
 
 * loudspeaker: SAD, MMD, EPAD, AllRAD (AllRAD through ``modules/vbap.py``)
-* binaural:    LS, LS-diffEQ, TA, MagLS
-
-The SPR binaural decoder and diffuse-covariance matching are not ported
-yet; both raise NotImplementedError naming their ROADMAP.md item.
+* binaural:    LS, LS-diffEQ, SPR, TA, MagLS, and the diffuse-field
+  covariance matching applied on top of any of them
 """
 from __future__ import annotations
 
@@ -219,6 +217,40 @@ def get_bin_decoder_lsdiffeq(hrtfs, hrtf_dirs_deg, order, weights=None):
     return (dec * Gh[:, None, None]).astype(np.complex64)
 
 
+def check_cond_number_sht_real(order, dirs_rad, weights=None):
+    """Condition number of the weighted SH Gram matrix per order 0..order
+    (saf_sh.c ``checkCondNumberSHTReal``): the sh module's."""
+    return _sh.check_cond_number_sht_real(order, dirs_rad, weights)
+
+
+def get_bin_decoder_spr(hrtfs, hrtf_dirs_deg, order, weights=None):
+    """Subspace-pattern-recovery decoder (saf_hoa_internal.c:332):
+    interpolate HRTFs onto a 2N t-design via a high-order SHT, then SAD."""
+    H = np.asarray(hrtfs)
+    n_dirs = hrtf_dirs_deg.shape[0]
+    nsh = _sh.order2nsh(order)
+    w = (np.asarray(weights, np.float64) / _4PI if weights is not None
+         else np.full(n_dirs, 1.0 / n_dirs))
+    nh_max = min(int(np.sqrt(n_dirs) - 1), 20)
+    dirs_rad = np.stack([np.radians(hrtf_dirs_deg[:, 0]),
+                         np.pi / 2 - np.radians(hrtf_dirs_deg[:, 1])], -1)
+    cond = check_cond_number_sht_real(nh_max, dirs_rad, weights)
+    Nh = 0
+    for i in range(nh_max + 1):
+        if cond[i] < 100.0:
+            Nh = i
+    if Nh < order:
+        raise ValueError("input order exceeds the modal order of the spatial grid")
+    Y_nh = _sh.get_rsh(Nh, np.asarray(hrtf_dirs_deg, np.float64))  # (nSH_nh, nDirs)
+    t_dirs = _presets.tdesign(2 * order)
+    K = t_dirs.shape[0]
+    Y_td = _sh.get_rsh(Nh, t_dirs)  # (nSH_nh, K)
+    M_interp = (Y_nh.T @ Y_td) * w[:, None]  # (nDirs, K)
+    H_td = np.einsum("bed,dk->bek", H, M_interp)
+    B = np.einsum("sk,bek->bse", Y_td[:nsh].astype(np.complex128), H_td.conj())
+    return (np.conj(np.swapaxes(B, -1, -2)) / K).astype(np.complex64)
+
+
 def _cutoff_band(freq_vector, cutoff=1500.0):
     return int(np.argmin(np.abs(np.asarray(freq_vector) - cutoff)))
 
@@ -269,9 +301,7 @@ def get_binaural_ambi_decoder_mtx(hrtfs, hrtf_dirs_deg, method: str, order: int,
     elif method == BINAURAL_DECODER_LSDIFFEQ:
         dec = get_bin_decoder_lsdiffeq(hrtfs, hrtf_dirs_deg, order, weights)
     elif method == BINAURAL_DECODER_SPR:
-        raise NotImplementedError(
-            "the SPR binaural decoder is not ported yet (ROADMAP.md, "
-            "Queue 1: 'the SPR decoder')")
+        dec = get_bin_decoder_spr(hrtfs, hrtf_dirs_deg, order, weights)
     elif method == BINAURAL_DECODER_TA:
         dec = get_bin_decoder_ta(hrtfs, hrtf_dirs_deg, order, freq_vector, itds, weights)
     elif method == BINAURAL_DECODER_MAGLS:
@@ -279,9 +309,30 @@ def get_binaural_ambi_decoder_mtx(hrtfs, hrtf_dirs_deg, method: str, order: int,
     else:
         raise ValueError(method)
     if enable_diff_cov_matching:
-        raise NotImplementedError(
-            "diffuse-field covariance matching is not ported yet "
-            "(ROADMAP.md, Queue 1: 'hoa.apply_diff_cov_matching')")
+        dec = apply_diff_cov_matching(hrtfs, hrtf_dirs_deg, order, dec, weights)
     if enable_max_re_weighting:
         dec = dec * get_max_re_weights(order)[None, None, :]
+    return dec.astype(np.complex64)
+
+
+def apply_diff_cov_matching(hrtfs, hrtf_dirs_deg, order, dec_mtx, weights=None):
+    """Diffuse-field covariance matching (saf_hoa.c:520
+    ``applyDiffCovMatching``): per band (excl. Nyquist) correct the 2×2
+    diffuse covariance of the decode to match the HRTF set's."""
+    Y, w, _, _ = _prep(hrtf_dirs_deg, order, weights)
+    H = np.asarray(hrtfs)
+    dec = np.array(dec_mtx, np.complex128, copy=True)
+    n_bands = H.shape[0]
+    for band in range(n_bands - 1):  # skip Nyquist
+        c_ref = (H[band] * w[None, :]) @ H[band].conj().T
+        np.fill_diagonal(c_ref, c_ref.diagonal().real)
+        X = np.linalg.cholesky(c_ref).conj().T  # upper: Xᴴ X = C_ref
+        H_ambi = dec[band] @ Y
+        c_ambi = (H_ambi * w[None, :]) @ H_ambi.conj().T
+        np.fill_diagonal(c_ambi, c_ambi.diagonal().real)
+        X_ambi = np.linalg.cholesky(c_ambi).conj().T
+        U, _, Vt = np.linalg.svd(X_ambi.conj().T @ X)
+        V = Vt.conj().T
+        M = np.linalg.solve(X_ambi, V @ U.conj().T @ X)
+        dec[band] = M.conj().T @ dec[band]
     return dec.astype(np.complex64)

@@ -3,8 +3,9 @@
 
 The default dataset (``default_hrirs()``) is the JAX package's synthesised
 rigid-sphere set of 836 dirs × 2 ears × 256 taps @48 kHz, read by path;
-other sets load from SOFA files (``modules/sofa.py``).  Resampling is not
-ported yet (ROADMAP.md, Queue 1).
+other sets load from SOFA files (``modules/sofa.py``); sets at another
+sample rate than the configuration's are resampled as the reference does
+(``utils/speex.py``).
 """
 from __future__ import annotations
 
@@ -47,14 +48,26 @@ def load_hrirs(sofa_filepath=None, use_default: bool = False):
     return h, d, fs, True
 
 
-def resample_hrirs(hrirs: np.ndarray, fs_in: int, fs_out: int):
-    """Identity when fs_in == fs_out; resampling itself needs the speex
-    resampler, which is not ported."""
+def resample_hrirs(hrirs: np.ndarray, fs_in: int, fs_out: int,
+                   pad_to_next_pow2: bool = False) -> tuple[np.ndarray, int]:
+    """``resampleHRIRs`` (saf_hrir.c:365-465): speex resampler at
+    QUALITY_MAX with skip_zeros, zero-fed until the output buffer — of
+    length ceilf(len·fs_out/fs_in), pow2-padded when requested — is full
+    (so a pow2 "pad" region carries real filter tail, not zeros).
+    Numerics via the reimplementation in utils/speex.py.
+    hrirs: (..., len) → (resampled (..., out_len) float32, out_len)."""
+    from spatial_audio_framework_tpu_torch.utils.speex import SpeexResampler
+
     if fs_in == fs_out:
         return hrirs.astype(np.float32), hrirs.shape[-1]
-    raise NotImplementedError(
-        f"HRIR resampling {fs_in} -> {fs_out} Hz is not ported yet "
-        "(ROADMAP.md, Queue 1: 'utils/speex.py')")
+    # New HRIR length, in the C's f32 arithmetic (saf_hrir.c:393-395)
+    factor = np.float32(np.float32(fs_out) / np.float32(fs_in))
+    out_len = int(np.ceil(np.float32(hrirs.shape[-1]) * factor))
+    out_ld = (int(2 ** np.ceil(np.log2(out_len))) if pad_to_next_pow2
+              else out_len)
+    rs = SpeexResampler(int(fs_in), int(fs_out), quality=10)
+    out = rs.resample(np.asarray(hrirs, np.float32), out_ld)
+    return out, out_ld
 
 
 def estimate_itds(hrirs: np.ndarray, fs: float) -> np.ndarray:
@@ -86,6 +99,16 @@ def hrirs_to_hrtfs_afstft(hrirs: np.ndarray, hop: int = 128,
     """HRIRs → afSTFT filterbank coefficients (saf_hrir.c ``HRIRs2HRTFs_afSTFT``).
     hrirs: (nDirs, 2, len) → (nBands, 2, nDirs) complex64."""
     return _afstft.fir_to_filterbank_coeffs(hrirs, hop, low_delay, hybrid)
+
+
+def hrirs_to_hrtfs(hrirs: np.ndarray, fft_size: int) -> np.ndarray:
+    """HRIRs → DFT-domain HRTFs (saf_hrir.c ``HRIRs2HRTFs``).
+    → (fft_size//2+1, 2, nDirs) complex64."""
+    n_dirs, n_ears, hrir_len = hrirs.shape
+    buf = np.zeros((n_dirs, n_ears, fft_size), np.float32)
+    buf[..., : min(fft_size, hrir_len)] = hrirs[..., : min(fft_size, hrir_len)]
+    H = np.fft.rfft(buf, axis=-1)
+    return H.transpose(2, 1, 0).astype(np.complex64)
 
 
 def diffuse_field_equalise_hrtfs(hrtfs: np.ndarray, itds_s=None,
@@ -146,3 +169,17 @@ def interp_hrtfs(hrtfs: np.ndarray, interp_table: np.ndarray, itds=None,
     ipd = _ipd_f32(itd_i32, freq_vector)  # the C's f32 wrap: see _ipd_f32
     phase = np.stack([ipd, -ipd], axis=1)  # (nBands, 2, nInterp)
     return (mags_i * np.exp(1j * phase)).astype(np.complex64)
+
+
+def binaural_diffuse_coherence(hrtfs: np.ndarray, itds: np.ndarray,
+                               freq_vector: np.ndarray) -> np.ndarray:
+    """Binaural diffuse-field coherence per band
+    (saf_hrir.c:333-374 ``binauralDiffuseCoherence``).  → (nBands,)."""
+    H = np.asarray(hrtfs)
+    f = np.asarray(freq_vector, np.float64)
+    ipd = np.mod(2.0 * np.pi * f[:, None] * np.asarray(itds)[None, :] + np.pi,
+                 2.0 * np.pi) - np.pi
+    coh = (np.exp(1j * ipd) * np.abs(H[:, 0, :]) * np.abs(H[:, 1, :])).mean(-1)
+    out = np.maximum(coh.real, 0.0)
+    out[0] = 1.0
+    return out.astype(np.float32)

@@ -1,5 +1,7 @@
 """Spherical-harmonic core for the design stack (counterpart of
-``spatial_audio_framework_tpu/modules/sh.py``).  Host numpy only.
+``spatial_audio_framework_tpu/modules/sh.py``).  Host numpy, plus
+``get_sh_real_torch`` for directions that live on the device (the
+encoder's per-frame SH matrix).
 
 Conventions match the reference (saf_sh.h):
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 
 def order2nsh(order: int) -> int:
@@ -78,6 +81,40 @@ def get_sh_real(order: int, dirs_rad):
             else:
                 rows.append(math.sqrt(2.0) * base * np.cos(am * azi))
     return np.stack(rows, axis=0)
+
+
+def get_sh_real_torch(order: int, dirs_rad: torch.Tensor) -> torch.Tensor:
+    """:func:`get_sh_real` on a tensor, in the same op order (the JAX
+    package's traced branch): dirs_rad (nDirs, 2) [azi, inclination] →
+    (nSH, nDirs) on dirs_rad's device, in its dtype."""
+    azi, incl = dirs_rad[..., 0], dirs_rad[..., 1]
+    x = torch.cos(incl)
+    s = torch.sqrt(torch.clamp_min(1.0 - x * x, 0.0))
+    N = {}
+    nmm = torch.full_like(x, 1.0 / math.sqrt(4.0 * math.pi))
+    N[0, 0] = nmm
+    for m in range(1, order + 1):
+        nmm = nmm * math.sqrt((2.0 * m + 1.0) / (2.0 * m)) * s
+        N[m, m] = nmm
+    for m in range(0, order + 1):
+        if m + 1 <= order:
+            N[m + 1, m] = x * math.sqrt(2.0 * m + 3.0) * N[m, m]
+        for n in range(m + 2, order + 1):
+            a = math.sqrt((4.0 * n * n - 1.0) / (n * n - m * m))
+            b = math.sqrt(((2.0 * n + 1.0) * (n - 1.0 - m) * (n - 1.0 + m))
+                          / ((2.0 * n - 3.0) * (n * n - m * m)))
+            N[n, m] = a * x * N[n - 1, m] - b * N[n - 2, m]
+    rows = []
+    for n in range(order + 1):
+        for m in range(-n, n + 1):
+            am = abs(m)
+            if m < 0:
+                rows.append(math.sqrt(2.0) * N[n, am] * torch.sin(am * azi))
+            elif m == 0:
+                rows.append(N[n, 0])
+            else:
+                rows.append(math.sqrt(2.0) * N[n, am] * torch.cos(am * azi))
+    return torch.stack(rows, dim=0)
 
 
 def get_rsh(order: int, dirs_deg):
@@ -173,3 +210,21 @@ def beam_weights_max_ev(order: int) -> np.ndarray:
         b[n] = math.sqrt((2 * n + 1) / (4.0 * math.pi)) * Pn
         norm += math.sqrt((2 * n + 1) / (4.0 * math.pi)) * b[n]
     return (b / norm).astype(np.float32)
+
+
+def check_cond_number_sht_real(order: int, dirs_rad: np.ndarray,
+                               w: np.ndarray | None = None) -> np.ndarray:
+    """Condition numbers of the least-squares SHT per order 0..N
+    (saf_sh.c ``checkCondNumberSHTReal``): cond(YₙᵀWYₙ) =
+    max(singular values)/min(...) of the order-truncated Gram matrix.
+
+    dirs_rad: (nDirs, 2) [azi, INCLINATION] radians; w: optional (nDirs,)
+    integration weights.  → (order+1,)."""
+    Y = get_sh_real(order, np.asarray(dirs_rad, np.float64))
+    cond = np.zeros(order + 1, np.float64)
+    for n in range(order + 1):
+        Yn = Y[: (n + 1) ** 2].T                   # (nDirs, nSH_n)
+        G = Yn.T @ (Yn * np.asarray(w)[:, None]) if w is not None else Yn.T @ Yn
+        s = np.linalg.svd(G, compute_uv=False)
+        cond[n] = s.max() / (s.min() + 2.23e-7)
+    return cond

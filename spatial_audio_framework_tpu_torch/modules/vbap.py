@@ -1,13 +1,13 @@
-"""Vector-Base Amplitude Panning in 3-D (counterpart of
-``spatial_audio_framework_tpu/modules/vbap.py:28-239``, ``saf_vbap``).
+"""Vector-Base Amplitude Panning in 3-D and 2-D (counterpart of
+``spatial_audio_framework_tpu/modules/vbap.py``, ``saf_vbap``).
 
 Design-time gain tables in NumPy: triangulation of the loudspeaker set
 (the C's vendored convhull_3d, ``utils/convhull3d.py``), the per-triangle
 inverses, per-source gains with optional MDAP spread, and the regular
 azimuth/elevation grid table with its compression and interpolation forms
-(the binauraliser's HRTF interpolation table).  The 2-D functions and
-``get_p_values`` come with panner (ROADMAP.md, Queue 1: 'the rest of
-vbap').
+(the binauraliser's HRTF interpolation table); the pairwise 2-D panning of
+planar layouts with its azimuth-grid table, and the frequency-dependent
+normalisation exponents of the panner (``get_p_values``).
 
 Behavioural parity notes (framework/modules/saf_vbap/saf_vbap.c):
 
@@ -219,3 +219,54 @@ def vbap_gain_table_to_interp_table(gtable: np.ndarray) -> np.ndarray:
     (saf_vbap.c:369 ``VBAPgainTable2InterpTable``)."""
     s = gtable.sum(-1, keepdims=True)
     return (gtable / np.maximum(s, 1e-20)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# 2-D (pairwise) panning
+# ---------------------------------------------------------------------------
+
+def find_ls_pairs(ls_dirs_deg: np.ndarray) -> np.ndarray:
+    """Adjacent pairs by sorted azimuth, wrapping (saf_vbap.c:898)."""
+    order = np.argsort(np.asarray(ls_dirs_deg, np.float64)[:, 0], kind="stable")
+    order = np.concatenate([order, order[:1]])
+    return np.stack([order[:-1], order[1:]], -1)
+
+
+def vbap_2d(src_azis_deg: np.ndarray, ls_dirs_deg: np.ndarray) -> np.ndarray:
+    """Pairwise 2-D VBAP gains (saf_vbap.c:962 ``vbap2D``) → (nSrc, L)."""
+    ls_dirs_deg = np.asarray(ls_dirs_deg, np.float64)
+    L = ls_dirs_deg.shape[0]
+    pairs = find_ls_pairs(ls_dirs_deg)
+    a = np.radians(ls_dirs_deg[:, 0])
+    verts = np.stack([np.cos(a), np.sin(a)], -1)
+    U = verts[pairs].transpose(0, 2, 1)  # (nPairs, 2, 2), columns = speakers
+    inv_mtx = np.linalg.inv(U)
+    src = np.atleast_1d(np.asarray(src_azis_deg, np.float64))
+    out = np.zeros((src.shape[0], L))
+    for ns, azi_deg in enumerate(src):
+        azi = np.radians(azi_deg)
+        u = np.array([np.cos(azi), np.sin(azi)])
+        gains = np.zeros(L)
+        for f, pair in enumerate(pairs):
+            g = inv_mtx[f] @ u
+            if g.min() > -0.001:
+                gains[pair] = g / max(np.linalg.norm(g), 1e-20)
+        out[ns] = np.maximum(gains / max(np.linalg.norm(gains), 1e-20), 0.0)
+    return out.astype(np.float32)
+
+
+def generate_vbap_gain_table_2d(ls_dirs_deg: np.ndarray,
+                                az_res_deg: int = 1) -> np.ndarray:
+    """Regular-azimuth-grid 2-D table (saf_vbap.c:428): -180..180."""
+    n_azi = int(360.0 / az_res_deg + 1.5)
+    azi = -180.0 + np.arange(n_azi) * az_res_deg
+    return vbap_2d(azi, ls_dirs_deg)
+
+
+def get_p_values(dtt: float, freq: np.ndarray) -> np.ndarray:
+    """Frequency-dependent VBAP normalisation exponent p
+    (saf_vbap.c:475 ``getPvalues``; Laitinen et al. 2014)."""
+    freq = np.asarray(freq, np.float64)
+    a1, a2 = 0.00045, 0.000085
+    p0 = 1.5 - 0.5 * np.cos(4.7 * np.tanh(a1 * freq)) * np.maximum(0.0, 1.0 - a2 * freq)
+    return ((p0 - 2.0) * np.sqrt(dtt) + 2.0).astype(np.float32)

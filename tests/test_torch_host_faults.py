@@ -9,7 +9,10 @@ returns nor copy host data to the device on every call:
 * the FuMa conversion of ``ambi_bin.process_ri_batched`` and the complex
   ``AfSTFT.analysis`` / ``synthesis``: one cached device tensor per
   constant, reused from call to call, and no tensor made from host data
-  once the caches are warm.
+  once the caches are warm;
+* the per-chunk paths of panner, ambi_enc, binauraliser_nf (its DVF table)
+  and roombinauraliser: after one warm chunk, no tensor made from host
+  data.
 
 Run alone with ``python -m pytest -q tests/test_torch_host_faults.py``."""
 import functools
@@ -23,7 +26,11 @@ import torch
 from spatial_audio_framework_tpu.models import binauraliser as jbin
 from spatial_audio_framework_tpu.utils import geometry as jgeo
 from spatial_audio_framework_tpu_torch.models import ambi_bin as tab
+from spatial_audio_framework_tpu_torch.models import ambi_enc as tenc
 from spatial_audio_framework_tpu_torch.models import binauraliser as tbin
+from spatial_audio_framework_tpu_torch.models import binauraliser_nf as tnf
+from spatial_audio_framework_tpu_torch.models import panner as tpan
+from spatial_audio_framework_tpu_torch.models import roombinauraliser as trb
 from spatial_audio_framework_tpu_torch.ops import afstft as tafstft
 
 INTERP_TOL = 1e-6   # as tests/test_torch_binauraliser.py: f32 gathers and
@@ -171,3 +178,61 @@ def test_afstft_constants_are_cached(no_host_tensors, hybrid, low_delay):
         spec, st = bank.analysis(st, x)
         y, st = bank.synthesis(st, spec)
         assert tuple(y.shape) == (3, 4 * 128) and bool(torch.isfinite(y).all())
+
+
+def _chunk_runner(model):
+    """(warm-up inputs made, a callable running one chunk of ``model`` on
+    both routes) at a small size, on random weights of the right shapes."""
+    rng = np.random.default_rng(6)
+    f32 = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1, 1, shape).astype(np.float32))
+    dirs = f32(2, 3, 2) * torch.tensor([180.0, 90.0])
+    ypr = f32(2, 3)
+    x = f32(2, 3, 512)
+    if model == "panner":
+        cfg = tpan.PannerConfig(n_sources=3, n_loudspeakers=5, azi_res=10,
+                                elev_res=10)
+        w = tpan.weights_from_numpy(rng.uniform(0, 1, (37 * 19, 5)),
+                                    rng.uniform(1, 2, 133), "cpu")
+        st = tpan.init_state_batched(cfg, 2, 5, device="cpu")
+        return lambda fused: tpan.process_ri_batched(cfg, w, st, x, dirs, ypr,
+                                                     fused=fused)[0]
+    if model == "ambi_enc":
+        cfg = tenc.AmbiEncConfig(order=2, n_sources=3, frame_size=512)
+        conv = tenc.design(cfg, device="cpu")
+        st = tenc.init_state(cfg, np.zeros((3, 2)), device="cpu")
+        return lambda fused: tenc.process(cfg, conv, st, x[0], dirs[0],
+                                          ypr[0])[0]
+    bw = (rng.standard_normal((3, 133, 2, 30)),) * 3
+    table = (rng.uniform(0, 1, (181 * 37, 3)),
+             rng.integers(0, 30, (181 * 37, 3)),
+             np.linspace(0, 24e3, 133))
+    if model == "binauraliser_nf":
+        cfg = tnf.BinauraliserNFConfig(n_sources=3, enable_rotation=True)
+        w = tnf.weights_from_numpy(*(b[0] for b in bw),
+                                   rng.uniform(-5e-4, 5e-4, 30), *table,
+                                   device="cpu")
+        st = tnf.init_state_batched(cfg, 2, device="cpu")
+        dists = f32(2, 3).abs() * 4.0
+        return lambda fused: tnf.process_ri_batched(
+            cfg, w, st, x, dirs, dists, None, ypr, fused=fused)[0]
+    cfg = trb.RoomBinauraliserConfig(n_sources=3, interp_mode="tri_ps")
+    w = trb.weights_from_numpy(*bw, rng.uniform(-5e-4, 5e-4, (3, 30)),
+                               *table, device="cpu")
+    st = trb.init_state_batched(cfg, 2, device="cpu")
+    return lambda fused: trb.process_ri_batched(cfg, w, st, x, None, ypr,
+                                                fused=fused)[0]
+
+
+@pytest.mark.parametrize("model", ["panner", "ambi_enc", "binauraliser_nf",
+                                   "roombinauraliser"])
+def test_new_models_build_nothing_from_host_data_per_chunk(no_host_tensors,
+                                                           model):
+    """After one warm chunk (the afSTFT constants, the DVF table), a chunk
+    of each new model makes no tensor from host data on either route."""
+    run = _chunk_runner(model)
+    warm = [run(fused) for fused in (True, False)]
+    no_host_tensors()
+    for fused, ref in zip((True, False), warm):
+        y = run(fused)
+        assert torch.equal(y, ref) and bool(torch.isfinite(y).all())

@@ -83,9 +83,113 @@ print("ok")
 """
 
 
-def test_port_runs_without_jax():
+# the four TF-matrix renderers that stand on render_tf_matrix_ri or a plain
+# matrix product, and the host modules under them
+_SCRIPT_RENDERERS = """
+import sys
+sys.modules["jax"] = None          # any 'import jax' now raises ImportError
+import numpy as np
+import torch
+from spatial_audio_framework_tpu_torch.models import (
+    _common, ambi_bin, ambi_enc, binauraliser_nf, panner, roombinauraliser)
+from spatial_audio_framework_tpu_torch.modules import brir, hoa, hrir, sh, vbap
+from spatial_audio_framework_tpu_torch.utils import dvf, speex
+
+rng = np.random.default_rng(0)
+u = lambda *shape: torch.from_numpy(
+    rng.uniform(-1, 1, shape).astype(np.float32))
+
+# modules/vbap (2-D) and models/panner: a planar and a 3-D layout
+ring = np.array([[30, 0], [-30, 0], [0, 0], [110, 0], [-110, 0]], float)
+assert vbap.find_ls_pairs(ring).shape == (5, 2)
+assert vbap.generate_vbap_gain_table_2d(ring, 10).shape == (37, 5)
+assert vbap.get_p_values(0.5, np.linspace(0, 24e3, 133)).shape == (133,)
+dome = np.concatenate([ring, [[45, 45], [-45, 45], [180, 45]]])
+for ls in (ring, dome):
+    pcfg = panner.PannerConfig(n_sources=3, n_loudspeakers=len(ls),
+                               azi_res=10, elev_res=10)
+    pw = panner.design(pcfg, ls, device="cpu")
+    pst = panner.init_state_batched(pcfg, 2, len(ls), device="cpu")
+    dirs = u(2, 3, 2) * torch.tensor([180.0, 90.0])
+    y, pst = panner.process_ri_batched(pcfg, pw, pst, u(2, 3, 512), dirs,
+                                       u(2, 3))
+    assert y.shape == (2, len(ls), 512) and bool(torch.isfinite(y).all())
+
+# modules/sh (torch) and models/ambi_enc
+assert sh.get_sh_real_torch(3, u(7, 2)).shape == (16, 7)
+assert sh.check_cond_number_sht_real(2, rng.uniform(0, 3, (30, 2))).shape == (3,)
+ecfg = ambi_enc.AmbiEncConfig(order=3, n_sources=4, frame_size=64)
+conv = ambi_enc.design(ecfg, device="cpu")
+assert _common.output_conversion_mtx(3, "acn", "sn3d").shape == (16, 16)
+est = ambi_enc.init_state(ecfg, rng.uniform(-90, 90, (4, 2)), device="cpu")
+for _ in range(2):
+    y, est = ambi_enc.process(ecfg, conv, est, u(4, 64), u(4, 2) * 90.0)
+assert y.shape == (16, 64) and bool(torch.isfinite(y).all())
+
+# utils/speex, hrir.resample_hrirs, modules/brir
+h, d, fs = hrir.default_hrirs()
+h, d = h[::16], d[::16]
+h44, n44 = brir.resample_hrirs(h, fs, 44100)
+assert h44.shape == (len(h), 2, n44) and n44 == 236
+assert speex.SpeexResampler(48000, 44100, quality=10).resample(h[0], 236).shape == (2, 236)
+assert hrir.hrirs_to_hrtfs(h, 256).shape == (129, 2, len(h))
+
+# utils/dvf and models/binauraliser_nf, on a design from 44.1 kHz HRIRs
+b, a = dvf.calc_dvf_coeffs(u(5, 2).abs() * 180.0, 1.0 + u(5, 1).abs(), 48e3)
+assert b.shape == a.shape == (5, 2, 2)
+for n_src in (2, 17):
+    ncfg = binauraliser_nf.BinauraliserNFConfig(n_sources=n_src,
+                                                enable_rotation=True)
+    nw = binauraliser_nf.design_ri(ncfg, h44, d, 44100, device="cpu")
+    nst = binauraliser_nf.init_state_batched(ncfg, 2, device="cpu")
+    y, nst = binauraliser_nf.process_ri_batched(
+        ncfg, nw, nst, u(2, n_src, 512), u(2, n_src, 2) * 90.0,
+        u(2, n_src).abs() * 4.0, ypr=u(2, 3))
+    assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
+
+# models/roombinauraliser: one BRIR set per source, every EQ mode, both
+# routes
+for n_src, eq in ((2, "fabian_ctf"), (17, "brir_ctf"), (2, "own_filter")):
+    rcfg = roombinauraliser.RoomBinauraliserConfig(
+        n_sources=n_src, diff_eq_mode=eq, interp_mode="tri_ps")
+    sets = np.stack([np.roll(h, s, 0) for s in range(n_src)])
+    rcfg, rw = roombinauraliser.design_ri(rcfg, sets, d, fs,
+                                          rng.standard_normal(32),
+                                          device="cpu")
+    assert rcfg.vbap_3d and rw.hrtf_re.shape == (n_src, 133, 2, len(h))
+    rst = roombinauraliser.init_state_batched(rcfg, 2, device="cpu")
+    y, rst = roombinauraliser.process_ri_batched(
+        rcfg, rw, rst, u(2, n_src, 512), u(2, n_src), u(2, 3))
+    assert y.shape == (2, 2, 512) and bool(torch.isfinite(y).all())
+
+# modules/hoa: the SPR decoder and diffuse-covariance matching through
+# ambi_bin's design
+for kw in (dict(method="spr"), dict(enable_diff_cov_matching=True)):
+    M = ambi_bin.design_ri(ambi_bin.AmbiBinConfig(order=1, **kw), h, d, fs,
+                           device="cpu")
+    assert M[0].shape == (133, 2, 4) and bool(torch.isfinite(M[0]).all())
+leaked = [m for m in sys.modules
+          if m == "spatial_audio_framework_tpu"
+          or m.startswith("spatial_audio_framework_tpu.")]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_runs_without_jax():
+    _run(_SCRIPT)
+
+
+def test_tf_matrix_renderers_run_without_jax():
+    """panner, ambi_enc, binauraliser_nf and roombinauraliser with their
+    host modules (2-D VBAP, the torch SH, DVF, speex resampling, brir, the
+    SPR decoder, diffuse-covariance matching)."""
+    _run(_SCRIPT_RENDERERS)

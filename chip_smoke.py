@@ -19,7 +19,17 @@ state carried from chunk to chunk:
 * the binauraliser: 4 head-tracked sources per stream, HRTFs designed
   from a SOFA file and interpolated per chunk on the card, so per-stream
   mixing matrices: one pass of ``render_full_ri`` with per-stream taps per
-  chunk; and at its full width (64 sources) the (d, g) pair.
+  chunk; and at its full width (64 sources) the (d, g) pair;
+* the panner: 4 sources per stream onto a 5.1 and a 7.1.4 layout (5 and 11
+  outputs), gains looked up per chunk on the card: ``render_full_ri`` with
+  per-stream taps above two outputs;
+* the near-field binauraliser: the binauraliser's 4-source path with
+  per-source distances (DVF shelves per chunk on the card);
+* the roombinauraliser: 16 sources, each through its own BRIR set,
+  interpolated per stream at the head's rotation: ``render_full_ri``; at
+  64 sources the (d, g) pair;
+* ambi_enc: 64 sources encoded to order 1 in frames of 128 samples; plain
+  matrix products, none of the six kernels.
 
 Phases:
 
@@ -67,7 +77,29 @@ Phases:
     plain path, launches nothing and equals ``fused=False``;
 13. ambi_bin order 3 with FuMa channel order and normalisation (the
     conversion applied per chunk on the card): 3 chunks enqueued behind a
-    spin kernel must not make the host wait for the device.
+    spin kernel must not make the host wait for the device;
+14. the panner slices: the 1° x 1° VBAP table (2-D for the planar 5.1
+    layout, 3-D with dummies for 7.1.4) and the p-values designed on the
+    host, then 64 streams x 4 sources, as phase 3, per layout;
+15. the near-field binauraliser slice: phase 9's design, directions and
+    head rotation plus distances uniform in 0.1-4 m (below the near-field
+    limit, in the DVF range and beyond the far-field threshold), as
+    phase 3;
+16. the roombinauraliser slices: per source the default HRIR set with its
+    directions rolled by a seeded shift, the design with the BRIR-derived
+    diffuse-field EQ, then 16 sources per stream with head rotation, as
+    phase 3, and 64 sources over 2 chunks;
+17. ambi_enc: order 1, 64 sources, 8 chunks of 64 frames of 128 samples
+    through ``process`` with the directions changing per chunk, held
+    against a float64 numpy encode of the same frames; it must launch none
+    of the six kernels;
+18. parity with the compiled C reference on the card, one stream through
+    the batched entry points in the goldens' own block sizes: panner
+    (``pan``, ``pyr`` rotated, ``p2d`` planar), ambi_enc (``enc``),
+    binauraliser_nf (``bnf``, ``bnfr`` rotated), roombinauraliser (``rb``,
+    ``rbr`` rotated);
+19. design checks: ``resample_hrirs`` against the C's resampled HRIRs (on
+    the host), and ambi_bin with the SPR decoder against the C reference.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -113,6 +145,9 @@ SPIN_CYCLES = 400_000_000
 EARLIER_RENDER_FULL_MS = 0.6558
 EARLIER_FRONT_MS = 0.3861
 EARLIER_BACK_MS = 0.6295
+# ambi_enc vs a float64 encode: float32 products of 64 sources, relative to
+# max(1, the reference's peak)
+ENC_TOL = 1e-5
 # a library call vs the kernel it is timed beside: both fp32 (cuDNN TF32
 # off), relative to the kernel output's largest magnitude
 LIB_TOL = 2e-5
@@ -269,9 +304,9 @@ def stft_call(tail, x):
 def phase_render_full(ak, dev, rng, card):
     """render_full_ri vs render_full_ri_reference at small shapes with
     every option (per-stream taps, low-delay and non-hybrid banks, H = 1),
-    at the binauraliser slice's shape (per-stream taps, cin 4) and at the
-    flagship's; both of the last two timed.  Returns the max error and the
-    flagship-shape times."""
+    at the binauraliser and panner slices' shapes (per-stream taps, cin 4,
+    cout 2, 5 and 11) and at the flagship's; the last four timed.  Returns
+    the max error and the flagship-shape times."""
     worst = 0.0
     # S, cin, cout, H, low_delay, per_stream, hybrid
     cases = ((3, 4, 2, 4, False, False, True),
@@ -291,6 +326,9 @@ def phase_render_full(ak, dev, rng, card):
              (2, 4, 11, 33, False, False, True),
              (1, 4, 11, 9, True, True, True),
              (N_STREAMS, 4, 2, HOPS, False, True, True),
+             # the panner slices: 5.1 and 7.1.4, three and six ear passes
+             (N_STREAMS, 4, 5, HOPS, False, True, True),
+             (N_STREAMS, 4, 11, HOPS, False, True, True),
              (N_STREAMS, 16, 2, HOPS, False, False, True))
     for S, cin, cout, H, ld, ps, hyb in cases:
         taps = random_taps(ak, rng, S, cin, cout, ps, hyb, dev)
@@ -321,12 +359,16 @@ def phase_render_full(ak, dev, rng, card):
                                                     **kw),
                 "plain": lambda: ak.render_full_ri_reference(
                     in_tail, x, ola, taps, **kw)}, 20, queued=True)
+            b = render_full_bound(S, cin, cout, H, ps)
             report_times("render_full_ri", t, card,
                          "the flagship shape (with the dense DFT "
                          f"products: {EARLIER_RENDER_FULL_MS} ms)"
                          if cin == 16 else
-                         "the binauraliser slice's shape (64, 4, 2, 64), "
-                         "per-stream taps")
+                         f"{(S, cin, cout, H)}, per-stream taps ("
+                         + {2: "the binauraliser", 5: "the panner 5.1",
+                            11: "the panner 7.1.4"}[cout]
+                         + f" slice; bound {b['bound_ms']:.4f} ms by "
+                         f"{b['bound_by']})")
     return worst, t
 
 
@@ -565,8 +607,8 @@ def phase_render_decode(ak, dev, rng, card, dg):
 
 
 def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
-                card, expect):
-    """A main path: 8 chunks through ``process(state, x, fused)`` with every
+                card, expect, N_CHUNKS=N_CHUNKS):
+    """A main path: ``N_CHUNKS`` (8) chunks through ``process(state, x, fused)`` with every
     launch counter reset just before and read just after (``expect``: the
     launches each kernel must show), held against the plain path, then both
     paths timed, and the kernel path's device time with the host out of
@@ -845,6 +887,218 @@ def phase_fuma(ambi_bin, ak, dev, rng, card):
     check(ahead, "FuMa: a chunk made the host wait for the device")
 
 
+def phase_ambi_enc(ambi_enc, ak, dev, rng, card):
+    """ambi_enc order 1, 64 sources (the JAX benchmark's cell): N_CHUNKS
+    chunks of 64 frames of 128 samples through ``process``, the directions
+    changing per chunk (so the first frame of a chunk crossfades between
+    two encoding matrices), held against a float64 numpy encode of the same
+    frames.  It has no filterbank: matrix products only, none of the six
+    kernels.  Times: a chunk as it comes (CUDA events) and the host's
+    enqueue time; the device time of a frame from 16 frames queued behind a
+    spin kernel (a whole chunk's ~1500 launches overflow the launch
+    queue)."""
+    n_src, frame, n_frames = 64, 128, 64
+    cfg = ambi_enc.AmbiEncConfig(order=1, n_sources=n_src, frame_size=frame)
+    conv = ambi_enc.design(cfg, device=dev)
+    dirs_np = (rng.uniform(-180.0, 180.0, (N_CHUNKS, n_src, 2))
+               * [1.0, 0.45]).astype(np.float32)
+    x_np = rng.uniform(-1.0, 1.0, (N_CHUNKS, n_src, n_frames * frame)
+                       ).astype(np.float32)
+    dirs, xs = torch.from_numpy(dirs_np).to(dev), torch.from_numpy(x_np).to(dev)
+
+    def chunk(st, k):
+        ys = []
+        for f in range(n_frames):
+            y, st = ambi_enc.process(
+                cfg, conv, st, xs[k, :, f * frame:(f + 1) * frame], dirs[k])
+            ys.append(y)
+        return torch.cat(ys, dim=-1), st
+
+    for k in KERNELS:
+        getattr(ak, k).launches = 0
+    st = ambi_enc.init_state(cfg, dirs_np[0].astype(np.float64), device=dev)
+    outs = []
+    for k in range(N_CHUNKS):
+        y, st = chunk(st, k)
+        outs.append(y)
+    torch.cuda.synchronize()
+    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    out = torch.cat(outs, dim=-1).cpu().numpy()
+    # float64 reference: frame f encodes frame f − 1 with the matrices of
+    # frames f − 1 and f, faded arange(1, T+1)/T
+    Ys = [ambi_enc.encoding_mtx(cfg, d.astype(np.float64)) for d in dirs_np]
+    conv64 = conv.cpu().numpy().astype(np.float64)
+    fade = np.arange(1, frame + 1) / frame
+    x_all = np.concatenate(list(x_np.astype(np.float64)), axis=-1)
+    ref = np.zeros((cfg.nsh, x_all.shape[-1]))
+    for f in range(1, N_CHUNKS * n_frames):
+        Y_new = Ys[f // n_frames]
+        Y_old = Ys[max(f - 1, 0) // n_frames]
+        xp = x_all[:, (f - 1) * frame:f * frame]
+        ref[:, f * frame:(f + 1) * frame] = conv64 @ (
+            (Y_new @ xp) * fade + (Y_old @ xp) * (1.0 - fade)) / np.sqrt(n_src)
+    err = float(np.abs(out - ref).max())
+    peak = float(np.abs(ref).max())
+    print(f"phase 17: ambi_enc order 1, {n_src} sources, {N_CHUNKS} chunks "
+          f"of {n_frames} frames of {frame} samples vs a float64 numpy "
+          f"encode: max |err| = {err:.3e} (peak {peak:.3f}, tol "
+          f"{ENC_TOL}); launches of the six kernels = {launches} (it has no "
+          "filterbank: none expected)")
+    check(not any(launches.values()), "ambi_enc launched a filterbank kernel")
+    check(out.shape == ref.shape and np.isfinite(out).all()
+          and err <= ENC_TOL * max(1.0, peak), f"ambi_enc vs float64: {err}")
+
+    state = {"st": st, "k": 0}
+
+    def step():
+        _, state["st"] = chunk(state["st"], state["k"] % N_CHUNKS)
+        state["k"] += 1
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = cuda_ms(step, 4)
+    wall = (time.perf_counter() - t0) * 1e3 / 4
+
+    def one_frame():
+        _, state["st"] = ambi_enc.process(cfg, conv, state["st"],
+                                          xs[0, :, :frame], dirs[0])
+
+    frame_ms = cuda_ms(one_frame, 16, queued=True)
+    audio_s = n_frames * frame / FS
+    print(f"phase 17: ambi_enc chunk [{card}]: {ms:.4f} ms per chunk of "
+          f"{n_frames} frames by CUDA events ({wall:.4f} ms on the host's "
+          f"clock) = {audio_s / (ms / 1e3):.1f} audio-seconds per second; "
+          f"device {frame_ms:.5f} ms per frame queued behind a spin = "
+          f"{frame_ms * n_frames:.4f} ms per chunk, so the device idles "
+          f"{100 * (1 - frame_ms * n_frames / ms):.1f} % of the chunk "
+          "(launch bound)")
+
+
+def golden_blocks(process, st, x, fsz, n_blocks):
+    """x (1, n_in, T) on the card through ``process(st, block)`` in
+    ``n_blocks`` blocks of ``fsz`` samples → the stream's output, numpy."""
+    outs = []
+    for f in range(n_blocks):
+        y, st = process(st, x[..., f * fsz:(f + 1) * fsz].contiguous())
+        outs.append(y[0])
+    return torch.cat(outs, dim=-1).cpu().numpy()
+
+
+def phase_new_models_c_parity(panner, ambi_enc, binauraliser_nf,
+                              roombinauraliser, binw, ak, dev, card):
+    """The compiled C reference's outputs for the four new models
+    (tests/goldens/c_goldens.npz; configurations as tests/test_c_goldens.py),
+    one stream through the batched entry points on the card in the goldens'
+    own block sizes.  The renderers launch render_full_ri once per block;
+    ambi_enc launches none of the six kernels."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+    rot = t(np.deg2rad([[40.0, -15.0, 10.0]]))
+    cases = []
+    for key in ("pan", "pyr", "p2d"):
+        ls = np.asarray(g["p2d_ls_dirs" if key == "p2d" else "pan_ls_dirs"],
+                        np.float64)
+        cfg = panner.PannerConfig(n_sources=2, n_loudspeakers=len(ls))
+        w = panner.design(cfg, ls, device=dev)
+        dirs = t(g["p2d_src_dirs" if key == "p2d" else "pan_src_dirs"])[None]
+        ypr = t(np.radians(g["pyr_ypr_deg"]))[None] if key == "pyr" else None
+        cases.append((key, 128, 32,
+                      lambda st, xb, a=(cfg, w, dirs, ypr):
+                      panner.process_ri_batched(a[0], a[1], st, xb, a[2],
+                                                a[3]),
+                      panner.init_state_batched(cfg, 1, len(ls), dev)))
+    for key in ("bnf", "bnfr"):
+        cfg = binauraliser_nf.BinauraliserNFConfig(
+            n_sources=2, enable_rotation=key == "bnfr")
+        if key == "bnfr":
+            dirs = t([[[35.0, 12.0], [-60.0, -8.0]]])
+            dists = t([[0.35, 0.8]])
+        else:
+            dirs, dists = t(g["bnf_src_dirs"])[None], t(g["bnf_dists"])[None]
+        cases.append((key, 128, 48,
+                      lambda st, xb, a=(cfg, dirs, dists,
+                                        rot if key == "bnfr" else None):
+                      binauraliser_nf.process_ri_batched(
+                          a[0], binw, st, xb, a[1], a[2], None, a[3]),
+                      binauraliser_nf.init_state_batched(cfg, 1, dev)))
+    for key in ("rb", "rbr"):
+        cfg = roombinauraliser.RoomBinauraliserConfig(
+            n_sources=2, enable_rotation=key == "rbr",
+            diff_eq_mode=roombinauraliser.DIFF_EQ_FABIAN_CTF)
+        cfg, w = roombinauraliser.design_ri(cfg, device=dev)
+        cases.append((key, 128, 48,
+                      lambda st, xb, a=(cfg, w, rot if key == "rbr" else None):
+                      roombinauraliser.process_ri_batched(a[0], a[1], st, xb,
+                                                          None, a[2]),
+                      roombinauraliser.init_state_batched(cfg, 1, dev)))
+    for key, fsz, n_blocks, process, st in cases:
+        before = {k: getattr(ak, k).launches for k in KERNELS}
+        out = golden_blocks(process, st, t(g[f"{key}_in"])[None], fsz,
+                            n_blocks)
+        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        err = float(np.abs(out - g[f"{key}_out"]).max())
+        print(f"phase 18: {key} ({n_blocks} blocks of {fsz}) vs the C "
+              f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
+              f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
+        check(ran == {k: n_blocks if k == "render_full_ri" else 0
+                      for k in KERNELS}, f"{key}: launches {ran}")
+        check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
+    # ambi_enc: order 3, N3D, 3 sources, 32 frames of 64 samples
+    cfg = ambi_enc.AmbiEncConfig(order=3, norm="n3d", n_sources=3,
+                                 enable_post_scaling=True, frame_size=64)
+    conv = ambi_enc.design(cfg, device=dev)
+    st = ambi_enc.init_state(cfg, np.asarray(g["enc_dirs"], np.float64),
+                             device=dev)
+    x, dirs = t(g["enc_in"]), t(g["enc_dirs"])
+    outs = []
+    for f in range(32):
+        y, st = ambi_enc.process(cfg, conv, st, x[:, f * 64:(f + 1) * 64],
+                                 dirs)
+        outs.append(y)
+    out = torch.cat(outs, dim=-1).cpu().numpy()
+    err = float(np.abs(out - g["enc_out"]).max())
+    print(f"phase 18: enc (32 frames of 64) vs the C reference on the card "
+          f"[{card}]: max |err| = {err:.3e} (tol {C_TOL})")
+    check(np.isfinite(out).all() and err <= C_TOL, f"enc: {err}")
+
+
+def phase_design_checks(ambi_bin, hrir, ak, dev, card):
+    """``resample_hrirs`` against the C's resampled HRIRs (host only), and
+    ambi_bin order 3 with the SPR decoder (N3D) against the C reference:
+    64 blocks of 128 samples, one stream, render_full_ri once per block."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    for tag, fs_in, fs_out, pad in (("48k_44k", 48000, 44100, False),
+                                    ("44k_48k", 44100, 48000, False),
+                                    ("48k_96k_pad", 48000, 96000, True),
+                                    ("96k_48k", 96000, 48000, False),
+                                    ("48k_16k", 48000, 16000, False)):
+        ref = g[f"rsmp_{tag}_out"]
+        out, n = hrir.resample_hrirs(g["rsmp_in"], fs_in, fs_out,
+                                     pad_to_next_pow2=pad)
+        err = float(np.abs(out - ref).max()) if out.shape == ref.shape \
+            else float("inf")
+        print(f"phase 19: resample_hrirs {fs_in} -> {fs_out} Hz (pad {pad}) "
+              f"on the host vs the C reference: {out.shape}, max |err| = "
+              f"{err:.3e} (tol {C_TOL})")
+        check(n == ref.shape[-1] and err <= C_TOL, f"resample {tag}: {err}")
+    cfg = ambi_bin.AmbiBinConfig(order=3, method="spr", norm="n3d")
+    w = ambi_bin.design_ri(cfg, device=dev)
+    x = torch.from_numpy(np.asarray(g["ab2_in"], np.float32))[None].to(dev)
+    before = ak.render_full_ri.launches
+    out = golden_blocks(
+        lambda st, xb: ambi_bin.process_ri_batched(cfg, w, st, xb),
+        ambi_bin.init_state_batched(cfg, 1, dev), x, 128, 64)
+    err = float(np.abs(out - g["abspr_out"]).max())
+    n = ak.render_full_ri.launches - before
+    print(f"phase 19: ambi_bin order 3, SPR decoder ({n} blocks through "
+          f"render_full_ri) vs the C reference on the card [{card}]: max "
+          f"|err| = {err:.3e} (tol {C_TOL})")
+    check(n == 64 and np.isfinite(out).all() and err <= C_TOL,
+          f"abspr: {err}")
+
+
 def bound(in_floats: float, out_floats: float, flop: float) -> dict:
     """The least time of a kernel's work on the card (see HBM_BYTES_PER_S):
     the larger of its bytes over the HBM rate and its operations over the
@@ -855,6 +1109,21 @@ def bound(in_floats: float, out_floats: float, flop: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def render_full_bound(S, cin, cout, H, per_stream=False) -> dict:
+    """bound() of render_full_ri at one shape: 15 tail hops; the taps
+    (per stream or shared), the overlap tail and the constants (windows,
+    twiddles) counted as inputs."""
+    T, NB, win, tw = 15, 129, 1280, 512
+    ola = (H + 9) * 128           # output samples per row, y and tail
+    rdft = FOLD_FLOP + FFT_FLOP   # fold and rDFT of a frame
+    taps = (S if per_stream else 1) * cin * cout * 4 * NB
+    return bound(
+        S * cin * (T + H) * 128 + taps + S * cout * 9 * 128 + 2 * win + tw,
+        S * cout * ola,
+        S * cin * (H + 6) * rdft + S * cin * cout * H * (NB + 16) * 8
+        + S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
+
+
 def kernel_bounds() -> dict:
     """bound() of each kernel at its main path's shape, the one phase 2
     times: 64 streams, H = 64, 15 tail hops; the constants each takes
@@ -863,13 +1132,8 @@ def kernel_bounds() -> dict:
     win, tw = 1280, 512
     ola = (H + 9) * 128           # output samples per row, y and tail
     rdft = FOLD_FLOP + FFT_FLOP   # fold and rDFT of a frame
-    b = {}
-    cin, cout = 16, 2             # render_full_ri: the flagship
-    b["render_full_ri"] = bound(
-        S * cin * (T + H) * 128 + cin * cout * 4 * NB + S * cout * 9 * 128
-        + 2 * win + tw, S * cout * ola,
-        S * cin * (H + 6) * rdft + S * cin * cout * H * (NB + 16) * 8
-        + S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
+    b = {"render_full_ri": render_full_bound(S, 16, 2, H)}   # the flagship
+    cout = 2
     R = S * 16                    # analysis_front_ri: the ambi_dec slice
     b["analysis_front_ri"] = bound(R * (T + H) * 128 + win + tw,
                                    2 * R * (T + H - 9) * NB,
@@ -1002,8 +1266,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the card "
              "and has no CPU mode")
-    from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
-                                                          binauraliser)
+    from spatial_audio_framework_tpu_torch.models import (
+        ambi_bin, ambi_dec, ambi_enc, binauraliser, binauraliser_nf, panner,
+        roombinauraliser)
     from spatial_audio_framework_tpu_torch.modules import hrir, sh, sofa
     from spatial_audio_framework_tpu_torch.ops import _build
     from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
@@ -1012,6 +1277,7 @@ def main() -> int:
     from spatial_audio_framework_tpu_torch.utils import geometry as geo
     from spatial_audio_framework_tpu_torch.utils import presets
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -1142,6 +1408,79 @@ def main() -> int:
     phase_hop64(ri, AfSTFT(hop=64, hybrid=True), ak, dev, rng)
     phase_fuma(ambi_bin, ak, dev, rng, card)
 
+    # 4 sources per stream onto the JAX benchmark's two layouts
+    layouts = {
+        "5.1": [[30, 0], [-30, 0], [0, 0], [110, 0], [-110, 0]],
+        "7.1.4": [[30, 0], [-30, 0], [0, 0], [90, 0], [-90, 0], [135, 0],
+                  [-135, 0], [45, 45], [-45, 45], [135, 45], [-135, 45]]}
+    for label, ls in layouts.items():
+        ls = np.asarray(ls, np.float64)
+        t0 = time.perf_counter()
+        pcfg = panner.PannerConfig(n_sources=4, n_loudspeakers=len(ls))
+        pw = panner.design(pcfg, ls, device=dev)
+        print(f"phase 14: panner design ({label}: {len(ls)} loudspeakers, "
+              f"1° x 1° table of {tuple(pw.gtable.shape)}, DTT {pcfg.dtt}) "
+              f"on the host in {time.perf_counter() - t0:.2f} s")
+        pdirs, _ = head_tracked(4)
+        phase_slice(
+            f"panner {label}", 14,
+            lambda st, x, fused: panner.process_ri_batched(
+                pcfg, pw, st, x, pdirs, fused=fused),
+            lambda: panner.init_state_batched(pcfg, N_STREAMS, len(ls), dev),
+            4, len(ls), ak, dev, rng, card, {"render_full_ri": N_CHUNKS})
+
+    nfcfg = binauraliser_nf.BinauraliserNFConfig(n_sources=4,
+                                                 enable_rotation=True)
+    nfdirs, nfypr = head_tracked(4)
+    dists_np = rng.uniform(0.1, 4.0, (N_STREAMS, 4))
+    dists = torch.from_numpy(dists_np.astype(np.float32)).to(dev)
+    print(f"phase 15: binauraliser_nf distances: "
+          f"{int((dists_np < nfcfg.nearfield_limit_m).sum())} below the "
+          f"near-field limit {nfcfg.nearfield_limit_m} m, "
+          f"{int((dists_np >= nfcfg.far_field_thresh_m).sum())} at or beyond "
+          f"the far-field threshold {nfcfg.far_field_thresh_m:.3f} m, of "
+          f"{dists_np.size}")
+    check((dists_np < nfcfg.nearfield_limit_m).any()
+          and (dists_np >= nfcfg.far_field_thresh_m).any(),
+          "binauraliser_nf: the distances miss the clamp or the bypass")
+    phase_slice(
+        "binauraliser_nf 4 sources", 15,
+        lambda st, x, fused: binauraliser_nf.process_ri_batched(
+            nfcfg, binw, st, x, nfdirs, dists, None, nfypr, fused=fused),
+        lambda: binauraliser_nf.init_state_batched(nfcfg, N_STREAMS, dev),
+        4, 2, ak, dev, rng, card, {"render_full_ri": N_CHUNKS})
+
+    hrirs, hrir_dirs, hrir_fs = hrir.default_hrirs()
+    for n_src, n_chunks, expect in (
+            (16, N_CHUNKS, ("render_full_ri",)),
+            (64, 2, ("analysis_front_dg_ri",
+                     "render_decode_synthesis_dg_ri"))):
+        t0 = time.perf_counter()
+        shifts = rng.integers(1, len(hrirs), n_src)
+        brirs = np.stack([np.roll(hrirs, int(k), axis=0) for k in shifts])
+        rcfg, rw = roombinauraliser.design_ri(
+            roombinauraliser.RoomBinauraliserConfig(n_sources=n_src), brirs,
+            hrir_dirs, hrir_fs, device=dev)
+        print(f"phase 16: roombinauraliser design ({n_src} BRIR sets of "
+              f"{brirs.shape[1]} directions, TRI, BRIR-derived diffuse-field "
+              f"EQ, 3-D table: {rcfg.vbap_3d}) on the host in "
+              f"{time.perf_counter() - t0:.2f} s")
+        del brirs
+        rypr = uniform(rng, (N_STREAMS, 3), dev)
+        phase_slice(
+            f"roombinauraliser {n_src} sources", 16,
+            lambda st, x, fused: roombinauraliser.process_ri_batched(
+                rcfg, rw, st, x, None, rypr, fused=fused),
+            lambda: roombinauraliser.init_state_batched(rcfg, N_STREAMS, dev),
+            n_src, 2, ak, dev, rng, card, {k: n_chunks for k in expect},
+            N_CHUNKS=n_chunks)
+        del rw
+
+    phase_ambi_enc(ambi_enc, ak, dev, rng, card)
+    phase_new_models_c_parity(panner, ambi_enc, binauraliser_nf,
+                              roombinauraliser, binw, ak, dev, card)
+    phase_design_checks(ambi_bin, hrir, ak, dev, card)
+
     bounds = kernel_bounds()
     for name in KERNELS:
         lib = times[name].get("library")
@@ -1173,6 +1512,8 @@ def main() -> int:
                      times["render_decode_synthesis_dg_ri"], bounds,
                      source="render_decode_synthesis_ri"),
     ]}))
+    print(f"the whole run took {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -590,3 +590,162 @@ def test_binauraliser_routes_match_plain_path(cuda, binauraliser_weights,
     assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
     ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
     assert ran == {n: 2 if n in pair else 0 for n in _ALL_KERNELS}
+
+
+# -- panner, binauraliser_nf and roombinauraliser on the card ---------------
+
+def _hrir_subset():
+    from spatial_audio_framework_tpu_torch.modules import hrir
+
+    h, d, fs = hrir.default_hrirs()
+    return h[::8], d[::8], fs
+
+
+def _new_model_case(model, n_src, cuda, rng):
+    """(process(state, x, fused), init_state, n_out) of a new model at a
+    small size: 2 streams, coarse tables, designs from every 8th direction
+    of the default HRIR set (one rolled set per source for the BRIRs)."""
+    from spatial_audio_framework_tpu_torch.models import (binauraliser_nf,
+                                                          panner,
+                                                          roombinauraliser)
+
+    dirs = _u(rng, (2, n_src, 2), cuda) * torch.tensor([180.0, 90.0],
+                                                      device=cuda)
+    ypr = _u(rng, (2, 3), cuda)
+    if model.startswith("panner"):
+        ls = np.array([[30, 0], [-30, 0], [0, 0], [110, 0], [-110, 0]]
+                      + ([[45, 45], [-45, 45], [135, 45], [-135, 45]]
+                         if model == "panner 3-D" else []), np.float64)
+        cfg = panner.PannerConfig(n_sources=n_src, n_loudspeakers=len(ls),
+                                  azi_res=5, elev_res=5)
+        w = panner.design(cfg, ls, device=cuda)
+        return (lambda st, x, fused: panner.process_ri_batched(
+                    cfg, w, st, x, dirs, ypr, fused=fused),
+                lambda: panner.init_state_batched(cfg, 2, len(ls), cuda),
+                len(ls))
+    h, d, fs = _hrir_subset()
+    if model == "binauraliser_nf":
+        cfg = binauraliser_nf.BinauraliserNFConfig(n_sources=n_src,
+                                                   enable_rotation=True)
+        w = binauraliser_nf.design_ri(cfg, h, d, fs, device=cuda)
+        dists = (_u(rng, (2, n_src), cuda) + 1.0) * 2.0 + 0.05   # 0.05-4.05 m
+        return (lambda st, x, fused: binauraliser_nf.process_ri_batched(
+                    cfg, w, st, x, dirs, dists, None, ypr, fused=fused),
+                lambda: binauraliser_nf.init_state_batched(cfg, 2, cuda), 2)
+    cfg = roombinauraliser.RoomBinauraliserConfig(n_sources=n_src)
+    sets = np.stack([np.roll(h, 3 * s, 0) for s in range(n_src)])
+    cfg, w = roombinauraliser.design_ri(cfg, sets, d, fs, device=cuda)
+    gains = _u(rng, (2, n_src), cuda) + 1.5
+    return (lambda st, x, fused: roombinauraliser.process_ri_batched(
+                cfg, w, st, x, gains, ypr, fused=fused),
+            lambda: roombinauraliser.init_state_batched(cfg, 2, cuda), 2)
+
+
+@pytest.mark.parametrize("model,n_src,pair", [
+    ("panner 2-D", 4, ("render_full_ri",)),            # cout 5
+    ("panner 3-D", 4, ("render_full_ri",)),            # cout 9
+    ("binauraliser_nf", 3, ("render_full_ri",)),
+    ("binauraliser_nf", 17, ("analysis_front_dg_ri",
+                             "render_decode_synthesis_dg_ri")),
+    ("roombinauraliser", 3, ("render_full_ri",)),
+    ("roombinauraliser", 17, ("analysis_front_dg_ri",
+                              "render_decode_synthesis_dg_ri"))])
+def test_new_model_routes_match_plain_path(cuda, monkeypatch, model, n_src,
+                                           pair):
+    """Each new model's kernel route against ``fused=False`` on the card:
+    ≤ 16 sources take render_full_ri with per-stream taps, more the (d, g)
+    pair, once per block each, never a plain version."""
+    rng = np.random.default_rng(n_src)
+    process, init_state, n_out = _new_model_case(model, n_src, cuda, rng)
+    xs = [_u(rng, (2, n_src, h * 128), cuda) for h in (4, 9)]
+
+    def run(fused):
+        st, ys = init_state(), []
+        for x in xs:
+            y, st = process(st, x, fused)
+            ys.append(y)
+        return ys, st
+
+    ys_p, st_p = run(False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    for name in _ALL_KERNELS:
+        monkeypatch.setattr(tak, f"{name}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    ys_k, st_k = run(True)
+    torch.cuda.synchronize()
+    for yk, yp in zip(ys_k, ys_p):
+        assert yk.shape == (2, n_out, yk.shape[-1])
+        assert bool(torch.isfinite(yk).all())
+        assert (yk - yp).abs().max().item() <= TOL
+    assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
+    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    assert ran == {n: 2 if n in pair else 0 for n in _ALL_KERNELS}
+
+
+def test_binauraliser_nf_warm_chunk_builds_nothing_from_host_data(
+        cuda, monkeypatch):
+    """After one warm chunk (the afSTFT constants and the DVF table are
+    then cached on the card), a binauraliser_nf chunk makes no tensor from
+    host data and never synchronises the host."""
+    rng = np.random.default_rng(3)
+    process, init_state, _ = _new_model_case("binauraliser_nf", 3, cuda, rng)
+    x = _u(rng, (2, 3, 8 * 128), cuda)
+    y_warm, st = process(init_state(), x, True)
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor was made from host data per chunk")
+
+    for name in ("from_numpy", "tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, refuse)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = process(st, x, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and y.shape == y_warm.shape
+
+
+def test_new_models_bad_directions_on_card(cuda):
+    """panner and roombinauraliser at NaN, infinite and out-of-table
+    directions: no device-side assert, no host synchronisation, and the
+    CPU's result (NaN where the table ends)."""
+    from spatial_audio_framework_tpu_torch.models import (panner,
+                                                          roombinauraliser)
+
+    bad = torch.tensor([[10.0, 95.0], [10.0, -100.0], [float("nan"), 10.0],
+                        [10.0, float("nan")], [10.0, 1e9],
+                        [float("inf"), 3.0], [10.0, float("-inf")],
+                        [30.0, 0.0]])
+    ls = np.array([[30, 0], [-30, 0], [0, 0], [110, 0], [-110, 0],
+                   [45, 45], [-45, 45], [135, 45], [-135, 45]], np.float64)
+    pcfg = panner.PannerConfig(n_sources=len(bad), n_loudspeakers=9,
+                               azi_res=5, elev_res=5)
+    pw = panner.design(pcfg, ls, device="cpu")
+    h, d, fs = _hrir_subset()
+    rcfg, rw = roombinauraliser.design_ri(
+        roombinauraliser.RoomBinauraliserConfig(n_sources=2),
+        np.stack([h, np.roll(h, 5, 0)]), d, fs, device="cpu")
+    pw_c = type(pw)(*(t.to(cuda) for t in pw))
+    rw_c = type(rw)(*(t.to(cuda) for t in rw))
+    bad_c = bad.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = panner._table_lookup(pcfg, pw_c.gtable, bad_c)
+        H = roombinauraliser.interp_hrtfs_ri(rcfg, rw_c, bad_c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g_ref = panner._table_lookup(pcfg, pw.gtable, bad)
+    H_ref = roombinauraliser.interp_hrtfs_ri(rcfg, rw, bad)
+    for got, ref in ((g, g_ref), (H[0], H_ref[0]), (H[1], H_ref[1])):
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert bool(torch.isnan(ref[[0, 4, 6]]).all())
+        assert bool(torch.isfinite(ref[[1, 2, 3, 5, 7]]).all())
+        assert (got - ref).nan_to_num().abs().max().item() <= 1e-6

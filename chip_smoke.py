@@ -607,13 +607,17 @@ def phase_render_decode(ak, dev, rng, card, dg):
 
 
 def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
-                card, expect, N_CHUNKS=N_CHUNKS):
+                card, expect, N_CHUNKS=N_CHUNKS, queued_chunks=None):
     """A main path: ``N_CHUNKS`` (8) chunks through ``process(state, x, fused)`` with every
     launch counter reset just before and read just after (``expect``: the
     launches each kernel must show), held against the plain path, then both
     paths timed, and the kernel path's device time with the host out of
     the way; fails if a chunk makes the host wait for the device (e.g. a
-    host-to-device copy).  Returns the launch counts."""
+    host-to-device copy).  ``queued_chunks``: how many chunks that last
+    measurement enqueues behind the spin kernel (default all): a path of
+    more than ~120 launches a chunk would fill the launch queue of 1024
+    entries with 8 chunks, and the host would then wait for the spin, not
+    for a copy.  Returns the launch counts."""
     T = HOPS * 128
     xs = [uniform(rng, (N_STREAMS, n_in, T), dev) for _ in range(N_CHUNKS)]
 
@@ -664,7 +668,8 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
               f"{ms:.4f} ms per chunk of {N_STREAMS} streams x {T} samples "
               f"= {audio_s / (ms / 1e3):.1f} audio-seconds per second "
               f"(runs {['%.4f' % r for r in runs]})")
-    runs = [device_ms(lambda: step(True), N_CHUNKS) for _ in range(3)]
+    runs = [device_ms(lambda: step(True), queued_chunks or N_CHUNKS)
+            for _ in range(3)]
     dev_ms, host_ms = (float(np.median([r[i] for r in runs])) for i in (0, 1))
     ahead = all(r[2] for r in runs)
     print(f"phase {phase}: {name} kernel path [{card}]: device {dev_ms:.4f} "
@@ -1448,7 +1453,8 @@ def main() -> int:
         lambda st, x, fused: binauraliser_nf.process_ri_batched(
             nfcfg, binw, st, x, nfdirs, dists, None, nfypr, fused=fused),
         lambda: binauraliser_nf.init_state_batched(nfcfg, N_STREAMS, dev),
-        4, 2, ak, dev, rng, card, {"render_full_ri": N_CHUNKS})
+        4, 2, ak, dev, rng, card, {"render_full_ri": N_CHUNKS},
+        queued_chunks=3)        # ~250 torch launches a chunk
 
     hrirs, hrir_dirs, hrir_fs = hrir.default_hrirs()
     for n_src, n_chunks, expect in (

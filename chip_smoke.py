@@ -607,9 +607,10 @@ def phase_render_decode(ak, dev, rng, card, dg):
 
 
 def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
-                card, expect, N_CHUNKS=N_CHUNKS, queued_chunks=None):
-    """A main path: ``N_CHUNKS`` (8) chunks through ``process(state, x, fused)`` with every
-    launch counter reset just before and read just after (``expect``: the
+                card, expect, n_chunks=N_CHUNKS, queued_chunks=None):
+    """A main path: ``n_chunks`` chunks through ``process(state, x,
+    fused)`` with every launch counter reset just before and read just
+    after (``expect``: the
     launches each kernel must show), held against the plain path, then both
     paths timed, and the kernel path's device time with the host out of
     the way; fails if a chunk makes the host wait for the device (e.g. a
@@ -619,7 +620,7 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     entries with 8 chunks, and the host would then wait for the spin, not
     for a copy.  Returns the launch counts."""
     T = HOPS * 128
-    xs = [uniform(rng, (N_STREAMS, n_in, T), dev) for _ in range(N_CHUNKS)]
+    xs = [uniform(rng, (N_STREAMS, n_in, T), dev) for _ in range(n_chunks)]
 
     def run(fused):
         st = init_state()
@@ -634,7 +635,7 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     launches = {k: getattr(ak, k).launches for k in KERNELS}
-    print(f"phase {phase}: {name} main path ran {N_CHUNKS} chunks of "
+    print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
           f"{(N_STREAMS, n_in, T)}; launches = {launches}")
     expect = {k: expect.get(k, 0) for k in KERNELS}
     check(launches == expect, f"{name}: expected launches {expect}")
@@ -647,7 +648,7 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
         err = max(err, (yk - yp).abs().max().item())
     err = max(err, (st_k.ola_tail - st_p.ola_tail).abs().max().item())
     check(torch.equal(st_k.in_tail, st_p.in_tail), "in_tail differs")
-    print(f"phase {phase}: {name} kernel path vs plain path over {N_CHUNKS} "
+    print(f"phase {phase}: {name} kernel path vs plain path over {n_chunks} "
           f"chunks: max |err| = {err:.3e} (tol {KERNEL_TOL})")
     check(err <= KERNEL_TOL, f"{name} disagrees with the plain path: {err}")
 
@@ -655,12 +656,12 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     it = {True: 0, False: 0}
 
     def step(fused):
-        _, state[fused] = process(state[fused], xs[it[fused] % N_CHUNKS],
+        _, state[fused] = process(state[fused], xs[it[fused] % n_chunks],
                                   fused)
         it[fused] += 1
 
     t = ab_times({"kernel": lambda: step(True), "plain": lambda: step(False)},
-                 N_CHUNKS, warmup=2)
+                 n_chunks, warmup=2)
     audio_s = N_STREAMS * T / FS
     for path in ("kernel", "plain"):
         ms, runs = t[path]
@@ -668,7 +669,7 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
               f"{ms:.4f} ms per chunk of {N_STREAMS} streams x {T} samples "
               f"= {audio_s / (ms / 1e3):.1f} audio-seconds per second "
               f"(runs {['%.4f' % r for r in runs]})")
-    runs = [device_ms(lambda: step(True), queued_chunks or N_CHUNKS)
+    runs = [device_ms(lambda: step(True), queued_chunks or n_chunks)
             for _ in range(3)]
     dev_ms, host_ms = (float(np.median([r[i] for r in runs])) for i in (0, 1))
     ahead = all(r[2] for r in runs)
@@ -1479,7 +1480,7 @@ def main() -> int:
                 rcfg, rw, st, x, None, rypr, fused=fused),
             lambda: roombinauraliser.init_state_batched(rcfg, N_STREAMS, dev),
             n_src, 2, ak, dev, rng, card, {k: n_chunks for k in expect},
-            N_CHUNKS=n_chunks)
+            n_chunks=n_chunks)
         del rw
 
     phase_ambi_enc(ambi_enc, ak, dev, rng, card)

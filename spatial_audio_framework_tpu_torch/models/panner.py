@@ -30,15 +30,11 @@ import torch
 
 from spatial_audio_framework_tpu_torch import f32_tensor
 from spatial_audio_framework_tpu_torch.models import _common as C
-from spatial_audio_framework_tpu_torch.models.binauraliser import (
+from spatial_audio_framework_tpu_torch.models.binauraliser import (  # noqa: F401
     rotate_dirs, state_from_numpy)
 from spatial_audio_framework_tpu_torch.modules import vbap
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
-
-__all__ = ["PannerConfig", "PannerWeights", "design", "weights_from_numpy",
-           "state_from_numpy", "init_state_batched", "process_ri_batched",
-           "init_state", "process"]
 
 _SINGLE_STREAM = ("the single-stream panner entry points are not ported yet "
                   "(ROADMAP.md, Queue 1, item 2); use design / "

@@ -1496,6 +1496,8 @@ def main() -> int:
               f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}"
               f"), library call "
               + ("none" if lib is None else f"{lib[0]:.4f} ms"))
+    print(f"the whole run took {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
     print(json.dumps({"kernels": [
         kernel_entry("render_full_ri", 674, flagship["render_full_ri"],
                      errs["render_full_ri"], times["render_full_ri"], bounds),
@@ -1519,8 +1521,6 @@ def main() -> int:
                      times["render_decode_synthesis_dg_ri"], bounds,
                      source="render_decode_synthesis_ri"),
     ]}))
-    print(f"the whole run took {time.perf_counter() - t_start:.1f} s "
-          f"[{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,7 +29,13 @@ state carried from chunk to chunk:
   interpolated per stream at the head's rotation: ``render_full_ri``; at
   64 sources the (d, g) pair;
 * ambi_enc: 64 sources encoded to order 1 in frames of 128 samples; plain
-  matrix products, none of the six kernels.
+  matrix products, none of the six kernels;
+* array2sh: 16 Eigenmike32 recordings encoded to order 4 (32 → 25
+  channels): ``analysis_front_ri`` and ``synthesis_back_ri`` around the
+  einsum; and ambi_dec's binaural preview (order 3 → 22.x → 2 ears, one
+  complex 16 → 2 decoder): ``render_full_ri``;
+* one head-tracked listener through the single-stream ``ambi_bin.process``
+  / ``process_ri``: plain torch, the rotation built on the card per block.
 
 Phases:
 
@@ -99,7 +105,29 @@ Phases:
     binauraliser_nf (``bnf``, ``bnfr`` rotated), roombinauraliser (``rb``,
     ``rbr`` rotated);
 19. design checks: ``resample_hrirs`` against the C's resampled HRIRs (on
-    the host), and ambi_bin with the SPR decoder against the C reference.
+    the host), and ambi_bin with the SPR decoder against the C reference;
+20. array2sh: the Tikhonov filters (Eigenmike32, order 4) against the C's
+    on the host, then 16 recordings of 32 sensors encoded to order 4
+    (800 channel pairs: ``analysis_front_ri`` at 512 rows, the einsum,
+    ``synthesis_back_ri`` at 400 rows), as phase 3; phase 2 times both
+    kernels at these shapes too;
+21. ambi_dec's binaural preview: order 3 → 22.x → 2 ears, the HRTFs folded
+    into a complex 16 → 2 decoder (``render_full_ri``), as phase 3; parity
+    with the C (``adb``) through the batched path and through ``process``;
+22. one listener with a head tracker: ``ambi_bin.process_ri`` and
+    ``process`` at orders 3 and 7, blocks of 128 and 4096 samples, yaw,
+    pitch and roll on the card and new every block (the SH rotation is built
+    on the card per block): launches, wall, host enqueue and device time
+    per block, the rotation's share, no block may make the host wait, and
+    ``process_ri`` equals ``process_ri_batched`` with the rotation folded
+    into the weights;
+23. ambi_bin parity with the C through the single-stream entry points:
+    order 4 at yaw = π, FuMa input with a general rotation (``abf``), the
+    LS + diffuse-field-EQ and SPR decoders (``ab2``);
+24. parity with the C for rotator, beamformer and the single-stream complex
+    ``process`` of binauraliser (with TRI_PS: ``btp``), binauraliser_nf,
+    roombinauraliser and panner.  Phases 22-24 launch none of the six
+    kernels, as in the JAX package: those paths are plain torch.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -128,6 +156,8 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-5   # kernel vs plain, both fp32: only the order of sums differs
 C_TOL = 1e-4        # vs the compiled C reference (tests/test_c_goldens.py)
 N_STREAMS, HOPS, N_CHUNKS = 64, 64, 8
+# the array2sh slice: 16 Eigenmike32 recordings encoded to order 4
+A2S_STREAMS, A2S_SENSORS, A2S_NSH = 16, 32, 25
 FS = 48000.0
 # analysis inputs at half full scale keep the spectra below |X| ~ 14, where
 # KERNEL_TOL is ~10 float32 ulps (tests/test_torch_afstft_kernels.py)
@@ -375,12 +405,19 @@ def phase_render_full(ak, dev, rng, card):
 def phase_analysis_front(ak, dev, rng, card):
     """analysis_front_ri vs its plain version; rows, tail hops, H, low
     delay: one short tile (H = 1), the least tail, four tiles (130 and 136
-    frames), odd rows past the persistent grid.  The last case is the
-    ambi_dec slice: 64 streams x 16 channels."""
+    frames), odd rows past the persistent grid.  The last two cases are
+    timed: the array2sh slice (16 streams x 32 sensors) and the ambi_dec
+    slice (64 streams x 16 channels).  Returns the max error, the ambi_dec
+    shape's times and the array2sh shape's."""
     worst = 0.0
+    timed = {A2S_STREAMS * A2S_SENSORS: "the array2sh slice's shape",
+             N_STREAMS * 16: "the ambi_dec slice's shape (with the dense "
+                             f"C/S product: {EARLIER_FRONT_MS} ms)"}
+    times = {}
     cases = ((5, 15, 4, False), (3, 9, 2, True), (7, 15, 40, True),
              (3, 15, 1, False), (5, 9, 4, True), (7, 9, 130, False),
              (3, 15, 130, True), (1027, 15, HOPS, False),
+             (A2S_STREAMS * A2S_SENSORS, 15, HOPS, False),
              (N_STREAMS * 16, 15, HOPS, False))
     for rows, t_hops, H, ld in cases:
         def step(x, tail, kernel):
@@ -400,32 +437,44 @@ def phase_analysis_front(ak, dev, rng, card):
         check(err <= KERNEL_TOL,
               f"analysis_front_ri disagrees with plain: {err}")
         worst = max(worst, err)
-    x = uniform(rng, (rows, H * 128), dev, ANA_AMP)
-    t = ab_times({"kernel": lambda: ak.analysis_front_ri(tail, x),
-                  "plain": lambda: ak.analysis_front_ri_reference(tail, x)},
-                 20, queued=True)
-    report_times("analysis_front_ri", t, card, "the ambi_dec slice's shape "
-                 f"(with the dense C/S product: {EARLIER_FRONT_MS} ms)")
-    re, im = ak.analysis_front_ri(tail, x)
+        if rows not in timed:
+            continue
+        x = uniform(rng, (rows, H * 128), dev, ANA_AMP)
+        t = ab_times({"kernel": lambda: ak.analysis_front_ri(tail, x),
+                      "plain": lambda: ak.analysis_front_ri_reference(tail,
+                                                                      x)},
+                     20, queued=True)
+        report_times("analysis_front_ri", t, card, timed[rows])
+        re, im = ak.analysis_front_ri(tail, x)
 
-    def pairs(out):
-        spec = out[:, ::5].transpose(1, 2)
-        return [("re", spec.real, re), ("im", spec.imag, im)]
+        def pairs(out):
+            spec = out[:, ::5].transpose(1, 2)
+            return [("re", spec.real, re), ("im", spec.imag, im)]
 
-    t["library"] = library_time("analysis_front_ri", stft_call(tail, x), pairs,
-                                card, "torch.stft(n_fft=1280)[:, ::5]")
-    return worst, t
+        t["library"] = library_time(
+            "analysis_front_ri", stft_call(tail, x), pairs, card,
+            f"torch.stft(n_fft=1280)[:, ::5] at {rows} rows")
+        times[rows] = t
+    return worst, times[N_STREAMS * 16], times[A2S_STREAMS * A2S_SENSORS]
 
 
 def phase_synthesis_back(ak, dev, rng, card):
     """synthesis_back_ri vs its plain version; rows, H, low delay, hybrid:
     one frame, H < 9, 17 steps of 8 frames (H = 130), odd rows.  The last
-    case is the ambi_dec slice: 64 streams x 22 loudspeakers."""
+    two cases are timed: the array2sh slice (16 streams x 25 SH channels)
+    and the ambi_dec slice (64 streams x 22 loudspeakers).  Returns the max
+    error, the ambi_dec shape's times and the array2sh shape's."""
     worst = 0.0
+    timed = {A2S_STREAMS * A2S_NSH: "the array2sh slice's shape",
+             N_STREAMS * 22: "the ambi_dec slice's shape (with the dense "
+                             f"[P.A; P.B] product: {EARLIER_BACK_MS} ms)"}
+    times = {}
     cases = ((5, 4, False, True), (3, 1, True, True), (6, 9, False, False),
              (4, 33, True, False), (3, 1, False, False), (5, 4, True, True),
              (7, 130, False, True), (2, 130, True, False),
-             (1411, HOPS, False, True), (N_STREAMS * 22, HOPS, False, True))
+             (1411, HOPS, False, True),
+             (A2S_STREAMS * A2S_NSH, HOPS, False, True),
+             (N_STREAMS * 22, HOPS, False, True))
     for rows, H, ld, hyb in cases:
         K = 2 * (133 if hyb else 129)
 
@@ -445,12 +494,20 @@ def phase_synthesis_back(ak, dev, rng, card):
         check(err <= KERNEL_TOL,
               f"synthesis_back_ri disagrees with plain: {err}")
         worst = max(worst, err)
+        if rows in timed:
+            times[rows] = time_synthesis_back(ak, dev, rng, card, rows, H, K,
+                                              tail, timed[rows])
+    return worst, times[N_STREAMS * 22], times[A2S_STREAMS * A2S_NSH]
+
+
+def time_synthesis_back(ak, dev, rng, card, rows, H, K, tail, shape):
+    """synthesis_back_ri (hybrid, normal delay) and its plain version timed
+    at (rows, H, K), and ``F.conv_transpose1d`` as the library call."""
     spec = uniform(rng, (rows, H, K), dev, 10.0)
     t = ab_times({"kernel": lambda: ak.synthesis_back_ri(spec, tail),
                   "plain": lambda: ak.synthesis_back_ri_reference(spec, tail)},
                  20, queued=True)
-    report_times("synthesis_back_ri", t, card, "the ambi_dec slice's shape "
-                 f"(with the dense [P.A; P.B] product: {EARLIER_BACK_MS} ms)")
+    report_times("synthesis_back_ri", t, card, shape)
     y, new_tail = ak.synthesis_back_ri(spec, tail)
     # the basis of each packed bin over the 10 hops a frame reaches:
     # frame half k % 2 times the synthesis window's hop k
@@ -475,11 +532,11 @@ def phase_synthesis_back(ak, dev, rng, card):
     try:
         t["library"] = library_time(
             "synthesis_back_ri", conv, pairs, card,
-            "F.conv_transpose1d(stride=128), cuDNN TF32 off (the 9-hop "
-            "tail add not timed)")
+            f"F.conv_transpose1d(stride=128) at {rows} rows, cuDNN TF32 off "
+            "(the 9-hop tail add not timed)")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    return worst, t
+    return t
 
 
 def phase_analysis_front_dg(ak, dev, rng, card):
@@ -607,7 +664,8 @@ def phase_render_decode(ak, dev, rng, card, dg):
 
 
 def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
-                card, expect, n_chunks=N_CHUNKS, queued_chunks=None):
+                card, expect, n_chunks=N_CHUNKS, queued_chunks=None,
+                n_streams=N_STREAMS):
     """A main path: ``n_chunks`` chunks through ``process(state, x,
     fused)`` with every launch counter reset just before and read just
     after (``expect``: the
@@ -618,9 +676,10 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     measurement enqueues behind the spin kernel (default all): a path of
     more than ~120 launches a chunk would fill the launch queue of 1024
     entries with 8 chunks, and the host would then wait for the spin, not
-    for a copy.  Returns the launch counts."""
+    for a copy.  ``n_streams``: the streams a chunk holds.  Returns the
+    launch counts."""
     T = HOPS * 128
-    xs = [uniform(rng, (N_STREAMS, n_in, T), dev) for _ in range(n_chunks)]
+    xs = [uniform(rng, (n_streams, n_in, T), dev) for _ in range(n_chunks)]
 
     def run(fused):
         st = init_state()
@@ -636,14 +695,14 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
     torch.cuda.synchronize()
     launches = {k: getattr(ak, k).launches for k in KERNELS}
     print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
-          f"{(N_STREAMS, n_in, T)}; launches = {launches}")
+          f"{(n_streams, n_in, T)}; launches = {launches}")
     expect = {k: expect.get(k, 0) for k in KERNELS}
     check(launches == expect, f"{name}: expected launches {expect}")
     ys_p, st_p = run(False)
     torch.cuda.synchronize()
     err = 0.0
     for yk, yp in zip(ys_k, ys_p):
-        check(tuple(yk.shape) == (N_STREAMS, n_out, T), f"y shape {yk.shape}")
+        check(tuple(yk.shape) == (n_streams, n_out, T), f"y shape {yk.shape}")
         check(bool(torch.isfinite(yk).all()), "non-finite output")
         err = max(err, (yk - yp).abs().max().item())
     err = max(err, (st_k.ola_tail - st_p.ola_tail).abs().max().item())
@@ -662,11 +721,11 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
 
     t = ab_times({"kernel": lambda: step(True), "plain": lambda: step(False)},
                  n_chunks, warmup=2)
-    audio_s = N_STREAMS * T / FS
+    audio_s = n_streams * T / FS
     for path in ("kernel", "plain"):
         ms, runs = t[path]
         print(f"phase {phase}: {name} chunk, {path} path [{card}]: "
-              f"{ms:.4f} ms per chunk of {N_STREAMS} streams x {T} samples "
+              f"{ms:.4f} ms per chunk of {n_streams} streams x {T} samples "
               f"= {audio_s / (ms / 1e3):.1f} audio-seconds per second "
               f"(runs {['%.4f' % r for r in runs]})")
     runs = [device_ms(lambda: step(True), queued_chunks or n_chunks)
@@ -1105,6 +1164,357 @@ def phase_design_checks(ambi_bin, hrir, ak, dev, card):
           f"abspr: {err}")
 
 
+def phase_array2sh(array2sh, presets, ak, dev, rng, card):
+    """array2sh: the Tikhonov design (Eigenmike32, order 4, N3D) against the
+    compiled C's filters on the host, then the slice: 16 recordings of the
+    32 sensors encoded to order 4 (nSH x Q = 800 channel pairs: the
+    analysis front at 512 rows, the per-band einsum, the synthesis back at
+    400 rows), as phase 3.  Returns the launch counts."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    em32 = np.degrees(presets.mic_preset("eigenmike32"))
+    t0 = time.perf_counter()
+    W = array2sh.design(
+        array2sh.Array2SHConfig(order=4, r=0.042, R=0.042, norm="n3d",
+                                filter_type=array2sh.FILTER_TIKHONOV),
+        em32, device="cpu").W.numpy()
+    ref = np.asarray(g["a2s_W_tikhonov"])
+    err = float(np.abs(W[1:] - ref[1:]).max())
+    lim = 2e-4 * max(1.0, float(np.abs(ref).max()))
+    print(f"phase 20: array2sh Tikhonov filters {W.shape} on the host in "
+          f"{time.perf_counter() - t0:.2f} s vs the C reference (band 0 "
+          f"excluded): max |err| = {err:.3e} (limit {lim:.3e})")
+    check(W.shape == ref.shape and err <= lim, f"a2s_W_tikhonov: {err}")
+    cfg = array2sh.Array2SHConfig(order=4)
+    w = array2sh.design_ri(cfg, em32, device=dev)
+    return phase_slice(
+        "array2sh Eigenmike32 -> order 4", 20,
+        lambda st, x, fused: array2sh.process_ri_batched(cfg, w, st, x,
+                                                         fused=fused),
+        lambda: array2sh.init_state_batched(cfg, A2S_STREAMS, A2S_SENSORS,
+                                            dev),
+        A2S_SENSORS, A2S_NSH, ak, dev, rng, card,
+        {"analysis_front_ri": N_CHUNKS, "synthesis_back_ri": N_CHUNKS},
+        n_streams=A2S_STREAMS)
+
+
+def frames(process, st, x, fsz, n):
+    """x (n_in, T) on the card through ``process(st, frame) -> (y, st)`` in
+    ``n`` frames of ``fsz`` samples → (n_out, n·fsz) numpy."""
+    outs = []
+    for f in range(n):
+        y, st = process(st, x[:, f * fsz:(f + 1) * fsz])
+        outs.append(y)
+    return torch.cat(outs, dim=-1).cpu().numpy()
+
+
+def c_parity(phase, key, out, ref, card, what=""):
+    err = float(np.abs(out - ref).max()) if out.shape == ref.shape \
+        else float("inf")
+    print(f"phase {phase}: {key}{what} vs the C reference on the card "
+          f"[{card}]: max |err| = {err:.3e} (tol {C_TOL})")
+    check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
+
+
+def phase_ambi_dec_preview(ambi_dec, presets, ak, dev, rng, card):
+    """ambi_dec's binaural preview: order 3 → the 22.x layout → 2 ears
+    (TRI_PS HRTFs at the loudspeakers folded into the decoder on the host:
+    a complex 16 → 2 matrix shared by the streams, the one-pass kernel), as
+    phase 3; then parity with the compiled C (``adb``: its own 9
+    loudspeakers) through the batched path in 128-sample blocks and through
+    the single-stream complex ``process``.  Returns the slice's launches."""
+    t0 = time.perf_counter()
+    cfg = ambi_dec.AmbiDecConfig(master_order=3, binauralise_ls=True)
+    ls = presets.loudspeaker_preset("22.x")
+    w = ambi_dec.design_ri(cfg, ls, device=dev)
+    print(f"phase 21: ambi_dec design with the binaural preview (order 3 -> "
+          f"22.x -> 2 ears, weights {tuple(w.M_re.shape)} complex) on the "
+          f"host in {time.perf_counter() - t0:.2f} s")
+    launches = phase_slice(
+        "ambi_dec binaural preview", 21,
+        lambda st, x, fused: ambi_dec.process_ri_batched(cfg, w, st, x,
+                                                         fused=fused),
+        lambda: ambi_dec.init_state_batched(cfg, N_STREAMS, len(ls), dev),
+        cfg.nsh, 2, ak, dev, rng, card, {"render_full_ri": N_CHUNKS})
+
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    ls9 = np.asarray(g["ad16_ls_dirs"], np.float64)
+    ccfg = ambi_dec.AmbiDecConfig(master_order=3, norm="n3d",
+                                  dec_method=("allrad", "allrad"),
+                                  re_weight=(False, True),
+                                  transition_freq=800.0, binauralise_ls=True)
+    x = torch.from_numpy(np.asarray(g["adb_in"], np.float32)).to(dev)
+    wri = ambi_dec.design_ri(ccfg, ls9, device=dev)
+    before = ak.render_full_ri.launches
+    out = golden_blocks(
+        lambda st, xb: ambi_dec.process_ri_batched(ccfg, wri, st, xb),
+        ambi_dec.init_state_batched(ccfg, 1, 9, dev), x[None], 128, 32)
+    n = ak.render_full_ri.launches - before
+    c_parity(21, "adb", out, g["adb_out"], card,
+             f" (batched path, {n} blocks through render_full_ri)")
+    check(n == 32, "adb: the batched preview bypassed render_full_ri")
+    wc = ambi_dec.design(ccfg, ls9, device=dev)
+    out = frames(lambda st, xb: ambi_dec.process(ccfg, wc, st, xb),
+                 ambi_dec.init_state(ccfg, 9, device=dev), x, 128, 32)
+    c_parity(21, "adb", out, g["adb_out"], card, " (single-stream process)")
+    return launches
+
+
+def launches_per_call(fn, n: int):
+    """torch.profiler over ``n`` calls of ``fn`` → (device launches per
+    call: kernels, copies and fills; their device ms per call)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(ev), "the profiler saw no device activity")
+    busy = sum(e.time_range.end - e.time_range.start for e in ev)
+    return len(ev) / n, busy / n / 1e3
+
+
+def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
+    """One listener with a head tracker: ambi_bin ``process_ri`` and
+    ``process`` at orders 3 and 7 (``cases``: [(order, (M_re, M_im))], the
+    slices' designs), blocks of 128 samples (the C's frame) and of 4096,
+    with ``ypr`` living on the card and changing every block, so every
+    block builds its SH rotation on the card.  Per case: no block may make
+    the host wait (sync debug mode "error" around warm blocks, then blocks
+    enqueued behind a spin kernel), the launches per block (profiler), the
+    wall, host enqueue and device time per block, and the rotation's share.
+    ``process_ri`` must equal one stream of ``process_ri_batched`` with the
+    same rotation folded into the weights.  None of the six kernels may
+    launch on the single-stream paths."""
+    n_blocks = 16
+    for order, (Mre, Mim) in cases:
+        cfg = ambi_bin.AmbiBinConfig(order=order, method="magls",
+                                     enable_rotation=True)
+        weights = {"process_ri": (Mre, Mim),
+                   "process": ambi_bin.AmbiBinWeights(torch.complex(Mre, Mim))}
+        inits = {"process_ri": ambi_bin.init_state_ri,
+                 "process": ambi_bin.init_state}
+        yprs = uniform(rng, (n_blocks, 3), dev, np.pi)
+        rot_n, _ = launches_per_call(
+            lambda: ambi_bin._rotation(cfg, yprs[0]), 4)
+        rot_ms = cuda_ms(lambda: ambi_bin._rotation(cfg, yprs[0]), 8,
+                         queued=True)
+        print(f"phase 22: SH rotation matrix, order {order} [{card}]: "
+              f"{rot_n:g} launches, device {rot_ms:.4f} ms per block")
+        for T in (128, 4096):
+            xs = uniform(rng, (n_blocks, cfg.nsh, T), dev)
+            for entry in ("process_ri", "process"):
+                proc, w = getattr(ambi_bin, entry), weights[entry]
+                state = {"st": inits[entry](cfg, device=dev), "i": 0}
+                ys = []
+
+                def step():
+                    i = state["i"] % n_blocks
+                    y, state["st"] = proc(cfg, w, state["st"], xs[i], yprs[i])
+                    state["i"] += 1
+                    ys.append(y)
+
+                before = {k: getattr(ak, k).launches for k in KERNELS}
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(4):
+                        step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(y).all()) and y.shape == (2, T)
+                          for y in ys), f"{entry}: output wrong")
+                n_launch, busy_ms = launches_per_call(step, 4)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n_blocks):
+                    step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / n_blocks
+                # the launch queue holds 1024 entries: enqueue what fits
+                queued = max(1, min(n_blocks, int(800 // n_launch)))
+                runs = [device_ms(step, queued) for _ in range(3)]
+                dev_ms, host_ms = (float(np.median([r[i] for r in runs]))
+                                   for i in (0, 1))
+                ahead = all(r[2] for r in runs)
+                ran = {k: getattr(ak, k).launches - before[k]
+                       for k in KERNELS}
+                print(f"phase 22: ambi_bin.{entry} order {order}, one "
+                      f"listener, blocks of {T} samples, ypr on the card "
+                      f"[{card}]: wall {wall:.4f} ms, host enqueue "
+                      f"{host_ms:.4f} ms, device {dev_ms:.4f} ms per block "
+                      f"({queued} blocks queued; kernels busy {busy_ms:.4f} "
+                      f"ms), {n_launch:g} launches per block, rotation "
+                      f"{100 * rot_ms / dev_ms:.1f} % of the device time; "
+                      f"{T / FS * 1e3:.2f} ms of audio per block = "
+                      f"{T / FS / (wall / 1e3):.1f} audio-seconds per second;"
+                      f" no host wait: {ahead}")
+                check(ahead, f"{entry}: a block made the host wait")
+                check(not any(ran.values()),
+                      f"{entry}: a single-stream block launched {ran}")
+        # process_ri against the batched path with the rotation folded in
+        ypr = yprs[0]
+        rot = sh.get_sh_rot_mtx_real_torch(
+            geo.yaw_pitch_roll2_rzyx_torch(ypr), order)
+        folded = (torch.einsum("bes,st->bet", Mre, rot),
+                  torch.einsum("bes,st->bet", Mim, rot))
+        s1 = ambi_bin.init_state_ri(cfg, device=dev)
+        sb = ambi_bin.init_state_batched(cfg, 1, dev)
+        err = peak = 0.0
+        for T in (4096, 128, 256):
+            x = uniform(rng, (cfg.nsh, T), dev)
+            y1, s1 = ambi_bin.process_ri(cfg, (Mre, Mim), s1, x, ypr)
+            yb, sb = ambi_bin.process_ri_batched(cfg, folded, sb, x[None])
+            err = max(err, (y1 - yb[0]).abs().max().item())
+            peak = max(peak, yb.abs().max().item())
+        print(f"phase 22: process_ri vs one stream of process_ri_batched with "
+              f"the rotation folded in, order {order}: max |err| = {err:.3e} "
+              f"(peak {peak:.3f}, tol {KERNEL_TOL} of max(1, peak))")
+        check(err <= KERNEL_TOL * max(1.0, peak),
+              f"process_ri disagrees with the batched path: {err}")
+
+
+def phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card):
+    """ambi_bin parity with the compiled C through the single-stream entry
+    points on the card, the head rotation given as ``ypr``: order 4 at
+    yaw = π (``process`` in 128-sample frames, ``process_ri`` in blocks of
+    512), FuMa input with a general rotation (``abf``, both entry points),
+    and the LS + diffuse-field-EQ and SPR decoders (``ab2``)."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def run(cfg, entry, x, ypr, fsz, n):
+        if entry == "process":
+            w, st = ambi_bin.design(cfg, device=dev), ambi_bin.init_state(
+                cfg, device=dev)
+        else:
+            w, st = (ambi_bin.design_ri(cfg, device=dev),
+                     ambi_bin.init_state_ri(cfg, device=dev))
+        proc = getattr(ambi_bin, entry)
+        return frames(lambda s, xb: proc(cfg, w, s, xb, ypr), st, x, fsz, n)
+
+    before = {k: getattr(ak, k).launches for k in KERNELS}
+    cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d",
+                                 enable_rotation=True)
+    y_enc = sh.get_rsh(4, np.array([[-90.0, 0.0]], np.float32))[:, 0]
+    x = t(y_enc[:, None] * g["ambi_bin_in_mono"][None, :])
+    ypr = t([np.pi, 0.0, 0.0])
+    for entry, fsz in (("process", 128), ("process_ri", 512)):
+        out = run(cfg, entry, x, ypr, fsz, x.shape[-1] // fsz)
+        c_parity(23, "ambi_bin order 4, yaw pi", out, g["ambi_bin_out"], card,
+                 f" ({entry}, blocks of {fsz})")
+    cfg = ambi_bin.AmbiBinConfig(order=1, method="magls", norm="fuma",
+                                 ch_ordering="fuma", enable_rotation=True)
+    ypr = t(np.radians([20.0, -10.0, 5.0]))
+    for entry in ("process", "process_ri"):
+        out = run(cfg, entry, t(g["abf_in"]), ypr, 128, 32)
+        c_parity(23, "abf (FuMa input, general rotation)", out, g["abf_out"],
+                 card, f" ({entry})")
+    for method, key in (("lsdiffeq", "ablsd_out"), ("spr", "abspr_out")):
+        cfg = ambi_bin.AmbiBinConfig(order=3, method=method, norm="n3d")
+        out = run(cfg, "process", t(g["ab2_in"]), None, 128, 64)
+        c_parity(23, f"ab2 ({method})", out, g[key], card, " (process)")
+    ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+    check(not any(ran.values()), f"single-stream ambi_bin launched {ran}")
+
+
+def phase_single_stream_c_parity(rotator, beamformer, binauraliser,
+                                 binauraliser_nf, roombinauraliser, panner,
+                                 binw, ak, dev, card):
+    """Parity with the compiled C on the card for rotator (``rot``),
+    beamformer (``bf`` max-EV, ``bf2`` cardioid and hypercardioid) and the
+    single-stream complex ``process`` of binauraliser (``binaur``, ``brot``
+    and ``btp``: TRI_PS), binauraliser_nf (``bnf``, ``bnfr``),
+    roombinauraliser (``rb``, ``rbr``) and panner (``pan``, ``pyr``,
+    ``p2d``), the goldens their batched paths meet in phases 11 and 18.
+    ``binw``: the binauraliser's (re, im) design on the card.  None of the
+    six kernels may launch."""
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+    before = {k: getattr(ak, k).launches for k in KERNELS}
+    rot = t(np.deg2rad([40.0, -15.0, 10.0]))
+
+    cfg = rotator.RotatorConfig(order=3, norm="n3d", frame_size=64)
+    w = rotator.design(cfg, device=dev)
+    ypr = t(np.radians([30.0, -20.0, 10.0]))
+    out = frames(lambda s, xb: rotator.process(cfg, w, s, xb, ypr),
+                 rotator.init_state(cfg, device=dev), t(g["rot_in"]), 64, 32)
+    c_parity(24, "rot", out, g["rot_out"], card)
+    for btype, xkey, key in ((beamformer.BEAM_MAX_EV, "bf_in", "bf_out"),
+                             (beamformer.BEAM_CARDIOID, "bf2_in", "bfc_out"),
+                             (beamformer.BEAM_HYPERCARDIOID, "bf2_in",
+                              "bfh_out")):
+        cfg = beamformer.BeamformerConfig(order=3, n_beams=2, beam_type=btype,
+                                          norm="n3d")
+        W = beamformer.design(cfg, np.asarray(g["bf_dirs"], np.float64),
+                              device=dev)
+        out = frames(lambda s, xb: beamformer.process(cfg, W, s, xb),
+                     beamformer.init_state(cfg, device=dev), t(g[xkey]), 128,
+                     32)
+        c_parity(24, f"{key[:-4]} ({btype})", out, g[key], card)
+
+    bw = binauraliser.BinauraliserWeights(
+        torch.complex(binw.hrtf_re, binw.hrtf_im), *binw[2:])
+    for key in ("binaur", "brot", "btp"):
+        cfg = binauraliser.BinauraliserConfig(
+            n_sources=2, enable_rotation=key == "brot",
+            interp_mode=(binauraliser.INTERP_TRI_PS if key == "btp"
+                         else binauraliser.INTERP_TRI))
+        dirs = t([[20.0, -30.0], [-70.0, 35.0]] if key == "btp"
+                 else [[30.0, 0.0], [-45.0, 10.0]])
+        x = t(g[f"{key}_in"])
+        out = frames(lambda s, xb: binauraliser.process(
+                         cfg, bw, s, xb, dirs, None,
+                         rot if key == "brot" else None),
+                     binauraliser.init_state(cfg, device=dev), x, 128,
+                     x.shape[-1] // 128)
+        c_parity(24, key, out, g[f"{key}_out"], card, " (binauraliser.process)")
+    for key in ("bnf", "bnfr"):
+        cfg = binauraliser_nf.BinauraliserNFConfig(
+            n_sources=2, enable_rotation=key == "bnfr")
+        if key == "bnfr":
+            dirs, dists = t([[35.0, 12.0], [-60.0, -8.0]]), t([0.35, 0.8])
+        else:
+            dirs, dists = t(g["bnf_src_dirs"]), t(g["bnf_dists"])
+        out = frames(lambda s, xb: binauraliser_nf.process(
+                         cfg, bw, s, xb, dirs, dists, None,
+                         rot if key == "bnfr" else None),
+                     binauraliser_nf.init_state(cfg, device=dev),
+                     t(g[f"{key}_in"]), 128, 48)
+        c_parity(24, key, out, g[f"{key}_out"], card,
+                 " (binauraliser_nf.process)")
+    rcfg, rw = roombinauraliser.design(
+        roombinauraliser.RoomBinauraliserConfig(
+            n_sources=2, diff_eq_mode=roombinauraliser.DIFF_EQ_FABIAN_CTF),
+        device=dev)
+    for key in ("rb", "rbr"):
+        out = frames(lambda s, xb: roombinauraliser.process(
+                         rcfg, rw, s, xb, None, rot if key == "rbr" else None),
+                     roombinauraliser.init_state(rcfg, device=dev),
+                     t(g[f"{key}_in"]), 128, 48)
+        c_parity(24, key, out, g[f"{key}_out"], card,
+                 " (roombinauraliser.process)")
+    for key in ("pan", "pyr", "p2d"):
+        lay = "p2d" if key == "p2d" else "pan"
+        ls = np.asarray(g[f"{lay}_ls_dirs"], np.float64)
+        cfg = panner.PannerConfig(n_sources=2, n_loudspeakers=len(ls))
+        w = panner.design(cfg, ls, device=dev)
+        dirs = t(g[f"{lay}_src_dirs"])
+        ypr = t(np.radians(g["pyr_ypr_deg"])) if key == "pyr" else None
+        out = frames(lambda s, xb: panner.process(cfg, w, s, xb, dirs, ypr),
+                     panner.init_state(cfg, device=dev), t(g[f"{key}_in"]),
+                     128, 32)
+        c_parity(24, key, out, g[f"{key}_out"], card, " (panner.process)")
+    ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+    check(not any(ran.values()), f"a single-stream path launched {ran}")
+
+
 def bound(in_floats: float, out_floats: float, flop: float) -> dict:
     """The least time of a kernel's work on the card (see HBM_BYTES_PER_S):
     the larger of its bytes over the HBM rate and its operations over the
@@ -1130,6 +1540,23 @@ def render_full_bound(S, cin, cout, H, per_stream=False) -> dict:
         + S * cout * H * FFT_FLOP + S * cout * ola * OLA_FLOP)
 
 
+def front_bound(rows, H=HOPS) -> dict:
+    """bound() of analysis_front_ri over ``rows`` rows of 15 tail hops and
+    H new ones: H + 6 spectra a row."""
+    T, NB = 15, 129
+    return bound(rows * (T + H) * 128 + 1280 + 512,
+                 2 * rows * (T + H - 9) * NB,
+                 rows * (T + H - 9) * (FOLD_FLOP + FFT_FLOP))
+
+
+def back_bound(rows, H=HOPS, K=266) -> dict:
+    """bound() of synthesis_back_ri over ``rows`` rows of H packed spectra
+    of K floats (hybrid: 2 x 133)."""
+    ola = (H + 9) * 128           # output samples per row, y and tail
+    return bound(rows * H * K + rows * 9 * 128 + 512 + 1280, rows * ola,
+                 rows * H * FFT_FLOP + rows * ola * OLA_FLOP)
+
+
 def kernel_bounds() -> dict:
     """bound() of each kernel at its main path's shape, the one phase 2
     times: 64 streams, H = 64, 15 tail hops; the constants each takes
@@ -1140,18 +1567,12 @@ def kernel_bounds() -> dict:
     rdft = FOLD_FLOP + FFT_FLOP   # fold and rDFT of a frame
     b = {"render_full_ri": render_full_bound(S, 16, 2, H)}   # the flagship
     cout = 2
-    R = S * 16                    # analysis_front_ri: the ambi_dec slice
-    b["analysis_front_ri"] = bound(R * (T + H) * 128 + win + tw,
-                                   2 * R * (T + H - 9) * NB,
-                                   R * (T + H - 9) * rdft)
+    b["analysis_front_ri"] = front_bound(S * 16)    # the ambi_dec slice
     R = S * 64                    # analysis_front_dg_ri: order 7
     b["analysis_front_dg_ri"] = bound(
         R * (T + H) * 128 + win + tw, R * H * (NB + 16) * 2,
         R * (H + 6) * rdft + R * H * 16 * 2 * 4)
-    R, K = S * 22, 266            # synthesis_back_ri: the ambi_dec slice
-    b["synthesis_back_ri"] = bound(R * H * K + R * 9 * 128 + tw + win,
-                                   R * ola,
-                                   R * H * FFT_FLOP + R * ola * OLA_FLOP)
+    b["synthesis_back_ri"] = back_bound(S * 22)     # the ambi_dec slice
     cin = 64                      # the renders from spectra and from (d, g)
     back = (cin * cout * 4 * NB + S * cout * 9 * 128 + tw + win,
             S * cout * ola,
@@ -1165,9 +1586,20 @@ def kernel_bounds() -> dict:
     return b
 
 
-def kernel_entry(name, replaces, launches, err, t, bounds, source=None):
+def shape_entry(shape, path, launches, t, b) -> dict:
+    """A kernel's numbers at a shape other than its main path's, for the
+    ``other_shapes`` list of its entry in the kernels line."""
     lib = t.get("library")
-    return {"name": name, "route": "cuda",
+    return {"shape": shape, "path": path, "launches": launches,
+            "ms": t["kernel"][0], "plain_ms": t["plain"][0], **b,
+            "library_ms": lib[0] if lib else None}
+
+
+def kernel_entry(name, replaces, launches, err, t, bounds, source=None,
+                 other_shapes=()):
+    lib = t.get("library")
+    return {"other_shapes": list(other_shapes),
+            "name": name, "route": "cuda",
             "source": "spatial_audio_framework_tpu_torch/csrc/"
                       f"{source or name}.cu",
             "replaces": f"spatial_audio_framework_tpu/ops/pallas_afstft.py:"
@@ -1273,8 +1705,8 @@ def main() -> int:
         fail("no CUDA device: this smoke run measures the port on the card "
              "and has no CPU mode")
     from spatial_audio_framework_tpu_torch.models import (
-        ambi_bin, ambi_dec, ambi_enc, binauraliser, binauraliser_nf, panner,
-        roombinauraliser)
+        ambi_bin, ambi_dec, ambi_enc, array2sh, beamformer, binauraliser,
+        binauraliser_nf, panner, roombinauraliser, rotator)
     from spatial_audio_framework_tpu_torch.modules import hrir, sh, sofa
     from spatial_audio_framework_tpu_torch.ops import _build
     from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
@@ -1309,10 +1741,12 @@ def main() -> int:
     errs, times = {}, {}
     errs["render_full_ri"], times["render_full_ri"] = phase_render_full(
         ak, dev, rng, card)
-    errs["analysis_front_ri"], times["analysis_front_ri"] = \
-        phase_analysis_front(ak, dev, rng, card)
-    errs["synthesis_back_ri"], times["synthesis_back_ri"] = \
-        phase_synthesis_back(ak, dev, rng, card)
+    a2s_times = {}
+    (errs["analysis_front_ri"], times["analysis_front_ri"],
+     a2s_times["analysis_front_ri"]) = phase_analysis_front(ak, dev, rng, card)
+    (errs["synthesis_back_ri"], times["synthesis_back_ri"],
+     a2s_times["synthesis_back_ri"]) = phase_synthesis_back(ak, dev, rng,
+                                                            card)
     errs["analysis_front_dg_ri"], times["analysis_front_dg_ri"] = \
         phase_analysis_front_dg(ak, dev, rng, card)
     for dg in (False, True):
@@ -1488,7 +1922,39 @@ def main() -> int:
                               roombinauraliser, binw, ak, dev, card)
     phase_design_checks(ambi_bin, hrir, ak, dev, card)
 
+    a2s = phase_array2sh(array2sh, presets, ak, dev, rng, card)
+    preview = phase_ambi_dec_preview(ambi_dec, presets, ak, dev, rng, card)
+    phase_head_tracked(ambi_bin, sh, geo, [(3, bw), (7, o7w)], ak, dev, rng,
+                       card)
+    phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card)
+    phase_single_stream_c_parity(rotator, beamformer, binauraliser,
+                                 binauraliser_nf, roombinauraliser, panner,
+                                 binw, ak, dev, card)
+
     bounds = kernel_bounds()
+    a2s_shapes = {
+        "analysis_front_ri": (f"({A2S_STREAMS * A2S_SENSORS} rows, H {HOPS})",
+                              front_bound(A2S_STREAMS * A2S_SENSORS)),
+        "synthesis_back_ri": (f"({A2S_STREAMS * A2S_NSH} rows, H {HOPS}, "
+                              "K 266)",
+                              back_bound(A2S_STREAMS * A2S_NSH))}
+    other = {name: [shape_entry(shape, "array2sh Eigenmike32 -> order 4, 16 "
+                                "streams", a2s[name], a2s_times[name], b)]
+             for name, (shape, b) in a2s_shapes.items()}
+    for name, (shape, b) in a2s_shapes.items():
+        lib = a2s_times[name]["library"]
+        print(f"phase 2: {name} at the array2sh slice's shape {shape} "
+              f"[{card}]: kernel {a2s_times[name]['kernel'][0]:.4f} ms, plain "
+              f"{a2s_times[name]['plain'][0]:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), library call "
+              f"{lib[0]:.4f} ms")
+    # the preview's render is the flagship's shape (64, 16, 2, 64) with
+    # shared complex taps: the flagship's times and bound hold for it
+    other["render_full_ri"] = [shape_entry(
+        f"({N_STREAMS}, 16, 2, {HOPS}), shared complex taps",
+        "ambi_dec binaural preview, order 3 -> 22.x -> 2 ears",
+        preview["render_full_ri"], times["render_full_ri"],
+        bounds["render_full_ri"])]
     for name in KERNELS:
         lib = times[name].get("library")
         print(f"phase 2: {name} at its main path's shape [{card}]: kernel "
@@ -1500,13 +1966,14 @@ def main() -> int:
           f"[{card}]")
     print(json.dumps({"kernels": [
         kernel_entry("render_full_ri", 674, flagship["render_full_ri"],
-                     errs["render_full_ri"], times["render_full_ri"], bounds),
+                     errs["render_full_ri"], times["render_full_ri"], bounds,
+                     other_shapes=other["render_full_ri"]),
         kernel_entry("analysis_front_ri", 82, wide["analysis_front_ri"],
                      errs["analysis_front_ri"], times["analysis_front_ri"],
-                     bounds),
+                     bounds, other_shapes=other["analysis_front_ri"]),
         kernel_entry("synthesis_back_ri", 851, wide["synthesis_back_ri"],
                      errs["synthesis_back_ri"], times["synthesis_back_ri"],
-                     bounds),
+                     bounds, other_shapes=other["synthesis_back_ri"]),
         kernel_entry("analysis_front_dg_ri", 173,
                      order7["analysis_front_dg_ri"],
                      errs["analysis_front_dg_ri"],

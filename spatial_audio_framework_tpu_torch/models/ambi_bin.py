@@ -11,15 +11,26 @@ up to order 3, the two-kernel ``analysis_front_dg_ri`` →
 ``render_decode_synthesis_dg_ri`` pipeline for orders 4 to 7), with
 ``fused=False`` through the plain analysis → einsum → synthesis path.
 
+``process`` (complex) and ``process_ri`` (split real/imaginary) render one
+listener's block on the single-stream filterbank, and are the entry points
+that rotate the sound field: with ``cfg.enable_rotation`` the SH rotation
+matrix of ``ypr`` (a tensor of yaw, pitch, roll in radians on the device) is
+built on the device every block (``sh.get_sh_rot_mtx_real_torch``) and
+multiplied into the decoder, so a head tracker can change it per block
+without the host waiting for the device.  As in the JAX package, none of
+the kernels serves these paths and the batched path does not rotate.
+
 ``weights_from_numpy`` / ``state_from_numpy`` take the JAX package's
 ``design_ri`` weights and batched state as numpy arrays, so both packages
-can run on identical inputs.
+can run on identical inputs; ``weights_complex_from_numpy`` /
+``state_complex_from_numpy`` / ``state_ri_from_numpy`` do the same for the
+single-stream entry points.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,7 +39,7 @@ from spatial_audio_framework_tpu_torch import f32_tensor
 from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.modules import hoa, hrir as hrir_mod, sh
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
-from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
 
@@ -67,6 +78,10 @@ class AmbiBinConfig:
 
     def __post_init__(self):
         C.validate_config(self)
+
+
+class AmbiBinWeights(NamedTuple):
+    M_dec: torch.Tensor  # (nBands, 2, nSH) complex64, conventions folded in
 
 
 def _design_host(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
@@ -152,6 +167,43 @@ def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,
                                  ola_tail=f32_tensor(ola_tail, device))
 
 
+def weights_complex_from_numpy(M_re: np.ndarray, M_im: np.ndarray,
+                               device: torch.device | str | None = None
+                               ) -> AmbiBinWeights:
+    """The complex decoder (e.g. the JAX package's ``design`` output) from
+    its (re, im) numpy parts."""
+    return AmbiBinWeights(M_dec=torch.complex(f32_tensor(M_re, device),
+                                              f32_tensor(M_im, device)))
+
+
+def state_complex_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
+                             device: torch.device | str | None = None
+                             ) -> AfSTFTState:
+    """The complex filterbank's state (e.g. the JAX package's) from numpy
+    arrays, its hybrid history as an (re, im) pair."""
+    return AfSTFTState(
+        in_tail=f32_tensor(in_tail, device),
+        hyb_tail=torch.complex(f32_tensor(hyb_tail_re, device),
+                               f32_tensor(hyb_tail_im, device)),
+        ola_tail=f32_tensor(ola_tail, device))
+
+
+state_ri_from_numpy = ri.state_ri_from_numpy
+
+
+def design(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
+           hrir_dirs_deg: Optional[np.ndarray] = None,
+           hrir_fs: Optional[int] = None,
+           sofa_filepath: Optional[str] = None,
+           device: torch.device | str | None = None) -> AmbiBinWeights:
+    """The initCodec pipeline (ambi_bin.c:167-380) → the complex decoder on
+    ``device``.  Pass a loaded set via (hrirs, hrir_dirs_deg, hrir_fs), a
+    ``sofa_filepath`` (falls back to the default set on failure, like the
+    reference), or neither."""
+    dec = _design_host(cfg, hrirs, hrir_dirs_deg, hrir_fs, sofa_filepath)
+    return weights_complex_from_numpy(dec.real, dec.imag, device)
+
+
 def design_ri(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
               hrir_dirs_deg: Optional[np.ndarray] = None,
               hrir_fs: Optional[int] = None,
@@ -162,6 +214,78 @@ def design_ri(cfg: AmbiBinConfig, hrirs: Optional[np.ndarray] = None,
     (hrirs, hrir_dirs_deg, hrir_fs), or nothing for the default set."""
     dec = _design_host(cfg, hrirs, hrir_dirs_deg, hrir_fs, sofa_filepath)
     return weights_from_numpy(dec.real, dec.imag, device)
+
+
+def init_state(cfg: AmbiBinConfig,
+               device: torch.device | str | None = None) -> AfSTFTState:
+    return cfg.afstft.init_state(cfg.nsh, C.NUM_EARS, device=device)
+
+
+def _rotation(cfg: AmbiBinConfig, ypr: Optional[torch.Tensor]) -> torch.Tensor:
+    """(nSH, nSH) float32 SH rotation of ``ypr`` (yaw, pitch, roll in
+    radians, on the device), built with device ops only."""
+    if ypr is None:
+        raise ValueError("enable_rotation is set: pass ypr, a tensor of "
+                         "(yaw, pitch, roll) in radians")
+    R = geo.yaw_pitch_roll2_rzyx_torch(ypr)
+    return sh.get_sh_rot_mtx_real_torch(R.to(torch.float32), cfg.order)
+
+
+def process(cfg: AmbiBinConfig, weights: AmbiBinWeights, state: AfSTFTState,
+            x: torch.Tensor, ypr: Optional[torch.Tensor] = None):
+    """Process a block (ambi_bin.c:382-480).
+
+    x: (nSH, T) SH signals, T a multiple of hop; ypr: (3,) radians (yaw,
+    pitch, roll) on x's device if cfg.enable_rotation.  → ((2, T), state).
+    """
+    bank = cfg.afstft
+    M = weights.M_dec
+    with fp32_matmul():
+        if cfg.enable_rotation and cfg.order > 0:
+            M = torch.einsum("bes,st->bet", M, _rotation(cfg, ypr).to(M.dtype))
+        cv = _fuma_conv(cfg.order, cfg.ch_ordering, cfg.norm, M.device)
+        if cv is not None:
+            M = torch.einsum("bes,st->bet", M, cv.to(M.dtype))
+        spec, state = bank.analysis(state, x)           # (nBands, nSH, H)
+        out = torch.einsum("bes,bsh->beh", M, spec)
+    return bank.synthesis(state, out)                   # (2, T)
+
+
+# -- split real/imaginary pipeline -------------------------------------------
+
+def weights_ri(weights: AmbiBinWeights):
+    """The decode matrix as an (re, im) float32 pair for process_ri."""
+    return (weights.M_dec.real.contiguous(), weights.M_dec.imag.contiguous())
+
+
+def init_state_ri(cfg: AmbiBinConfig,
+                  device: torch.device | str | None = None
+                  ) -> ri.AfSTFTStateRI:
+    return ri.init_state_ri(cfg.afstft, cfg.nsh, C.NUM_EARS, device=device)
+
+
+def process_ri(cfg: AmbiBinConfig, w_ri, state: ri.AfSTFTStateRI,
+               x: torch.Tensor, ypr: Optional[torch.Tensor] = None):
+    """:func:`process` in split real/imaginary arithmetic: w_ri = (M_re,
+    M_im) from :func:`weights_ri` or :func:`design_ri`; the complex per-band
+    decode becomes four real einsums."""
+    bank = cfg.afstft
+    Mre, Mim = w_ri
+    with fp32_matmul():
+        if cfg.enable_rotation and cfg.order > 0:
+            M_rot = _rotation(cfg, ypr)
+            Mre = torch.einsum("bes,st->bet", Mre, M_rot)
+            Mim = torch.einsum("bes,st->bet", Mim, M_rot)
+        cv = _fuma_conv(cfg.order, cfg.ch_ordering, cfg.norm, Mre.device)
+        if cv is not None:
+            Mre = torch.einsum("bes,st->bet", Mre, cv)
+            Mim = torch.einsum("bes,st->bet", Mim, cv)
+        (sre, sim), state = ri.analysis_ri(bank, state, x)
+        out_re = (torch.einsum("bes,bsh->beh", Mre, sre)
+                  - torch.einsum("bes,bsh->beh", Mim, sim))
+        out_im = (torch.einsum("bes,bsh->beh", Mre, sim)
+                  + torch.einsum("bes,bsh->beh", Mim, sre))
+    return ri.synthesis_ri(bank, state, (out_re, out_im))
 
 
 def init_state_batched(cfg: AmbiBinConfig, n_streams: int,

@@ -1,5 +1,5 @@
 """binauraliser — multi-source HRTF renderer (counterpart of
-``spatial_audio_framework_tpu/models/binauraliser.py``, batched RI path;
+``spatial_audio_framework_tpu/models/binauraliser.py``;
 ``examples/src/binauraliser``).
 
 ``design_ri`` runs the initCodec pipeline on the host (binauraliser_
@@ -19,8 +19,13 @@ pipeline.
 
 ``weights_from_numpy`` / ``state_from_numpy`` take the JAX package's
 ``design_ri`` weights and batched state as numpy arrays, so both packages
-can run on identical inputs.  The single-stream complex ``design`` /
-``init_state`` / ``process`` are not ported (ROADMAP.md, Queue 1, item 2).
+can run on identical inputs.
+
+``design`` / ``init_state`` / ``process`` are the single-stream complex
+entry points (one listener, the complex ``AfSTFT``, none of the kernels, as
+in the JAX package); they share the lookup, the rotation and the
+interpolation with the batched path, and ``weights_complex_from_numpy`` /
+``state_complex_from_numpy`` take the JAX package's.
 """
 from __future__ import annotations
 
@@ -35,17 +40,12 @@ from spatial_audio_framework_tpu_torch import default_device, f32_tensor
 from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.modules import hrir as hrir_mod, vbap
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
-from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
 
 INTERP_TRI = "tri"
 INTERP_TRI_PS = "tri_ps"
-
-_SINGLE_STREAM = ("the single-stream complex binauraliser entry points are "
-                  "not ported yet (ROADMAP.md, Queue 1, item 2); use "
-                  "design_ri / init_state_batched / process_ri_batched")
-
 
 @dataclass(frozen=True)
 class BinauraliserConfig:
@@ -75,6 +75,21 @@ class BinauraliserWeightsRI(NamedTuple):
     table_w: torch.Tensor    # (nTable, 3) interpolation weights
     table_idx: torch.Tensor  # (nTable, 3) HRTF-direction indices
     freqs: torch.Tensor      # (nBands,) band centre frequencies
+
+
+class BinauraliserWeights(NamedTuple):
+    """The design with the HRTF filterbank complex, for :func:`process`."""
+    hrtf_fb: torch.Tensor    # (nBands, 2, nDirs) complex64
+    hrtf_mag: torch.Tensor   # (nBands, 2, nDirs)
+    itds: torch.Tensor       # (nDirs,)
+    table_w: torch.Tensor    # (nTable, 3) interpolation weights
+    table_idx: torch.Tensor  # (nTable, 3) HRTF-direction indices
+    freqs: torch.Tensor      # (nBands,)
+
+    def as_ri(self) -> BinauraliserWeightsRI:
+        """The same tables with the filterbank as (re, im) views."""
+        return BinauraliserWeightsRI(self.hrtf_fb.real, self.hrtf_fb.imag,
+                                     *self[1:])
 
 
 def _design_host(cfg: BinauraliserConfig, hrirs: Optional[np.ndarray] = None,
@@ -120,6 +135,29 @@ def weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w, table_idx,
         freqs=f32_tensor(freqs, device))
 
 
+def weights_complex_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
+                               table_idx, freqs,
+                               device: torch.device | str | None = None
+                               ) -> BinauraliserWeights:
+    """:func:`weights_from_numpy` for the complex entry points (the complex
+    filterbank as its (re, im) numpy parts)."""
+    w = weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
+                           table_idx, freqs, device)
+    return BinauraliserWeights(torch.complex(w.hrtf_re, w.hrtf_im), *w[2:])
+
+
+def state_complex_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
+                             device: torch.device | str | None = None
+                             ) -> AfSTFTState:
+    """The complex filterbank's state (e.g. the JAX package's) from numpy
+    arrays, its hybrid history as an (re, im) pair."""
+    return AfSTFTState(
+        in_tail=f32_tensor(in_tail, device),
+        hyb_tail=torch.complex(f32_tensor(hyb_tail_re, device),
+                               f32_tensor(hyb_tail_im, device)),
+        ola_tail=f32_tensor(ola_tail, device))
+
+
 def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,
                      device: torch.device | str | None = None
                      ) -> ri.AfSTFTStateBatched:
@@ -140,6 +178,24 @@ def design_ri(cfg: BinauraliserConfig, hrirs: Optional[np.ndarray] = None,
         cfg, hrirs, hrir_dirs_deg, hrir_fs, sofa_filepath, rand_stream)
     return weights_from_numpy(hrtf_fb.real, hrtf_fb.imag, np.abs(hrtf_fb),
                               itds, comp, idx, freqs, device)
+
+
+def design(cfg: BinauraliserConfig, hrirs: Optional[np.ndarray] = None,
+           hrir_dirs_deg: Optional[np.ndarray] = None,
+           hrir_fs: Optional[int] = None,
+           sofa_filepath: Optional[str] = None, rand_stream=None,
+           device: torch.device | str | None = None) -> BinauraliserWeights:
+    """:func:`design_ri` with the filterbank complex, for :func:`process`."""
+    hrtf_fb, itds, comp, idx, freqs = _design_host(
+        cfg, hrirs, hrir_dirs_deg, hrir_fs, sofa_filepath, rand_stream)
+    return weights_complex_from_numpy(hrtf_fb.real, hrtf_fb.imag,
+                                      np.abs(hrtf_fb), itds, comp, idx, freqs,
+                                      device)
+
+
+def init_state(cfg: BinauraliserConfig,
+               device: torch.device | str | None = None) -> AfSTFTState:
+    return cfg.afstft.init_state(cfg.n_sources, C.NUM_EARS, device=device)
 
 
 def init_state_batched(cfg: BinauraliserConfig, n_streams: int,
@@ -194,16 +250,52 @@ def interp_hrtfs_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
     return mag * torch.cos(phase), mag * torch.sin(phase)
 
 
+def interp_hrtfs(cfg: BinauraliserConfig, w: BinauraliserWeights,
+                 dirs_deg: torch.Tensor) -> torch.Tensor:
+    """:func:`interp_hrtfs_ri` as one complex tensor: dirs_deg (nSrc, 2) →
+    (nBands, 2, nSrc) complex64."""
+    return torch.complex(*interp_hrtfs_ri(cfg, w.as_ri(), dirs_deg))
+
+
 def rotate_dirs(src_dirs_deg: torch.Tensor, ypr: torch.Tensor) -> torch.Tensor:
-    """Source directions (S, nSrc, 2) degrees after the listener's head
-    rotation ypr (S, 3) [yaw, pitch, roll] radians, on the device.  C uses
+    """Source directions (..., nSrc, 2) degrees after the listener's head
+    rotation ypr (..., 3) [yaw, pitch, roll] radians (one per stream on the
+    batched path, one in all for a single listener), on the device.  C uses
     row vectors: src_rot = src_row @ Rzyx, i.e. Rzyx^T acting on column
     vectors (binauraliser.c:238-241)."""
-    R = geo.yaw_pitch_roll2_rzyx_torch(ypr)           # (S, 3, 3)
-    u = geo.unit_sph2cart_torch(src_dirs_deg)         # (S, nSrc, 3)
+    R = geo.yaw_pitch_roll2_rzyx_torch(ypr)           # (..., 3, 3)
+    u = geo.unit_sph2cart_torch(src_dirs_deg)         # (..., nSrc, 3)
     with fp32_matmul():
-        u = torch.einsum("zsj,zji->zsi", u, R)
+        u = torch.einsum("...sj,...ji->...si", u, R)
     return geo.unit_cart2sph_torch(u)
+
+
+def mix_complex(bank: AfSTFT, state: AfSTFTState, x: torch.Tensor,
+                H: torch.Tensor, scale: float):
+    """The single-stream render shared by the complex ``process`` of the
+    renderers: analysis → per-band mixing matrix H (nBands, nOut, nIn)
+    complex → ``scale`` → synthesis.  x (nIn, T) → ((nOut, T), state)."""
+    spec, state = bank.analysis(state, x)             # (nBands, nIn, H)
+    with fp32_matmul():
+        out = torch.einsum("bes,bsh->beh", H.to(spec.dtype), spec)
+    return bank.synthesis(state, out * scale)
+
+
+def process(cfg: BinauraliserConfig, w: BinauraliserWeights,
+            state: AfSTFTState, x: torch.Tensor, src_dirs_deg: torch.Tensor,
+            src_gains: Optional[torch.Tensor] = None,
+            ypr: Optional[torch.Tensor] = None):
+    """One listener's block: x (nSrc, T), src_dirs_deg (nSrc, 2) degrees,
+    src_gains (nSrc,) or None, ypr (3,) radians or None (used when
+    ``cfg.enable_rotation``), all on the weights' device → ((2, T), state).
+    """
+    if src_gains is not None:
+        x = x * src_gains[:, None]
+    if cfg.enable_rotation and ypr is not None:
+        src_dirs_deg = rotate_dirs(src_dirs_deg, ypr)
+    H = interp_hrtfs(cfg, w, src_dirs_deg)            # (nBands, 2, nSrc)
+    return mix_complex(cfg.afstft, state, x, H,
+                       1.0 / math.sqrt(cfg.n_sources))
 
 
 def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
@@ -228,15 +320,3 @@ def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
     y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him,
                                       fused=fused)
     return y / math.sqrt(cfg.n_sources), state
-
-
-def design(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
-
-
-def init_state(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
-
-
-def process(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)

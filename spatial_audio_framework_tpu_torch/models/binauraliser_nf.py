@@ -1,5 +1,5 @@
 """binauraliser_nf — near-field binauraliser (counterpart of
-``spatial_audio_framework_tpu/models/binauraliser_nf.py``, batched RI path;
+``spatial_audio_framework_tpu/models/binauraliser_nf.py``;
 ``examples/src/binauraliser_nf``): the far-field binauraliser plus
 per-source per-ear DVF high-shelf responses (``utils/dvf.py``) evaluated at
 the band centre frequencies and applied as complex per-band gains
@@ -10,9 +10,9 @@ the shelves per chunk on the device from per-(stream, source) distances, so
 distances stream like directions do; the product of the interpolated HRTFs
 and the DVF gains is the per-stream mixing matrix of
 ``ops/afstft_ri.render_tf_matrix_ri`` (``fused=True``: ``render_full_ri``
-with per-stream taps up to 16 sources, the (d, g) pair above).  The
-single-stream complex entry points are not ported (ROADMAP.md, Queue 1,
-item 2).
+with per-stream taps up to 16 sources, the (d, g) pair above).  ``design``
+/ ``init_state`` / ``process`` are one listener's complex entry points on
+the same shelves and lookup (none of the kernels, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -25,14 +25,11 @@ import torch
 from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.models import binauraliser as B
 from spatial_audio_framework_tpu_torch.models.binauraliser import (  # noqa: F401
-    state_from_numpy, weights_from_numpy)
+    state_complex_from_numpy, state_from_numpy, weights_complex_from_numpy,
+    weights_from_numpy)
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
+from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFTState
 from spatial_audio_framework_tpu_torch.utils import dvf as _dvf
-
-_SINGLE_STREAM = ("the single-stream complex binauraliser_nf entry points "
-                  "are not ported yet (ROADMAP.md, Queue 1, item 2); use "
-                  "design_ri / init_state_batched / process_ri_batched")
-
 
 @dataclass(frozen=True)
 class BinauraliserNFConfig(B.BinauraliserConfig):
@@ -127,13 +124,37 @@ def process_ri_batched(cfg: BinauraliserNFConfig, w: B.BinauraliserWeightsRI,
     return y / math.sqrt(cfg.n_sources), state
 
 
-def design(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def design(cfg: BinauraliserNFConfig, *args, **kw) -> B.BinauraliserWeights:
+    """The binauraliser's complex design (same arguments)."""
+    return B.design(cfg, *args, **kw)
 
 
-def init_state(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def init_state(cfg: BinauraliserNFConfig,
+               device: torch.device | str | None = None) -> AfSTFTState:
+    return B.init_state(cfg, device=device)
 
 
-def process(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def _dvf_band_gains(cfg: BinauraliserNFConfig, freqs: torch.Tensor,
+                    src_dirs_deg: torch.Tensor,
+                    src_dists_m: torch.Tensor) -> torch.Tensor:
+    """:func:`_dvf_band_gains_ri` as one complex tensor (nBands, 2, nSrc):
+    the reference's scale |H| + j·arg H."""
+    return torch.complex(*_dvf_band_gains_ri(cfg, freqs, src_dirs_deg,
+                                             src_dists_m))
+
+
+def process(cfg: BinauraliserNFConfig, w: B.BinauraliserWeights,
+            state: AfSTFTState, x: torch.Tensor, src_dirs_deg: torch.Tensor,
+            src_dists_m: torch.Tensor,
+            src_gains: Optional[torch.Tensor] = None,
+            ypr: Optional[torch.Tensor] = None):
+    """One listener's block: x (nSrc, T), src_dirs_deg (nSrc, 2),
+    src_dists_m (nSrc,) metres, on the weights' device → ((2, T), state)."""
+    if src_gains is not None:
+        x = x * src_gains[:, None]
+    if cfg.enable_rotation and ypr is not None:
+        src_dirs_deg = B.rotate_dirs(src_dirs_deg, ypr)
+    H = B.interp_hrtfs(cfg, w, src_dirs_deg)            # (nBands, 2, nSrc)
+    H = H * _dvf_band_gains(cfg, w.freqs, src_dirs_deg, src_dists_m)
+    return B.mix_complex(cfg.afstft, state, x, H,
+                         1.0 / math.sqrt(cfg.n_sources))

@@ -1,5 +1,5 @@
 """panner — frequency-dependent VBAP loudspeaker panner (counterpart of
-``spatial_audio_framework_tpu/models/panner.py``, batched RI path;
+``spatial_audio_framework_tpu/models/panner.py``;
 ``examples/src/panner``).
 
 ``design`` builds the VBAP gain table on the host (1°×1° by default, with
@@ -16,8 +16,10 @@ matrices of ``ops/afstft_ri.render_tf_matrix_ri`` scaled by 1/√nSrc
 
 ``weights_from_numpy`` takes the JAX package's ``PannerWeights`` as numpy
 arrays, so both packages can run on identical tables; the batched state
-goes through ``state_from_numpy``.  The single-stream ``init_state`` /
-``process`` are not ported (ROADMAP.md, Queue 1, item 2).
+goes through ``state_from_numpy``.  ``init_state`` / ``process`` pan one
+stream's block on the complex ``AfSTFT`` with the same lookup and p-norm
+(none of the kernels, as in the JAX package); their state goes through
+``state_complex_from_numpy``.
 """
 from __future__ import annotations
 
@@ -31,14 +33,10 @@ import torch
 from spatial_audio_framework_tpu_torch import f32_tensor
 from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.models.binauraliser import (  # noqa: F401
-    rotate_dirs, state_from_numpy)
+    mix_complex, rotate_dirs, state_complex_from_numpy, state_from_numpy)
 from spatial_audio_framework_tpu_torch.modules import vbap
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
-from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
-
-_SINGLE_STREAM = ("the single-stream panner entry points are not ported yet "
-                  "(ROADMAP.md, Queue 1, item 2); use design / "
-                  "init_state_batched / process_ri_batched")
+from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 
 
 @dataclass(frozen=True)
@@ -131,25 +129,41 @@ def process_ri_batched(cfg: PannerConfig, weights: PannerWeights,
     The frequency-dependent VBAP gains (real, per band) are the per-stream
     mixing matrices of :func:`ops.afstft_ri.render_tf_matrix_ri`:
     ``fused=True`` runs its kernel route, ``fused=False`` its plain path."""
-    if ypr is not None:
-        src_dirs_deg = rotate_dirs(src_dirs_deg, ypr)  # rows × Rzyx (c:220)
-    g = _table_lookup(cfg, weights.gtable, src_dirs_deg)   # (S, nSrc, nLS)
-    p = weights.p_values
-    # a source whose gains are all zero has norm 0 and keeps the JAX
-    # package's g / 2.23e-9
-    gp = g.clamp_min(0.0)[:, None] ** p[None, :, None, None]
-    norm = gp.sum(-1) ** (1.0 / (p[None, :, None] + 2.23e-9))
-    G = torch.where((torch.abs(p - 2.0) > 1e-6)[None, :, None, None],
-                    g[:, None] / (norm[..., None] + 2.23e-9), g[:, None])
+    G = _band_gains(cfg, weights, src_dirs_deg, ypr)
     # G: (S, nBands, nSrc, nLS) → mixing (S, nBands, nLS, nSrc);
     # 1/sqrt(nSources) master scaling (panner.c:312-314)
     G = (G.transpose(-1, -2) / math.sqrt(cfg.n_sources)).contiguous()
     return ri.render_tf_matrix_ri(cfg.afstft, state, x, G, None, fused=fused)
 
 
-def init_state(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def _band_gains(cfg: PannerConfig, weights: PannerWeights,
+                src_dirs_deg: torch.Tensor,
+                ypr: Optional[torch.Tensor]) -> torch.Tensor:
+    """Optional rotation, table lookup and the per-band p-norm: src_dirs_deg
+    (..., nSrc, 2), ypr (..., 3) or None → gains (..., nBands, nSrc, nLS)."""
+    if ypr is not None:
+        src_dirs_deg = rotate_dirs(src_dirs_deg, ypr)  # rows × Rzyx (c:220)
+    g = _table_lookup(cfg, weights.gtable, src_dirs_deg)[..., None, :, :]
+    p = weights.p_values
+    # a source whose gains are all zero has norm 0 and keeps the JAX
+    # package's g / 2.23e-9
+    gp = g.clamp_min(0.0) ** p[:, None, None]
+    norm = gp.sum(-1) ** (1.0 / (p[:, None] + 2.23e-9))
+    return torch.where((torch.abs(p - 2.0) > 1e-6)[:, None, None],
+                       g / (norm[..., None] + 2.23e-9), g)
 
 
-def process(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def init_state(cfg: PannerConfig,
+               device: torch.device | str | None = None) -> AfSTFTState:
+    return cfg.afstft.init_state(cfg.n_sources, cfg.n_loudspeakers,
+                                 device=device)
+
+
+def process(cfg: PannerConfig, weights: PannerWeights, state: AfSTFTState,
+            x: torch.Tensor, src_dirs_deg: torch.Tensor,
+            ypr: Optional[torch.Tensor] = None):
+    """One stream's block: x (nSrc, T), src_dirs_deg (nSrc, 2) degrees, ypr
+    (3,) radians or None, on the weights' device → ((nLS, T), state)."""
+    G = _band_gains(cfg, weights, src_dirs_deg, ypr)  # (nBands, nSrc, nLS)
+    return mix_complex(cfg.afstft, state, x, G.transpose(-1, -2),
+                       1.0 / math.sqrt(cfg.n_sources))

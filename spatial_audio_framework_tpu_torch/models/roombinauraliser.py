@@ -1,6 +1,6 @@
 """roombinauraliser — multi-source BRIR renderer (counterpart of
-``spatial_audio_framework_tpu/models/roombinauraliser.py``, batched RI
-path; the fork's ``examples/src/roombinauraliser``).
+``spatial_audio_framework_tpu/models/roombinauraliser.py``; the fork's
+``examples/src/roombinauraliser``).
 
 Renders each input source through its own set of binaural room impulse
 responses (BRIRs, one grid of 2-ear IRs per source), with
@@ -34,9 +34,12 @@ lookup) → the per-stream mixing matrices of
 taps, more the (d, g) pair.
 
 ``weights_from_numpy`` takes the JAX package's ``design_ri`` weights as
-numpy arrays; the batched state goes through ``state_from_numpy``.  The
-single-stream complex ``design`` / ``init_state`` / ``process`` are not
-ported (ROADMAP.md, Queue 1, item 2).
+numpy arrays; the batched state goes through ``state_from_numpy``.
+``design`` / ``init_state`` / ``interp_hrtfs`` / ``process`` are one
+listener's complex entry points on the same lookup (the complex ``AfSTFT``,
+none of the kernels, as in the JAX package), with
+``weights_complex_from_numpy`` / ``state_complex_from_numpy`` for the JAX
+package's weights and state.
 """
 from __future__ import annotations
 
@@ -50,12 +53,12 @@ import torch
 from spatial_audio_framework_tpu_torch import (data_path, default_device,
                                                f32_tensor)
 from spatial_audio_framework_tpu_torch.models import _common as C
-from spatial_audio_framework_tpu_torch.models.binauraliser import \
-    state_from_numpy  # noqa: F401
+from spatial_audio_framework_tpu_torch.models.binauraliser import (  # noqa: F401
+    mix_complex, state_complex_from_numpy, state_from_numpy)
 from spatial_audio_framework_tpu_torch.modules import hrir as hrir_mod, vbap
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import (
-    AfSTFT, fir_to_filterbank_coeffs)
+    AfSTFT, AfSTFTState, fir_to_filterbank_coeffs)
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
 
 INTERP_TRI = "tri"
@@ -66,9 +69,11 @@ DIFF_EQ_FABIAN_CTF = "fabian_ctf"
 DIFF_EQ_BRIR_CTF = "brir_ctf"
 DIFF_EQ_OWN_FILTER = "own_filter"
 
-_SINGLE_STREAM = ("the single-stream complex roombinauraliser entry points "
-                  "are not ported yet (ROADMAP.md, Queue 1, item 2); use "
-                  "design_ri / init_state_batched / process_ri_batched")
+# REINIT_MODES (roombinauraliser.h:75-80): granularity hints for re-running
+# design(); a full re-run is always correct, the names are kept for parity
+REINIT_NONE = "none"
+REINIT_RESAMPLE = "resample"
+REINIT_FULL = "full"
 
 
 @dataclass(frozen=True)
@@ -108,6 +113,21 @@ class RoomBinauraliserWeightsRI(NamedTuple):
     freqs: torch.Tensor      # (nBands,)
 
 
+class RoomBinauraliserWeights(NamedTuple):
+    """The design with the BRTF filterbank complex, for :func:`process`."""
+    hrtf_fb: torch.Tensor    # (nSrc, nBands, 2, nDirs) complex64
+    hrtf_mag: torch.Tensor   # (nSrc, nBands, 2, nDirs)
+    itds: torch.Tensor       # (nSrc, nDirs)
+    table_w: torch.Tensor    # (nTable, 3)
+    table_idx: torch.Tensor  # (nTable, 3)
+    freqs: torch.Tensor      # (nBands,)
+
+    def as_ri(self) -> RoomBinauraliserWeightsRI:
+        """The same tables with the filterbank as (re, im) views."""
+        return RoomBinauraliserWeightsRI(self.hrtf_fb.real, self.hrtf_fb.imag,
+                                         *self[1:])
+
+
 def fabian_ctf_ir() -> np.ndarray:
     """The FABIAN dummy-head CTF impulse response (256 taps @48 kHz,
     roombinauraliser_internal.h:192 ``fabian_ir``)."""
@@ -123,14 +143,14 @@ def _ctf_filterbank(ir: np.ndarray, hop: int) -> np.ndarray:
 
 
 def _design_host(cfg: RoomBinauraliserConfig, brirs, brir_dirs_deg, brir_fs,
-                 own_ctf_ir):
+                 own_ctf_ir, sofa_filepath=None):
     """Host-side codec init → (cfg', hrtf_fb (nSrc, nBands, 2, nDirs)
     complex, itds (nSrc, nDirs), compressed table weights, table indices,
     band frequencies)."""
     if brirs is None:
-        # the reference's fallback: the default HRIR set tiled across
-        # sources (roombinauraliser_internal.c:154-158)
-        h, brir_dirs_deg, brir_fs, _ = hrir_mod.load_hrirs(None)
+        # a SOFA file tiled across sources, or the reference's fallback:
+        # the default HRIR set (roombinauraliser_internal.c:154-158)
+        h, brir_dirs_deg, brir_fs, _ = hrir_mod.load_hrirs(sofa_filepath)
         brirs = np.broadcast_to(h, (cfg.n_sources,) + h.shape)
     brirs = np.asarray(brirs, np.float32)
     if brirs.shape[0] != cfg.n_sources:
@@ -200,6 +220,36 @@ def weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w, table_idx,
         table_w=f32_tensor(table_w, device),
         table_idx=torch.tensor(np.asarray(table_idx, np.int64), device=device),
         freqs=f32_tensor(freqs, device))
+
+
+def weights_complex_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
+                               table_idx, freqs,
+                               device: torch.device | str | None = None
+                               ) -> RoomBinauraliserWeights:
+    """:func:`weights_from_numpy` for the complex entry points (the complex
+    filterbank as its (re, im) numpy parts)."""
+    w = weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
+                           table_idx, freqs, device)
+    return RoomBinauraliserWeights(torch.complex(w.hrtf_re, w.hrtf_im),
+                                   *w[2:])
+
+
+def design(cfg: RoomBinauraliserConfig, brirs=None, brir_dirs_deg=None,
+           brir_fs=None, own_ctf_ir=None, reinit: str = REINIT_FULL,
+           sofa_filepath: Optional[str] = None,
+           device: torch.device | str | None = None
+           ) -> Tuple[RoomBinauraliserConfig, RoomBinauraliserWeights]:
+    """:func:`design_ri` with the filterbank complex, for :func:`process`.
+    With no ``brirs``, ``sofa_filepath`` (if given) is loaded and tiled
+    across sources; an unloadable file falls back, with a warning, to the
+    default HRIR set.  ``reinit`` is accepted for parity: the whole design
+    always runs."""
+    del reinit
+    cfg, hrtf_fb, itds, comp, idx, freqs = _design_host(
+        cfg, brirs, brir_dirs_deg, brir_fs, own_ctf_ir, sofa_filepath)
+    return cfg, weights_complex_from_numpy(
+        hrtf_fb.real, hrtf_fb.imag, np.abs(hrtf_fb), itds, comp, idx, freqs,
+        device)
 
 
 def design_ri(cfg: RoomBinauraliserConfig, brirs=None, brir_dirs_deg=None,
@@ -319,13 +369,31 @@ def process_ri_batched(cfg: RoomBinauraliserConfig,
     return y / math.sqrt(cfg.n_sources), state
 
 
-def design(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def init_state(cfg: RoomBinauraliserConfig,
+               device: torch.device | str | None = None) -> AfSTFTState:
+    return cfg.afstft.init_state(cfg.n_sources, C.NUM_EARS, device=device)
 
 
-def init_state(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def interp_hrtfs(cfg: RoomBinauraliserConfig, w: RoomBinauraliserWeights,
+                 rot_deg: torch.Tensor) -> torch.Tensor:
+    """:func:`interp_hrtfs_ri` as one complex tensor: rot_deg (2,) [azi,
+    elev] degrees → (nSrc, nBands, 2) complex64."""
+    return torch.complex(*interp_hrtfs_ri(cfg, w.as_ri(), rot_deg))
 
 
-def process(*args, **kwargs):
-    raise NotImplementedError(_SINGLE_STREAM)
+def process(cfg: RoomBinauraliserConfig, w: RoomBinauraliserWeights,
+            state: AfSTFTState, x: torch.Tensor,
+            src_gains: Optional[torch.Tensor] = None,
+            ypr: Optional[torch.Tensor] = None):
+    """One listener's block (roombinauraliser.c:196-289): x (nSrc, T),
+    src_gains (nSrc,) or None, ypr (3,) radians or None (used when
+    ``cfg.enable_rotation``), on the weights' device → ((2, T), state)."""
+    if src_gains is not None:
+        x = x * src_gains[:, None]
+    if cfg.enable_rotation and ypr is not None:
+        rot_deg = rotation_lookup_dir(ypr)
+    else:
+        rot_deg = torch.zeros(2, dtype=x.dtype, device=x.device)
+    H = interp_hrtfs(cfg, w, rot_deg)                # (nSrc, nBands, 2)
+    return mix_complex(cfg.afstft, state, x, H.permute(1, 2, 0),
+                       1.0 / math.sqrt(cfg.n_sources))

@@ -1,7 +1,8 @@
 """Spherical-harmonic core for the design stack (counterpart of
 ``spatial_audio_framework_tpu/modules/sh.py``).  Host numpy, plus
 ``get_sh_real_torch`` for directions that live on the device (the
-encoder's per-frame SH matrix).
+encoder's per-frame SH matrix) and ``get_sh_rot_mtx_real_torch`` for a
+rotation matrix that lives there (head tracking, once per block).
 
 Conventions match the reference (saf_sh.h):
 
@@ -9,11 +10,14 @@ Conventions match the reference (saf_sh.h):
   (azimuth, inclination) in radians, shape (nSH, nDirs) (saf_sh.c:190-253);
 * ``get_rsh(order, dirs_deg)`` — (azi, elev) degrees, scaled by sqrt(4π)
   (saf_hoa.c:118-150);
+* ``get_sh_complex`` — physics convention with Condon–Shortley phase
+  (saf_sh.c:333-395);
 * ``get_sh_rot_mtx_real`` — Ivanic & Ruedenberg recursion
   (saf_sh.c:506-590).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -127,6 +131,60 @@ def get_rsh(order: int, dirs_deg):
     return get_sh_real(order, dirs_rad) * math.sqrt(4.0 * math.pi)
 
 
+def get_sh_complex(order: int, dirs_rad):
+    """Complex SH, physics convention with Condon–Shortley phase
+    (saf_sh.c:333 ``getSHcomplex``).  dirs_rad: (nDirs, 2) [azi, incl] →
+    (nSH, nDirs) complex."""
+    dirs_rad = np.asarray(dirs_rad)
+    azi, incl = dirs_rad[..., 0], dirs_rad[..., 1]
+    N = norm_legendre_all(order, np.cos(incl))
+    rows = []
+    for n in range(order + 1):
+        for m in range(-n, n + 1):
+            am = abs(m)
+            base = N[n, am]
+            if m >= 0:
+                rows.append(((-1.0) ** am) * base * np.exp(1j * am * azi))
+            else:
+                rows.append(base * np.exp(-1j * am * azi))
+    return np.stack(rows, axis=0)
+
+
+def complex2real_sh_mtx(order: int) -> np.ndarray:
+    """Transform T s.t. Y_real = Re{conj(T) @ Y_complex}
+    (saf_sh.c:397 ``complex2realSHMtx``).  (nSH, nSH) complex."""
+    nsh = order2nsh(order)
+    T = np.zeros((nsh, nsh), np.complex128)
+    T[0, 0] = 1.0
+    q = 1
+    for n in range(1, order + 1):
+        idx = q + 2 * n + 1
+        for p, m in enumerate(range(-n, n + 1)):
+            if m < 0:
+                T[q, q] = 1j / math.sqrt(2.0)
+                T[idx - p - 1, q] = 1.0 / math.sqrt(2.0)
+            elif m == 0:
+                T[q, q] = 1.0
+            else:
+                T[q, q] = ((-1.0) ** m) / math.sqrt(2.0)
+                T[idx - p - 1, q] = -1j * ((-1.0) ** m) / math.sqrt(2.0)
+            q += 1
+    return T
+
+
+def real2complex_sh_mtx(order: int) -> np.ndarray:
+    """Inverse transform (saf_sh.c ``real2complexSHMtx``): unitary, so it is
+    the conjugate transpose of complex2real_sh_mtx."""
+    return complex2real_sh_mtx(order).conj().T
+
+
+def complex2real_coeffs(order: int, C):
+    """Convert complex SH coefficients to real (saf_sh.c
+    ``complex2realCoeffs``).  C: (nSH, K) complex → (nSH, K) real:
+    Re{conj(T_c2r) @ C}."""
+    return (complex2real_sh_mtx(order).conj() @ np.asarray(C)).real
+
+
 def get_sh_rot_mtx_real(R, order: int):
     """Real-SH rotation matrix from a 3×3 rotation matrix
     (saf_sh.c:506 ``getSHrotMtxReal``; Ivanic & Ruedenberg 1996/1998),
@@ -199,6 +257,108 @@ def get_sh_rot_mtx_real(R, order: int):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sh_rot_tables(order: int, device: torch.device, dtype: torch.dtype):
+    """Per band l = 2..order of the Ivanic–Ruedenberg recursion: (rows,
+    coef).  Band l is a sum of five row-gathers from the stacked
+    P_{-1}, P_0, P_1 (each (2l-1, 2l+1), saf_sh_internal.c:151-263), one for
+    U and two each for V and W; ``rows`` (5·(2l+1),) int64 indexes the
+    (3·(2l-1))-row stack and ``coef`` (5, 2l+1, 2l+1) holds u, v and w with
+    the m-dependent factors (√(1+δ_{|m|,1}), 1-δ, the signs) multiplied in.
+    They depend on ``order`` only: built once in float64 on the host and kept
+    as tensors on ``device``."""
+    tables = []
+    for l in range(2, order + 1):
+        ms = np.arange(-l, l + 1)
+        d = (ms == 0).astype(np.float64)[:, None]
+        denom = np.empty((2 * l + 1, 2 * l + 1))
+        for j, n in enumerate(ms):
+            denom[:, j] = ((2 * l) * (2 * l - 1) if abs(n) == l
+                           else (l * l - n * n))
+        am = np.abs(ms)[:, None].astype(np.float64)
+        u_c = np.sqrt((l * l - ms[:, None] ** 2) / denom)
+        v_c = (np.sqrt((1 + d) * (l + am - 1) * (l + am) / denom)
+               * (1 - 2 * d) * 0.5)
+        w_c = (np.sqrt(np.maximum((l - am - 1) * (l - am), 0.0) / denom)
+               * (1 - d) * (-0.5))
+        d1 = (np.abs(ms) == 1).astype(np.float64)
+        pos, neg = ms > 0, ms < 0
+        one = np.ones_like(d1)
+        # (which P: 0 → P_{-1}, 1 → P_0, 2 → P_1; row a per m; factor per m)
+        terms = [
+            (1, ms, one, u_c),
+            (2, np.where(pos, ms - 1, np.where(neg, ms + 1, 1)),
+             np.where(pos, np.sqrt(1 + d1), np.where(neg, 1 - d1, 1.0)), v_c),
+            (0, np.where(pos, -ms + 1, np.where(neg, -ms - 1, -1)),
+             np.where(pos, -(1 - d1), np.where(neg, np.sqrt(1 + d1), 1.0)),
+             v_c),
+            (2, np.where(pos, ms + 1, ms - 1), one, w_c),
+            (0, np.where(pos, -ms - 1, -ms + 1), np.where(pos, 1.0, -1.0),
+             w_c),
+        ]
+        rows = np.concatenate([
+            which * (2 * l - 1) + np.clip(a + l - 1, 0, 2 * l - 2)
+            for which, a, _, _ in terms])
+        coef = np.stack([f[:, None] * c for _, _, f, c in terms])
+        tables.append((torch.tensor(rows, dtype=torch.int64, device=device),
+                       torch.tensor(coef, dtype=dtype, device=device)))
+    return tuple(tables)
+
+
+def get_sh_rot_mtx_real_torch(R: torch.Tensor, order: int) -> torch.Tensor:
+    """:func:`get_sh_rot_mtx_real` on a tensor: R (..., 3, 3) → (..., nSH,
+    nSH) on R's device, in its dtype, with device ops only (no host read of
+    R, no tensor made from host data once the per-order tables are cached),
+    so a head tracker's rotation can change every block without making the
+    host wait for the device."""
+    # band-1 permutation of R (saf_sh.c:533-543): rows/cols ordered m=-1,0,1
+    R1 = torch.roll(R, shifts=(-1, -1), dims=(-2, -1))
+    nsh = order2nsh(order)
+    out = torch.zeros(R.shape[:-2] + (nsh, nsh), dtype=R.dtype,
+                      device=R.device)
+    out[..., 0, 0] = 1.0
+    if order >= 1:
+        out[..., 1:4, 1:4] = R1
+    r_m1, r_0, r_p1 = (R1[..., :, None, k:k + 1] for k in range(3))
+    R_lm1 = R1
+    for l, (rows, coef) in enumerate(
+            _sh_rot_tables(order, R.device, R.dtype), start=2):
+        prev = R_lm1[..., None, :, :]          # (..., 1, 2l-1, 2l-1)
+        first, last = prev[..., :1], prev[..., -1:]
+        # P_i for i = -1, 0, 1 at once: (..., 3, 2l-1, 2l+1)
+        P = torch.cat([r_p1 * first + r_m1 * last, r_0 * prev,
+                       r_p1 * last - r_m1 * first], dim=-1)
+        g = P.flatten(-3, -2).index_select(-2, rows)
+        R_l = (g.unflatten(-2, (5, 2 * l + 1)) * coef).sum(dim=-3)
+        i0 = l * l
+        out[..., i0:i0 + 2 * l + 1, i0:i0 + 2 * l + 1] = R_l
+        R_lm1 = R_l
+    return out
+
+
+def beam_weights_cardioid(order: int) -> np.ndarray:
+    """(order+1,) b_n for a cardioid (saf_sh.c
+    ``beamWeightsCardioid2Spherical``)."""
+    N = order
+    b = np.zeros(N + 1)
+    for n in range(N + 1):
+        b[n] = (math.sqrt(4.0 * math.pi * (2 * n + 1))
+                * math.factorial(N) * math.factorial(N + 1)
+                / (math.factorial(N + n + 1) * math.factorial(N - n)) / (N + 1))
+    return b.astype(np.float32)
+
+
+def beam_weights_hypercardioid(order: int) -> np.ndarray:
+    """b_n for a hypercardioid / plane-wave-decomposition beam
+    (saf_sh.c ``beamWeightsHypercardioid2Spherical``)."""
+    N = order
+    Y0 = get_sh_real(N, np.array([[0.0, 0.0]]))[:, 0]
+    b = np.zeros(N + 1)
+    for n in range(N + 1):
+        b[n] = Y0[(n + 1) * (n + 1) - n - 1] * 4.0 * math.pi / ((N + 1) ** 2)
+    return b.astype(np.float32)
+
+
 def beam_weights_max_ev(order: int) -> np.ndarray:
     """Max energy-vector weights (saf_sh.c ``beamWeightsMaxEV``)."""
     N = order
@@ -228,3 +388,23 @@ def check_cond_number_sht_real(order: int, dirs_rad: np.ndarray,
         s = np.linalg.svd(G, compute_uv=False)
         cond[n] = s.max() / (s.min() + 2.23e-7)
     return cond
+
+
+def rotate_axis_coeffs_complex(order: int, c_n, theta_0: float, phi_0: float):
+    """Axisymmetric pattern c_n steered to (incl θ0, azi φ0) → complex SH
+    coeffs (saf_sh.c ``rotateAxisCoeffsComplex``):
+    c_nm = sqrt(4π/(2n+1)) c_n conj(Y_n^m)."""
+    c_n = np.asarray(c_n)
+    Y = get_sh_complex(order, np.asarray([[phi_0, theta_0]]))[:, 0]
+    scale = np.concatenate([
+        np.full(2 * n + 1, math.sqrt(4.0 * math.pi / (2 * n + 1)))
+        for n in range(order + 1)])
+    cn_full = np.concatenate([
+        np.broadcast_to(c_n[n], (2 * n + 1,)) for n in range(order + 1)])
+    return np.conj(Y) * scale.astype(Y.real.dtype) * cn_full
+
+
+def rotate_axis_coeffs_real(order: int, c_n, theta_0: float, phi_0: float):
+    """Real-SH version (saf_sh.c ``rotateAxisCoeffsReal``)."""
+    c_nm = rotate_axis_coeffs_complex(order, c_n, theta_0, phi_0)
+    return complex2real_coeffs(order, c_nm[:, None])[:, 0]

@@ -18,6 +18,11 @@ delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
   synthesis).  Renders wider than 128 channel pairs take analysis →
   per-band einsum → synthesis on the filterbank kernels.  With
   ``fused=False`` it is the plain reference path, in ordinary torch code.
+* :func:`analysis_ri` / :func:`synthesis_ri` — the single-stream
+  filterbank with the complex afSTFT's state layout (:class:`AfSTFTStateRI`:
+  a 9-hop input tail plus carried hybrid history), for one listener whose
+  mixing matrix changes every block.  Plain torch, as in the JAX package:
+  none of its kernels serves this path.
 
 Every kernel takes hop 128 only.  As in the JAX package (afstft_ri.py:397,
 :489, :611 and :708 there), a bank with another hop takes the plain path
@@ -36,7 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from spatial_audio_framework_tpu_torch import default_device
+from spatial_audio_framework_tpu_torch import default_device, f32_tensor
 from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
                                                           _TOTAL_HOPS, AfSTFT,
                                                           device_consts)
@@ -54,6 +59,15 @@ class AfSTFTStateBatched(NamedTuple):
     history spectra are recomputed each block instead of being carried."""
     in_tail: torch.Tensor    # (S, n_ch_in, (10-1+6)*hop)
     ola_tail: torch.Tensor   # (S, n_ch_out, h_len - hop)
+
+
+class AfSTFTStateRI(NamedTuple):
+    """State of the single-stream pipeline: the complex afSTFT's, with the
+    hybrid history carried as an (re, im) pair."""
+    in_tail: torch.Tensor      # (n_ch_in, h_len - hop)
+    hyb_tail_re: torch.Tensor  # (n_ch_in, 6, hop+1)
+    hyb_tail_im: torch.Tensor
+    ola_tail: torch.Tensor     # (n_ch_out, h_len - hop)
 
 
 # The widest input the one-pass kernel takes: the JAX package's choice at
@@ -78,6 +92,29 @@ def init_state_batched(bank: AfSTFT, n_streams: int, n_ch_in: int,
                             dtype=torch.float32, device=device),
         ola_tail=torch.zeros((S, n_ch_out, h_len - hop),
                              dtype=torch.float32, device=device))
+
+
+def init_state_ri(bank: AfSTFT, n_ch_in: int, n_ch_out: int,
+                  device: torch.device | str | None = None) -> AfSTFTStateRI:
+    """Zero single-stream state on ``device`` (default: the card)."""
+    device = default_device() if device is None else device
+    hop, h_len = bank.hop, bank.h_len
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return AfSTFTStateRI(in_tail=zeros(n_ch_in, h_len - hop),
+                         hyb_tail_re=zeros(n_ch_in, 6, hop + 1),
+                         hyb_tail_im=zeros(n_ch_in, 6, hop + 1),
+                         ola_tail=zeros(n_ch_out, h_len - hop))
+
+
+def state_ri_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
+                        device: torch.device | str | None = None
+                        ) -> AfSTFTStateRI:
+    """A single-stream state (e.g. the JAX package's) from numpy arrays."""
+    return AfSTFTStateRI(*(f32_tensor(a, device) for a in (
+        in_tail, hyb_tail_re, hyb_tail_im, ola_tail)))
 
 
 def _next_in_tail(in_tail: torch.Tensor, x: torch.Tensor, H: int,
@@ -227,7 +264,17 @@ def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
         Yre, Yim = Y[..., :nb], Y[..., nb:]
     else:
         Yre, Yim = Y
-    S, n_ch, H = Yre.shape[:3]
+    y, ola_tail = _synthesis_plain(bank, Yre, Yim, state.ola_tail)
+    return y, state._replace(ola_tail=ola_tail.contiguous())
+
+
+def _synthesis_plain(bank: AfSTFT, Yre: torch.Tensor, Yim: torch.Tensor,
+                     ola_tail: torch.Tensor):
+    """Hybrid inverse, irDFT, synthesis window and overlap-add in plain
+    torch: Y* (..., n_ch, H, n_bands), ola_tail (..., n_ch, 9·hop) →
+    ((..., n_ch, H·hop), new tail)."""
+    hop, h_len = bank.hop, bank.h_len
+    H = Yre.shape[-2]
     k = device_consts(hop, bank.low_delay, Yre.device)
     if bank.hybrid:
         Yre = _hybrid_inverse_ri(Yre)
@@ -238,16 +285,16 @@ def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
     with fp32_matmul():
         frame = Yre @ k["A"] + Yim @ k["B"]
     w = k["w_syn"]
-    acc = torch.zeros((S, n_ch, H + _TOTAL_HOPS - 1, hop), dtype=frame.dtype,
+    lead = frame.shape[:-2]
+    acc = torch.zeros(lead + (H + _TOTAL_HOPS - 1, hop), dtype=frame.dtype,
                       device=frame.device)
     for j in range(_TOTAL_HOPS):
         half = (j % 2) * hop
-        acc[:, :, j:j + H] += (frame[..., half:half + hop]
-                               * w[j * hop:(j + 1) * hop])
-    flat = acc.reshape(S, n_ch, (H + _TOTAL_HOPS - 1) * hop)
-    flat[..., :h_len - hop] += state.ola_tail
-    return (flat[..., :H * hop],
-            state._replace(ola_tail=flat[..., H * hop:].contiguous()))
+        acc[..., j:j + H, :] += (frame[..., half:half + hop]
+                                 * w[j * hop:(j + 1) * hop])
+    flat = acc.reshape(lead + ((H + _TOTAL_HOPS - 1) * hop,))
+    flat[..., :h_len - hop] += ola_tail
+    return flat[..., :H * hop], flat[..., H * hop:]
 
 
 def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
@@ -364,3 +411,36 @@ def _render_two_pass(bank: AfSTFT, state: AfSTFTStateBatched,
     return y, AfSTFTStateBatched(
         in_tail=_next_in_tail(state.in_tail, x, H, hop),
         ola_tail=new_tail.reshape(state.ola_tail.shape))
+
+
+def analysis_ri(bank: AfSTFT, state: AfSTFTStateRI, x: torch.Tensor):
+    """x: (n_ch, H*hop) → ((re, im) each (n_bands, n_ch, H), state), the
+    complex :meth:`AfSTFT.analysis` as an (re, im) pair.  The JAX package
+    picks between a stacked fold + matmul and a 1-D convolution by size;
+    both compute these sums, and this is the one form here."""
+    hop = bank.hop
+    n_ch = x.shape[0]
+    H = x.shape[1] // hop
+    k = device_consts(hop, bank.low_delay, x.device)
+    buf = torch.cat([state.in_tail, x], dim=-1)
+    hops = buf.reshape(n_ch, H + _TOTAL_HOPS - 1, hop)
+    folded = _fold_hops_ri(hops, H, hop, k["w_ana"])
+    with fp32_matmul():
+        sre = folded @ k["C"]
+        sim = folded @ k["S"]
+    state = state._replace(in_tail=buf[:, H * hop:])
+    if not bank.hybrid:
+        return (sre.permute(2, 0, 1), sim.permute(2, 0, 1)), state
+    fre = torch.cat([state.hyb_tail_re, sre], dim=1)
+    fim = torch.cat([state.hyb_tail_im, sim], dim=1)
+    ore, oim = _hybrid_forward_ri(fre, fim, H)
+    return ((ore.permute(2, 0, 1), oim.permute(2, 0, 1)),
+            state._replace(hyb_tail_re=fre[:, H:H + 6],
+                           hyb_tail_im=fim[:, H:H + 6]))
+
+
+def synthesis_ri(bank: AfSTFT, state: AfSTFTStateRI, Y):
+    """Y: (re, im) each (n_bands, n_ch, H) → ((n_ch, H*hop), state)."""
+    y, ola_tail = _synthesis_plain(bank, Y[0].permute(1, 2, 0),
+                                   Y[1].permute(1, 2, 0), state.ola_tail)
+    return y, state._replace(ola_tail=ola_tail)

@@ -79,18 +79,30 @@ def unit_cart2sph_torch(cart: torch.Tensor) -> torch.Tensor:
     return torch.stack([azi, elev], dim=-1)
 
 
-def yaw_pitch_roll2_rzyx_torch(ypr: torch.Tensor) -> torch.Tensor:
+def yaw_pitch_roll2_rzyx_torch(ypr: torch.Tensor,
+                               roll_pitch_yaw: bool = False) -> torch.Tensor:
     """Batched :func:`yaw_pitch_roll2_rzyx` on a tensor: ypr (..., 3)
     [yaw, pitch, roll] radians → (..., 3, 3) R = Rx(roll) @ Ry(pitch) @
-    Rz(yaw) of the row-vector style _rot_x/_rot_y/_rot_z, multiplied out
-    (no matmul, so no reduced-precision mode applies) on ypr's device."""
+    Rz(yaw) of the row-vector style _rot_x/_rot_y/_rot_z, or with
+    ``roll_pitch_yaw`` R = Rz(roll) @ Ry(pitch) @ Rx(yaw) (the reference's
+    EULER_ROTATION_ROLL_PITCH_YAW takes the three angles in the same
+    argument order), multiplied out (no matmul, so no reduced-precision
+    mode applies) on ypr's device."""
     cy, cp, cr = torch.cos(ypr).unbind(-1)
     sy, sp, sr = torch.sin(ypr).unbind(-1)
-    return torch.stack([
-        cp * cy, cp * sy, -sp,
-        sr * sp * cy - cr * sy, sr * sp * sy + cr * cy, sr * cp,
-        cr * sp * cy + sr * sy, cr * sp * sy - sr * cy, cr * cp,
-    ], dim=-1).unflatten(-1, (3, 3))
+    if roll_pitch_yaw:
+        rows = [
+            cr * cp, cr * sp * sy + sr * cy, sr * sy - cr * sp * cy,
+            -sr * cp, cr * cy - sr * sp * sy, sr * sp * cy + cr * sy,
+            sp, -cp * sy, cp * cy,
+        ]
+    else:
+        rows = [
+            cp * cy, cp * sy, -sp,
+            sr * sp * cy - cr * sy, sr * sp * sy + cr * cy, sr * cp,
+            cr * sp * cy + sr * sy, cr * sp * sy - sr * cy, cr * cp,
+        ]
+    return torch.stack(rows, dim=-1).unflatten(-1, (3, 3))
 
 
 def _rot_x(theta):

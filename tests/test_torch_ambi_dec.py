@@ -3,6 +3,7 @@ presets, the glibc rand() stream, the convhull_3d triangulation, 3-D VBAP
 gain tables, the loudspeaker decoders folded into design_ri, and the
 batched render at order 3 → the 22.x layout (cout·cin = 352 > 128: the
 analysis → einsum → synthesis path)."""
+import functools
 import os
 
 import jax.numpy as jnp
@@ -117,9 +118,132 @@ def test_design_ri_input_conversion_vs_jax():
 
 
 def test_binauralise_ls_is_not_ported_yet():
+    """It is ported now (the test keeps its name): the headphone preview
+    designs to a complex (nBands, 2, nSH) fold where it used to raise."""
     cfg = tdec.AmbiDecConfig(master_order=3, binauralise_ls=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.design_ri(cfg, tpre.loudspeaker_preset("22.x"), device="cpu")
+    w = tdec.design_ri(cfg, tpre.loudspeaker_preset("22.x"), device="cpu")
+    assert w.M_re.shape == w.M_im.shape == (133, 2, 16)
+    assert float(w.M_im.abs().max()) > 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def _preview(layout):
+    """JAX designs of the binaural preview (order 1, default HRIRs): the
+    batched fold and the complex pair, as numpy."""
+    ls = _layout(layout)
+    cfg = jdec.AmbiDecConfig(master_order=1, norm="n3d", binauralise_ls=True,
+                             re_weight=(False, True))
+    ri_w = jdec.design_ri(cfg, ls)
+    cw = jdec.design(cfg, ls)
+    return (np.asarray(ri_w.M_re), np.asarray(ri_w.M_im), np.asarray(cw.M),
+            np.asarray(cw.H_bin))
+
+
+@pytest.mark.parametrize("layout", ["golden9", "22.x"])
+def test_binauralise_ls_design_vs_jax(layout):
+    """TRI_PS at the loudspeaker directions, 1/√nLS, and one rand() stream
+    through the two AllRAD hulls and then the HRTF table."""
+    Mre, Mim, M, H = _preview(layout)
+    ls = _layout(layout)
+    cfg = tdec.AmbiDecConfig(master_order=1, norm="n3d", binauralise_ls=True,
+                             re_weight=(False, True))
+    w = tdec.design_ri(cfg, ls, device="cpu")
+    scale = np.abs(Mre).max()
+    assert np.abs(Mre - w.M_re.numpy()).max() <= 2e-6 * scale
+    assert np.abs(Mim - w.M_im.numpy()).max() <= 2e-6 * scale
+    cw = tdec.design(cfg, ls, device="cpu")
+    assert cw.M.dtype == cw.H_bin.dtype == torch.complex64
+    assert cw.H_bin.shape == (133, 2, len(ls))
+    assert np.abs(M - cw.M.numpy()).max() <= DESIGN_TOL
+    assert np.abs(H - cw.H_bin.numpy()).max() <= 2e-6 * np.abs(H).max()
+    assert tdec.design(tdec.AmbiDecConfig(master_order=1), ls,
+                       device="cpu").H_bin is None
+
+
+def test_binauralise_ls_vbap_table_vs_c():
+    """The compressed HRTF VBAP table inside the preview's design (all 6697
+    rows) against the compiled C: the third hull on the design's rand()
+    stream, after the two AllRAD triangulations.  Dense reconstructions are
+    compared, as ``tests/test_c_goldens.py`` does: gains of ~1e-7 straddle
+    the compression's keep-threshold."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser as tbin
+    from spatial_audio_framework_tpu_torch.modules import hoa as thoa
+
+    g = np.load(GOLDENS)
+    ls = np.asarray(g["ad16_ls_dirs"], np.float64)
+    rs = tch.glibc_rand()
+    for _ in range(2):
+        thoa.get_loudspeaker_decoder_mtx(ls, "allrad", 3, rand_stream=rs)
+    bcfg = tbin.BinauraliserConfig(n_sources=9,
+                                   interp_mode=tbin.INTERP_TRI_PS)
+    _, _, comp, idx, _ = tbin._design_host(bcfg, rand_stream=rs)
+    mine = np.zeros((comp.shape[0], 836), np.float32)
+    ref = np.zeros_like(mine)
+    rows = np.arange(comp.shape[0])[:, None]
+    np.add.at(mine, (rows, np.asarray(idx, int)), np.asarray(comp))
+    np.add.at(ref, (rows, np.asarray(g["adb_vbap_idx"], int)),
+              np.asarray(g["adb_vbap_w"]))
+    assert np.abs(mine - ref).max() <= 5e-6
+    # a fresh stream at the third hull gives another table: the order matters
+    _, _, comp2, idx2, _ = tbin._design_host(bcfg)
+    other = np.zeros_like(mine)
+    np.add.at(other, (rows, np.asarray(idx2, int)), np.asarray(comp2))
+    assert np.abs(other - ref).max() > 1e-3
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_binauralise_ls_batched_vs_jax(fused):
+    """The fold as a complex decode, 4 SH → 2 ears, 2 streams, three chained
+    chunks: the one-pass kernel's plain version vs the JAX Pallas route in
+    interpret mode, and the plain path vs JAX's."""
+    Mre, Mim, _, _ = _preview("golden9")
+    kw = dict(master_order=1, norm="n3d", binauralise_ls=True)
+    jcfg, tcfg = jdec.AmbiDecConfig(**kw), tdec.AmbiDecConfig(**kw)
+    jw = jdec.AmbiDecWeightsRI(jnp.asarray(Mre), jnp.asarray(Mim))
+    tw = tdec.weights_from_numpy(Mre, Mim, "cpu")
+    jst = jdec.init_state_batched(jcfg, 2, 9)
+    tst = tdec.init_state_batched(tcfg, 2, 9, device="cpu")
+    assert tst.ola_tail.shape == (2, 2, 9 * 128)
+    rng = np.random.default_rng(3)
+    tol = HIGH_TOL if fused else TOL
+    for H in (16, 4, 1):
+        x = rng.uniform(-1, 1, (2, 4, H * 128)).astype(np.float32)
+        jy, jst = jdec.process_ri_batched(jcfg, jw, jst, jnp.asarray(x),
+                                          use_pallas=fused, interpret=True)
+        ty, tst = tdec.process_ri_batched(tcfg, tw, tst, torch.from_numpy(x),
+                                          fused=fused)
+        assert ty.shape == (2, 2, H * 128)
+        assert np.abs(np.asarray(jy) - ty.numpy()).max() <= tol
+
+
+@pytest.mark.parametrize("preview", [False, True])
+def test_process_complex_vs_jax(preview):
+    """The single-stream complex path over four blocks (to loudspeakers,
+    and through H_bin to two ears), the JAX state handed across."""
+    _, _, M, H = _preview("golden9")
+    kw = dict(master_order=1, norm="n3d", binauralise_ls=preview)
+    jcfg, tcfg = jdec.AmbiDecConfig(**kw), tdec.AmbiDecConfig(**kw)
+    jw = jdec.AmbiDecWeights(jnp.asarray(M),
+                             jnp.asarray(H) if preview else None)
+    tw = tdec.weights_complex_from_numpy(
+        M.real, M.imag, *((H.real, H.imag) if preview else ()), device="cpu")
+    js = jdec.init_state(jcfg, 9)
+    ts = tdec.init_state(tcfg, 9, device="cpu")
+    n_out = 2 if preview else 9
+    rng = np.random.default_rng(5)
+    peak = 1e-30
+    for i, H_ in enumerate((16, 1, 2, 3)):
+        x = rng.uniform(-1, 1, (4, H_ * 128)).astype(np.float32)
+        if i == 2:
+            hyb = np.asarray(js.hyb_tail)
+            ts = tdec.state_complex_from_numpy(
+                np.asarray(js.in_tail), hyb.real, hyb.imag,
+                np.asarray(js.ola_tail), "cpu")
+        jy, js = jdec.process(jcfg, jw, js, jnp.asarray(x))
+        ty, ts = tdec.process(tcfg, tw, ts, torch.from_numpy(x))
+        assert ty.shape == (n_out, H_ * 128)
+        peak = max(peak, float(np.abs(jy).max()))
+        assert np.abs(np.asarray(jy) - ty.numpy()).max() <= TOL * peak
 
 
 @pytest.fixture(scope="module")

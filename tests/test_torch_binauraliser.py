@@ -250,5 +250,15 @@ def test_rotation_off_ignores_ypr():
 
 @pytest.mark.parametrize("entry", ["design", "init_state", "process"])
 def test_single_stream_entry_points_are_not_ported(entry):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tbin, entry)(tbin.BinauraliserConfig())
+    """They are ported now (the test keeps its name): each entry point has
+    the JAX function's parameters, in order, plus ``device``, and no module
+    carries the old message.  ``tests/test_torch_single_stream.py`` holds
+    their outputs against the JAX package."""
+    import inspect
+
+    ref = [p for p in inspect.signature(getattr(jbin, entry)).parameters
+           if not p.startswith("_")]
+    got = [p for p in inspect.signature(getattr(tbin, entry)).parameters
+           if p != "device"]
+    assert got == ref
+    assert not hasattr(tbin, "_SINGLE_STREAM")

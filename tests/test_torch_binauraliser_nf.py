@@ -228,5 +228,15 @@ def test_design_ri_is_the_binauralisers():
 
 @pytest.mark.parametrize("entry", ["design", "init_state", "process"])
 def test_single_stream_entry_points_are_not_ported(entry):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tnf, entry)(tnf.BinauraliserNFConfig())
+    """They are ported now (the test keeps its name): each entry point has
+    the JAX function's parameters, in order, plus ``device``, and no module
+    carries the old message.  ``tests/test_torch_single_stream.py`` holds
+    their outputs against the JAX package."""
+    import inspect
+
+    ref = [p for p in inspect.signature(getattr(jnf, entry)).parameters
+           if not p.startswith("_")]
+    got = [p for p in inspect.signature(getattr(tnf, entry)).parameters
+           if p != "device"]
+    assert got == ref
+    assert not hasattr(tnf, "_SINGLE_STREAM")

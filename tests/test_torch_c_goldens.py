@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
-                                                      ambi_enc, binauraliser,
+                                                      ambi_enc, beamformer,
+                                                      binauraliser,
                                                       binauraliser_nf, panner,
-                                                      roombinauraliser)
+                                                      roombinauraliser,
+                                                      rotator)
 from spatial_audio_framework_tpu_torch.modules import hoa, hrir, sh
 from spatial_audio_framework_tpu_torch.ops import afstft_ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
@@ -293,3 +295,212 @@ def test_ambi_bin_spr_end_to_end(g):
                   x[..., :64 * 128], 128)
     err = np.abs(out - g["abspr_out"]).max()
     assert err <= TOL, err
+
+
+# -- the single-stream entry points (one listener, 128-sample frames) ---------
+
+def _frames(process, st, x, fsz, n):
+    """x (n_in, T) through ``process(st, frame) -> (y, st)``, n frames of
+    ``fsz`` samples → (n_out, n·fsz) numpy."""
+    outs = []
+    for f in range(n):
+        y, st = process(st, x[:, f * fsz:(f + 1) * fsz])
+        outs.append(y.numpy())
+    return np.concatenate(outs, -1)
+
+
+@pytest.mark.parametrize("entry,fsz", [("process", 128), ("process_ri", 512),
+                                       ("process_ri", 128)])
+def test_ambi_bin_head_tracked_end_to_end(g, entry, fsz):
+    """Order 4, MagLS, N3D, the head turned by yaw = π through ``ypr`` (the
+    SH rotation built per block, not folded by the test): the compiled C
+    example's output, from the complex and the (re, im) entry points."""
+    cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d",
+                                 enable_rotation=True)
+    y_enc = sh.get_rsh(4, np.array([[-90.0, 0.0]], np.float32))[:, 0]
+    assert np.abs(y_enc - g["ambi_bin_enc_y"]).max() <= TOL
+    x = torch.from_numpy(np.ascontiguousarray(
+        y_enc[:, None] * g["ambi_bin_in_mono"][None, :], np.float32))
+    ypr = torch.tensor([np.pi, 0.0, 0.0], dtype=torch.float32)
+    if entry == "process":
+        w, st = ambi_bin.design(cfg, device="cpu"), ambi_bin.init_state(
+            cfg, device="cpu")
+    else:
+        w, st = ambi_bin.design_ri(cfg, device="cpu"), ambi_bin.init_state_ri(
+            cfg, device="cpu")
+    proc = getattr(ambi_bin, entry)
+    out = _frames(lambda s, xb: proc(cfg, w, s, xb, ypr), st, x, fsz,
+                  x.shape[-1] // fsz)
+    err = np.abs(out - g["ambi_bin_out"]).max()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("entry", ["process", "process_ri"])
+def test_ambi_bin_fuma_rotation_end_to_end(g, entry):
+    """FuMa input and a general head rotation: the C converts the signal
+    FuMa → ACN first and then applies M_dec·M_rot (ambi_bin.c:420-455); the
+    order-1 channel permutation does not commute with the rotation, so this
+    fails if the conversion sits on the wrong side."""
+    cfg = ambi_bin.AmbiBinConfig(order=1, method="magls", norm="fuma",
+                                 ch_ordering="fuma", enable_rotation=True)
+    x = torch.from_numpy(np.asarray(g["abf_in"], np.float32))
+    ypr = torch.from_numpy(np.radians([20.0, -10.0, 5.0]).astype(np.float32))
+    if entry == "process":
+        w, st = ambi_bin.design(cfg, device="cpu"), ambi_bin.init_state(
+            cfg, device="cpu")
+    else:
+        w, st = ambi_bin.design_ri(cfg, device="cpu"), ambi_bin.init_state_ri(
+            cfg, device="cpu")
+    proc = getattr(ambi_bin, entry)
+    out = _frames(lambda s, xb: proc(cfg, w, s, xb, ypr), st, x, 128, 32)
+    err = np.abs(out - g["abf_out"]).max()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("method,key", [("lsdiffeq", "ablsd_out"),
+                                        ("spr", "abspr_out")])
+def test_ambi_bin_lsdiffeq_spr_single_stream(g, method, key):
+    """The LS + diffuse-field-EQ and SPR decoders, order 3, rotation off,
+    64 frames through the complex ``process``."""
+    cfg = ambi_bin.AmbiBinConfig(order=3, method=method, norm="n3d")
+    w = ambi_bin.design(cfg, device="cpu")
+    x = torch.from_numpy(np.asarray(g["ab2_in"], np.float32))
+    out = _frames(lambda s, xb: ambi_bin.process(cfg, w, s, xb, None),
+                  ambi_bin.init_state(cfg, device="cpu"), x, 128, 64)
+    err = np.abs(out - g[key]).max()
+    assert err <= TOL, (method, err)
+
+
+def test_rotator_end_to_end(g):
+    cfg = rotator.RotatorConfig(order=3, norm="n3d", frame_size=64)
+    w = rotator.design(cfg, device="cpu")
+    ypr = torch.from_numpy(np.radians([30.0, -20.0, 10.0]).astype(np.float32))
+    x = torch.from_numpy(np.asarray(g["rot_in"], np.float32))
+    out = _frames(lambda s, xb: rotator.process(cfg, w, s, xb, ypr),
+                  rotator.init_state(cfg, device="cpu"), x, 64, 32)
+    assert np.abs(out - g["rot_out"]).max() <= TOL
+
+
+@pytest.mark.parametrize("btype,xkey,key", [
+    (beamformer.BEAM_MAX_EV, "bf_in", "bf_out"),
+    (beamformer.BEAM_CARDIOID, "bf2_in", "bfc_out"),
+    (beamformer.BEAM_HYPERCARDIOID, "bf2_in", "bfh_out")])
+def test_beamformer_end_to_end(g, btype, xkey, key):
+    cfg = beamformer.BeamformerConfig(order=3, n_beams=2, beam_type=btype,
+                                      norm="n3d")
+    W = beamformer.design(cfg, np.asarray(g["bf_dirs"], np.float64),
+                          device="cpu")
+    x = torch.from_numpy(np.asarray(g[xkey], np.float32))
+    out = _frames(lambda s, xb: beamformer.process(cfg, W, s, xb),
+                  beamformer.init_state(cfg, device="cpu"), x, 128, 32)
+    assert np.abs(out - g[key]).max() <= TOL
+
+
+@pytest.mark.parametrize("case", ["binaur", "brot", "btp"])
+def test_binauraliser_single_stream(g, case):
+    """The complex ``process`` against the goldens the batched path meets
+    ("binaur", "brot"), and "btp": INTERP_TRI_PS (magnitude + ITD
+    interpolation with phase synthesis, binauraliser_internal.c:90), 2
+    sources, 48 frames."""
+    rot = case == "brot"
+    mode = (binauraliser.INTERP_TRI_PS if case == "btp"
+            else binauraliser.INTERP_TRI)
+    cfg = binauraliser.BinauraliserConfig(n_sources=2, enable_rotation=rot,
+                                          interp_mode=mode)
+    w = binauraliser.design(cfg, device="cpu")
+    dirs = torch.tensor([[20.0, -30.0], [-70.0, 35.0]] if case == "btp"
+                        else [[30.0, 0.0], [-45.0, 10.0]])
+    ypr = (torch.from_numpy(np.deg2rad([40.0, -15.0, 10.0]).astype(
+        np.float32)) if rot else None)
+    x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))
+    out = _frames(lambda s, xb: binauraliser.process(cfg, w, s, xb, dirs,
+                                                     None, ypr),
+                  binauraliser.init_state(cfg, device="cpu"), x, 128,
+                  x.shape[-1] // 128)
+    err = np.abs(out - g[f"{case}_out"]).max()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("case", ["bnf", "bnfr"])
+def test_binauraliser_nf_single_stream(g, case):
+    rot = case == "bnfr"
+    cfg = binauraliser_nf.BinauraliserNFConfig(n_sources=2,
+                                               enable_rotation=rot)
+    w = binauraliser_nf.design(cfg, device="cpu")
+    if rot:
+        dirs = torch.tensor([[35.0, 12.0], [-60.0, -8.0]])
+        dists = torch.tensor([0.35, 0.8])
+        ypr = torch.from_numpy(np.deg2rad([40.0, -15.0, 10.0]).astype(
+            np.float32))
+    else:
+        dirs = torch.from_numpy(np.asarray(g["bnf_src_dirs"], np.float32))
+        dists = torch.from_numpy(np.asarray(g["bnf_dists"], np.float32))
+        ypr = None
+    x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))
+    out = _frames(lambda s, xb: binauraliser_nf.process(
+                      cfg, w, s, xb, dirs, dists, None, ypr),
+                  binauraliser_nf.init_state(cfg, device="cpu"), x, 128, 48)
+    err = np.abs(out - g[f"{case}_out"]).max()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("case", ["rb", "rbr"])
+def test_roombinauraliser_single_stream(g, case):
+    rot = case == "rbr"
+    cfg = roombinauraliser.RoomBinauraliserConfig(
+        n_sources=2, enable_rotation=rot, enable_hrir_diff_eq=True,
+        diff_eq_mode=roombinauraliser.DIFF_EQ_FABIAN_CTF,
+        interp_mode=roombinauraliser.INTERP_TRI)
+    cfg, w = roombinauraliser.design(cfg, device="cpu")
+    ypr = (torch.from_numpy(np.deg2rad([40.0, -15.0, 10.0]).astype(
+        np.float32)) if rot else None)
+    x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))
+    out = _frames(lambda s, xb: roombinauraliser.process(cfg, w, s, xb, None,
+                                                         ypr),
+                  roombinauraliser.init_state(cfg, device="cpu"), x, 128, 48)
+    err = np.abs(out - g[f"{case}_out"]).max()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("case", ["pan", "pyr", "p2d"])
+def test_panner_single_stream(g, case):
+    key = "p2d" if case == "p2d" else "pan"
+    ls = np.asarray(g[f"{key}_ls_dirs"], np.float64)
+    cfg = panner.PannerConfig(n_sources=2, n_loudspeakers=len(ls))
+    w = panner.design(cfg, ls, device="cpu")
+    dirs = torch.from_numpy(np.asarray(g[f"{key}_src_dirs"], np.float32))
+    ypr = (torch.from_numpy(np.radians(np.asarray(
+        g["pyr_ypr_deg"], np.float32))) if case == "pyr" else None)
+    x = torch.from_numpy(np.asarray(g[f"{case}_in"], np.float32))
+    out = _frames(lambda s, xb: panner.process(cfg, w, s, xb, dirs, ypr),
+                  panner.init_state(cfg, device="cpu"), x, 128, 32)
+    err = np.abs(out - g[f"{case}_out"]).max()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("entry", ["process", "process_ri_batched"])
+def test_ambi_dec_binaural_preview(g, entry):
+    """binauraliseLS (ambi_dec.c:543-563): TRI_PS HRTFs at the 9
+    loudspeakers folded onto the dual-band AllRAD decode, scaled by
+    1/sqrt(nLS); the batched path folds H_bin·M on the host (2e-4 there, as
+    ``tests/test_c_goldens.py``)."""
+    ls = np.asarray(g["ad16_ls_dirs"], np.float64)
+    cfg = ambi_dec.AmbiDecConfig(master_order=3, norm="n3d",
+                                 dec_method=("allrad", "allrad"),
+                                 re_weight=(False, True),
+                                 transition_freq=800.0, binauralise_ls=True)
+    x = torch.from_numpy(np.asarray(g["adb_in"], np.float32))
+    if entry == "process":
+        w = ambi_dec.design(cfg, ls, device="cpu")
+        hin = np.asarray(g["adb_hinterp"])           # (nLS, nBands, 2)
+        H = w.H_bin.numpy() * 3.0                    # undo 1/sqrt(9)
+        assert np.abs(H.transpose(2, 0, 1) - hin).max() <= TOL
+        out = _frames(lambda s, xb: ambi_dec.process(cfg, w, s, xb),
+                      ambi_dec.init_state(cfg, 9, device="cpu"), x, 128, 32)
+        assert np.abs(out - g["adb_out"]).max() <= TOL
+    else:
+        w = ambi_dec.design_ri(cfg, ls, device="cpu")
+        y, _ = ambi_dec.process_ri_batched(
+            cfg, w, ambi_dec.init_state_batched(cfg, 1, 9, device="cpu"),
+            x[None])
+        assert np.abs(y[0].numpy() - g["adb_out"]).max() <= 2e-4

@@ -749,3 +749,198 @@ def test_new_models_bad_directions_on_card(cuda):
         assert bool(torch.isnan(ref[[0, 4, 6]]).all())
         assert bool(torch.isfinite(ref[[1, 2, 3, 5, 7]]).all())
         assert (got - ref).nan_to_num().abs().max().item() <= 1e-6
+
+
+# -- array2sh, ambi_dec's binaural preview and the head-tracked listener ------
+
+@pytest.mark.parametrize("rows,H", [(16 * 32, 64), (16 * 32, 1), (33, 9)])
+def test_analysis_front_at_the_array2sh_rows(cuda, rows, H):
+    """analysis_front_ri over 16 recordings x 32 sensors (512 rows)."""
+    rng = np.random.default_rng(rows + H)
+    tail = _u(rng, (rows, 15 * 128), cuda) * 0.5
+    x = _u(rng, (rows, H * 128), cuda) * 0.5
+    for k, p in zip(tak.analysis_front_ri(tail, x),
+                    tak.analysis_front_ri_reference(tail, x)):
+        assert k.shape == (rows, H + 6, 129)
+        assert (k - p).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows,H", [(16 * 25, 64), (16 * 25, 1), (25, 9)])
+def test_synthesis_back_at_the_array2sh_rows(cuda, rows, H):
+    """synthesis_back_ri over 16 recordings x 25 SH channels (400 rows)."""
+    rng = np.random.default_rng(rows + H)
+    spec = _u(rng, (rows, H, 266), cuda) * 10.0
+    tail = _u(rng, (rows, 9, 128), cuda)
+    for k, p in zip(tak.synthesis_back_ri(spec, tail),
+                    tak.synthesis_back_ri_reference(spec, tail)):
+        assert (k - p).abs().max().item() <= TOL
+
+
+def test_array2sh_route_matches_plain_path(cuda, monkeypatch):
+    """Eigenmike32 → order 4, 3 streams: the front and the back once a
+    chunk, never a plain version, equal to ``fused=False``."""
+    from spatial_audio_framework_tpu_torch.models import array2sh
+
+    cfg = array2sh.Array2SHConfig(order=4)
+    w = array2sh.design_ri(
+        cfg, np.degrees(presets.mic_preset("eigenmike32")), device=cuda)
+    rng = np.random.default_rng(2)
+    xs = [_u(rng, (3, 32, h * 128), cuda) for h in (9, 4)]
+
+    def run(fused):
+        st, ys = array2sh.init_state_batched(cfg, 3, 32, cuda), []
+        for x in xs:
+            y, st = array2sh.process_ri_batched(cfg, w, st, x, fused=fused)
+            ys.append(y)
+        return ys, st
+
+    ys_p, st_p = run(False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    for name in _ALL_KERNELS:
+        monkeypatch.setattr(tak, f"{name}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    ys_k, st_k = run(True)
+    torch.cuda.synchronize()
+    for yk, yp in zip(ys_k, ys_p):
+        assert yk.shape == (3, 25, yk.shape[-1])
+        assert (yk - yp).abs().max().item() <= TOL * max(
+            1.0, yp.abs().max().item())
+    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    assert ran == {n: 2 if n in ("analysis_front_ri", "synthesis_back_ri")
+                   else 0 for n in _ALL_KERNELS}
+
+
+def test_ambi_dec_binaural_preview_takes_the_one_pass_kernel(cuda):
+    """binauralise_ls: a complex 16 → 2 decode from ambi_dec, one
+    render_full_ri launch a chunk, equal to ``fused=False``."""
+    h, d, fs = _hrir_subset()
+    cfg = ambi_dec.AmbiDecConfig(master_order=3, binauralise_ls=True)
+    ls = presets.loudspeaker_preset("22.x")
+    w = ambi_dec.design_ri(cfg, ls, None, h, d, fs, device=cuda)
+    assert w.M_im is not None and w.M_re.shape == (133, 2, 16)
+    rng = np.random.default_rng(4)
+    x = _u(rng, (2, 16, 9 * 128), cuda)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    yk, _ = ambi_dec.process_ri_batched(
+        cfg, w, ambi_dec.init_state_batched(cfg, 2, 22, cuda), x)
+    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    yp, _ = ambi_dec.process_ri_batched(
+        cfg, w, ambi_dec.init_state_batched(cfg, 2, 22, cuda), x,
+        fused=False)
+    assert ran == {n: int(n == "render_full_ri") for n in _ALL_KERNELS}
+    assert yk.shape == (2, 2, 9 * 128)
+    assert (yk - yp).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("entry", ["process_ri", "process"])
+@pytest.mark.parametrize("order", [1, 3, 7])
+def test_head_tracked_block_never_waits_for_the_device(cuda, monkeypatch,
+                                                       entry, order):
+    """Once warm, a block of the single-stream ambi_bin with a new ``ypr``
+    on the card builds its SH rotation there: no tensor from host data, no
+    host synchronisation, none of the six kernels, and the CPU's output."""
+    cfg = ambi_bin.AmbiBinConfig(order=order, enable_rotation=True,
+                                 ch_ordering="fuma" if order == 1 else "acn",
+                                 norm="fuma" if order == 1 else "sn3d")
+    rng = np.random.default_rng(order)
+    M = rng.standard_normal((2, 133, 2, cfg.nsh)).astype(np.float32)
+    xs = rng.uniform(-1, 1, (3, cfg.nsh, 256)).astype(np.float32)
+    yprs = rng.uniform(-np.pi, np.pi, (3, 3)).astype(np.float32)
+
+    def run(device, guard):
+        if entry == "process_ri":
+            w = ambi_bin.weights_from_numpy(M[0], M[1], device)
+            st = ambi_bin.init_state_ri(cfg, device=device)
+        else:
+            w = ambi_bin.weights_complex_from_numpy(M[0], M[1], device)
+            st = ambi_bin.init_state(cfg, device=device)
+        x_d = torch.from_numpy(xs).to(device)
+        ypr_d = torch.from_numpy(yprs).to(device)
+        proc, ys = getattr(ambi_bin, entry), []
+        y, st = proc(cfg, w, st, x_d[0], ypr_d[0])
+        ys.append(y)
+        with guard():
+            for i in (1, 2):
+                y, st = proc(cfg, w, st, x_d[i], ypr_d[i])
+                ys.append(y)
+        return torch.cat(ys, dim=-1).cpu()
+
+    import contextlib
+
+    @contextlib.contextmanager
+    def no_host_data():
+        def refuse(*args, **kwargs):
+            raise AssertionError("a tensor was made from host data per block")
+
+        torch.cuda.synchronize()
+        with monkeypatch.context() as m:
+            for name in ("from_numpy", "tensor", "as_tensor"):
+                m.setattr(torch, name, refuse)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    got = run(cuda, no_host_data)
+    assert {n: getattr(tak, n).launches for n in _ALL_KERNELS} == before
+    ref = run("cpu", contextlib.nullcontext)
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= TOL * max(
+        1.0, ref.abs().max().item())
+
+
+def test_single_stream_lookups_bad_directions_on_card(cuda):
+    """The complex interp_hrtfs of binauraliser (TRI and TRI_PS) and
+    roombinauraliser, and the single-stream panner gains, at NaN, infinite
+    and out-of-table directions: no device-side assert, no host
+    synchronisation, and the CPU's result (NaN where the table ends)."""
+    from spatial_audio_framework_tpu_torch.models import (binauraliser,
+                                                          panner,
+                                                          roombinauraliser)
+
+    bad = torch.tensor([[10.0, 95.0], [10.0, -100.0], [float("nan"), 10.0],
+                        [10.0, float("nan")], [10.0, 1e9],
+                        [float("inf"), 3.0], [10.0, float("-inf")],
+                        [180.0, 0.0], [-180.0, 0.0], [30.0, 0.0]])
+    h, d, fs = _hrir_subset()
+    cases = []
+    for mode in (binauraliser.INTERP_TRI, binauraliser.INTERP_TRI_PS):
+        cfg = binauraliser.BinauraliserConfig(n_sources=len(bad),
+                                              interp_mode=mode, azi_res=10,
+                                              elev_res=15)
+        w = binauraliser.design(cfg, h, d, fs, device="cpu")
+        cases.append((lambda w, x, cfg=cfg: torch.view_as_real(
+            binauraliser.interp_hrtfs(cfg, w, x)), w, bad))
+    rcfg, rw = roombinauraliser.design(
+        roombinauraliser.RoomBinauraliserConfig(n_sources=2),
+        np.stack([h, np.roll(h, 5, 0)]), d, fs, device="cpu")
+    for row in bad:
+        cases.append((lambda w, x: torch.view_as_real(
+            roombinauraliser.interp_hrtfs(rcfg, w, x)), rw, row))
+    ls = np.array([[30, 0], [-30, 0], [0, 0], [110, 0], [-110, 0],
+                   [45, 45], [-45, 45], [135, 45], [-135, 45]], np.float64)
+    pcfg = panner.PannerConfig(n_sources=len(bad), n_loudspeakers=9,
+                               azi_res=5, elev_res=5)
+    pw = panner.design(pcfg, ls, device="cpu")
+    cases.append((lambda w, x: panner._band_gains(pcfg, w, x, None), pw, bad))
+    saw_nan = saw_finite = False
+    for fn, w, x in cases:
+        w_c = type(w)(*(t.to(cuda) for t in w))
+        x_c = x.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(w_c, x_c)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got, ref = got.cpu(), fn(w, x)
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert (got - ref).nan_to_num().abs().max().item() <= 1e-5
+        saw_nan |= bool(torch.isnan(ref).any())
+        saw_finite |= bool(torch.isfinite(ref).any())
+    assert saw_nan and saw_finite

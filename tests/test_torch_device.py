@@ -12,9 +12,11 @@ import torch
 
 import spatial_audio_framework_tpu_torch as port
 from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
-                                                      ambi_enc, binauraliser,
+                                                      ambi_enc, array2sh,
+                                                      beamformer, binauraliser,
                                                       binauraliser_nf, panner,
-                                                      roombinauraliser)
+                                                      roombinauraliser,
+                                                      rotator)
 from spatial_audio_framework_tpu_torch.ops import afstft_ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
 
@@ -103,7 +105,66 @@ NEW_ENTRY_POINTS = {
         roombinauraliser.weights_from_numpy(
             _Z[None], _Z[None], _Z[None], np.zeros((1, 4)), _T, _T,
             np.zeros(133), **kw)),
+    # the single-stream entry points, rotator, beamformer, array2sh and
+    # ambi_dec's complex path
+    "afstft_ri.init_state_ri": lambda **kw: afstft_ri.init_state_ri(
+        AfSTFT(), 4, 2, **kw),
+    "afstft_ri.state_ri_from_numpy": lambda **kw: (
+        afstft_ri.state_ri_from_numpy(*_STATE_RI, **kw)),
+    "ambi_bin.init_state": lambda **kw: ambi_bin.init_state(
+        ambi_bin.AmbiBinConfig(order=1), **kw),
+    "ambi_bin.init_state_ri": lambda **kw: ambi_bin.init_state_ri(
+        ambi_bin.AmbiBinConfig(order=1), **kw),
+    "ambi_bin.weights_complex_from_numpy": lambda **kw: (
+        ambi_bin.weights_complex_from_numpy(_Z, _Z, **kw)),
+    "ambi_bin.state_complex_from_numpy": lambda **kw: (
+        ambi_bin.state_complex_from_numpy(*_STATE_RI, **kw)),
+    "binauraliser.init_state": lambda **kw: binauraliser.init_state(
+        binauraliser.BinauraliserConfig(), **kw),
+    "binauraliser.weights_complex_from_numpy": lambda **kw: (
+        binauraliser.weights_complex_from_numpy(
+            _Z, _Z, _Z, np.zeros(4), _T, _T, np.zeros(133), **kw)),
+    "binauraliser_nf.init_state": lambda **kw: binauraliser_nf.init_state(
+        binauraliser_nf.BinauraliserNFConfig(), **kw),
+    "roombinauraliser.init_state": lambda **kw: roombinauraliser.init_state(
+        roombinauraliser.RoomBinauraliserConfig(), **kw),
+    "roombinauraliser.weights_complex_from_numpy": lambda **kw: (
+        roombinauraliser.weights_complex_from_numpy(
+            _Z[None], _Z[None], _Z[None], np.zeros((1, 4)), _T, _T,
+            np.zeros(133), **kw)),
+    "panner.init_state": lambda **kw: panner.init_state(_PCFG, **kw),
+    "rotator.design": lambda **kw: rotator.design(
+        rotator.RotatorConfig(order=2), **kw),
+    "rotator.init_state": lambda **kw: rotator.init_state(
+        rotator.RotatorConfig(order=2), **kw),
+    "rotator.state_from_numpy": lambda **kw: rotator.state_from_numpy(
+        np.eye(4), np.zeros((4, 128)), **kw),
+    "beamformer.design": lambda **kw: beamformer.design(
+        beamformer.BeamformerConfig(order=2, n_beams=2), _LS[:2], **kw),
+    "beamformer.init_state": lambda **kw: beamformer.init_state(
+        beamformer.BeamformerConfig(order=2, n_beams=2), **kw),
+    "beamformer.state_from_numpy": lambda **kw: beamformer.state_from_numpy(
+        np.zeros((2, 9)), np.zeros((9, 128)), **kw),
+    "array2sh.design": lambda **kw: array2sh.design(_ACFG, _SENSORS, **kw),
+    "array2sh.design_ri": lambda **kw: array2sh.design_ri(_ACFG, _SENSORS,
+                                                          **kw),
+    "array2sh.weights_from_numpy": lambda **kw: array2sh.weights_from_numpy(
+        _Z, _Z, **kw),
+    "array2sh.weights_complex_from_numpy": lambda **kw: (
+        array2sh.weights_complex_from_numpy(_Z, _Z, **kw)),
+    "array2sh.init_state": lambda **kw: array2sh.init_state(_ACFG, 6, **kw),
+    "array2sh.init_state_batched": lambda **kw: array2sh.init_state_batched(
+        _ACFG, 2, 6, **kw),
+    "ambi_dec.init_state": lambda **kw: ambi_dec.init_state(
+        ambi_dec.AmbiDecConfig(master_order=1), 4, **kw),
+    "ambi_dec.weights_complex_from_numpy": lambda **kw: (
+        ambi_dec.weights_complex_from_numpy(_Z, _Z, _Z, _Z, **kw)),
 }
+_STATE_RI = (np.zeros((4, 9 * 128)), np.zeros((4, 6, 129)),
+             np.zeros((4, 6, 129)), np.zeros((2, 9 * 128)))
+_ACFG = array2sh.Array2SHConfig(order=1)
+_SENSORS = np.array([[0.0, 0], [90, 0], [180, 0], [-90, 0], [0, 90],
+                     [0, -90]])
 
 
 def _tensors(out):
@@ -111,6 +172,42 @@ def _tensors(out):
         return [out]
     return [t for o in out for t in _tensors(o)] if isinstance(
         out, (tuple, list)) else []
+
+
+def test_single_stream_designs_raise_without_a_card(monkeypatch):
+    """The complex designs that load HRIRs (ambi_bin, binauraliser,
+    binauraliser_nf, roombinauraliser, ambi_dec with the binaural preview)
+    on a small subset: CPU tensors when asked, an error without a card."""
+    from spatial_audio_framework_tpu_torch.modules import hrir
+
+    h, d, fs = hrir.default_hrirs()
+    h, d = h[::40], d[::40]
+    bcfg = binauraliser.BinauraliserConfig(azi_res=10, elev_res=15)
+    dcfg = ambi_dec.AmbiDecConfig(master_order=1, binauralise_ls=True)
+    ls = np.array([[45.0, 0], [-45, 0], [135, 0], [-135, 0], [0, 90],
+                   [0, -90]])
+    designs = {
+        "ambi_bin": lambda **kw: ambi_bin.design(
+            ambi_bin.AmbiBinConfig(order=1), h, d, fs, **kw),
+        "binauraliser": lambda **kw: binauraliser.design(bcfg, h, d, fs, **kw),
+        "binauraliser_nf": lambda **kw: binauraliser_nf.design(
+            binauraliser_nf.BinauraliserNFConfig(azi_res=10, elev_res=15),
+            h, d, fs, **kw),
+        "roombinauraliser": lambda **kw: roombinauraliser.design(
+            roombinauraliser.RoomBinauraliserConfig(), h[None], d, fs,
+            **kw)[1],
+        "ambi_dec": lambda **kw: ambi_dec.design(dcfg, ls, None, h, d, fs,
+                                                 **kw),
+        "ambi_dec_ri": lambda **kw: ambi_dec.design_ri(dcfg, ls, None, h, d,
+                                                       fs, **kw),
+    }
+    for name, fn in designs.items():
+        tensors = _tensors(fn(device="cpu"))
+        assert tensors and all(t.device.type == "cpu" for t in tensors), name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, fn in designs.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
 
 
 @pytest.mark.parametrize("entry", list(NEW_ENTRY_POINTS))

@@ -176,6 +176,141 @@ print("ok")
 """
 
 
+# the single-stream entry points (one head-tracked listener), rotator,
+# beamformer, array2sh with its host modules, ambi_dec's binaural preview
+_SCRIPT_SINGLE_STREAM = """
+import importlib.abc
+import sys
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    # any 'import jax' raises; sys.modules stays clean (scipy's array-API
+    # helpers look "jax" up there and trip over a None entry)
+    def find_spec(self, name, path, target=None):
+        if name == "jax" or name.startswith("jax."):
+            raise ImportError("jax is not available in this check")
+
+
+sys.meta_path.insert(0, NoJax())
+import numpy as np
+import torch
+from spatial_audio_framework_tpu_torch.models import (
+    ambi_bin, ambi_dec, array2sh, beamformer, binauraliser, binauraliser_nf,
+    panner, roombinauraliser, rotator)
+from spatial_audio_framework_tpu_torch.modules import array_proc, hrir, sh
+from spatial_audio_framework_tpu_torch.ops import afstft_ri
+from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+from spatial_audio_framework_tpu_torch.utils import bessel, geometry, presets
+
+rng = np.random.default_rng(0)
+u = lambda *shape: torch.from_numpy(
+    rng.uniform(-1, 1, shape).astype(np.float32))
+ok = lambda y, shape: y.shape == shape and bool(torch.isfinite(y).all())
+
+# the SH rotation on a tensor, both Euler orders
+R = geometry.yaw_pitch_roll2_rzyx_torch(u(3), roll_pitch_yaw=True)
+assert sh.get_sh_rot_mtx_real_torch(R, 7).shape == (64, 64)
+
+# the single-stream filterbank
+bank = AfSTFT()
+st = afstft_ri.init_state_ri(bank, 3, 3, device="cpu")
+spec, st = afstft_ri.analysis_ri(bank, st, u(3, 256))
+y, st = afstft_ri.synthesis_ri(bank, st, spec)
+assert ok(y, (3, 256))
+
+# ambi_bin: a head-tracked listener, complex and (re, im)
+h, d, fs = hrir.default_hrirs()
+h, d = h[::16], d[::16]
+cfg = ambi_bin.AmbiBinConfig(order=2, enable_rotation=True,
+                             ch_ordering="fuma", norm="fuma")
+w = ambi_bin.design(cfg, h, d, fs, device="cpu")
+sc = ambi_bin.init_state(cfg, device="cpu")
+sr = ambi_bin.init_state_ri(cfg, device="cpu")
+for _ in range(3):
+    x, ypr = u(9, 128), u(3)
+    yc, sc = ambi_bin.process(cfg, w, sc, x, ypr)
+    yr, sr = ambi_bin.process_ri(cfg, ambi_bin.weights_ri(w), sr, x, ypr)
+    assert ok(yc, (2, 128)) and float((yc - yr).abs().max()) < 1e-4
+
+# rotator and beamformer
+rcfg = rotator.RotatorConfig(order=3, use_roll_pitch_yaw=True)
+rw, rs = rotator.design(rcfg, device="cpu"), rotator.init_state(rcfg, device="cpu")
+for _ in range(2):
+    y, rs = rotator.process(rcfg, rw, rs, u(16, 128), u(3))
+assert ok(y, (16, 128))
+for bt in ("cardioid", "hypercardioid", "max_ev"):
+    bcfg = beamformer.BeamformerConfig(order=3, n_beams=2, beam_type=bt)
+    W = beamformer.design(bcfg, [[10.0, 20.0], [-90.0, 0.0]], device="cpu")
+    bs = beamformer.init_state(bcfg, device="cpu")
+    for _ in range(2):
+        y, bs = beamformer.process(bcfg, W, bs, u(16, 128))
+    assert ok(y, (2, 128))
+
+# the renderers' complex entry points
+for mode in ("tri", "tri_ps"):
+    kw = dict(n_sources=3, interp_mode=mode, enable_rotation=True,
+              azi_res=10, elev_res=15)
+    c = binauraliser.BinauraliserConfig(**kw)
+    bw = binauraliser.design(c, h, d, fs, device="cpu")
+    y, _ = binauraliser.process(c, bw, binauraliser.init_state(c, device="cpu"),
+                                u(3, 256), u(3, 2) * 90.0, u(3), u(3))
+    assert ok(y, (2, 256))
+    c = binauraliser_nf.BinauraliserNFConfig(**kw)
+    y, _ = binauraliser_nf.process(
+        c, bw, binauraliser_nf.init_state(c, device="cpu"), u(3, 256),
+        u(3, 2) * 90.0, u(3).abs() * 4.0, u(3), u(3))
+    assert ok(y, (2, 256))
+    c = roombinauraliser.RoomBinauraliserConfig(n_sources=3, interp_mode=mode)
+    c, qw = roombinauraliser.design(
+        c, np.stack([np.roll(h, s, 0) for s in range(3)]), d, fs, device="cpu")
+    y, _ = roombinauraliser.process(
+        c, qw, roombinauraliser.init_state(c, device="cpu"), u(3, 256), u(3),
+        u(3))
+    assert ok(y, (2, 256))
+ring = np.array([[30, 0], [-30, 0], [0, 0], [110, 0], [-110, 0]], float)
+pc = panner.PannerConfig(n_sources=2, n_loudspeakers=5, azi_res=10)
+pw = panner.design(pc, ring, device="cpu")
+y, _ = panner.process(pc, pw, panner.init_state(pc, device="cpu"), u(2, 256),
+                      u(2, 2) * 90.0, u(3))
+assert ok(y, (5, 256))
+
+# ambi_dec: the binaural preview, batched and complex
+ls = presets.loudspeaker_preset("22.x")
+dc = ambi_dec.AmbiDecConfig(master_order=1, binauralise_ls=True)
+dw = ambi_dec.design_ri(dc, ls, None, h, d, fs, device="cpu")
+y, _ = ambi_dec.process_ri_batched(
+    dc, dw, ambi_dec.init_state_batched(dc, 2, 22, device="cpu"), u(2, 4, 512))
+assert ok(y, (2, 2, 512))
+cw = ambi_dec.design(dc, ls, None, h, d, fs, device="cpu")
+y, _ = ambi_dec.process(dc, cw, ambi_dec.init_state(dc, 22, device="cpu"),
+                        u(4, 256))
+assert ok(y, (2, 256))
+
+# utils/bessel, modules/array_proc, models/array2sh
+assert bessel.bessel_jn_all(3, np.array([0.0, 1.0]))[0].shape == (2, 4)
+assert array_proc.sph_modal_coeffs(3, np.array([0.5, 1.0]), "rigid").shape == (2, 4)
+sens = np.degrees(presets.mic_preset("eigenmike32"))
+for ft in ("soft_lim", "tikhonov", "z_style", "z_style_maxre"):
+    ac = array2sh.Array2SHConfig(order=2, filter_type=ft)
+    aw = array2sh.design_ri(ac, sens, device="cpu")
+    y, _ = array2sh.process_ri_batched(
+        ac, aw, array2sh.init_state_batched(ac, 2, 32, device="cpu"),
+        u(2, 32, 512))
+    assert ok(y, (2, 9, 512))
+acw = array2sh.design(ac, sens, device="cpu")
+y, _ = array2sh.process(ac, acw, array2sh.init_state(ac, 32, device="cpu"),
+                        u(32, 256))
+assert ok(y, (9, 256))
+assert len(array2sh.evaluate_filters(ac, acw, sens)) == 2
+leaked = [m for m in sys.modules
+          if m == "spatial_audio_framework_tpu"
+          or m.startswith("spatial_audio_framework_tpu.")]
+assert not leaked, leaked
+assert "jax" not in sys.modules
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -193,3 +328,10 @@ def test_tf_matrix_renderers_run_without_jax():
     host modules (2-D VBAP, the torch SH, DVF, speex resampling, brir, the
     SPR decoder, diffuse-covariance matching)."""
     _run(_SCRIPT_RENDERERS)
+
+
+def test_single_stream_entry_points_run_without_jax():
+    """The head-tracked ambi_bin entry points, the renderers' complex
+    process, rotator, beamformer, array2sh (bessel, array_proc) and
+    ambi_dec's binaural preview."""
+    _run(_SCRIPT_SINGLE_STREAM)

@@ -267,5 +267,15 @@ def test_p_norm_switch_and_zero_gain_source_vs_jax(exact_jax):
 
 @pytest.mark.parametrize("entry", ["init_state", "process"])
 def test_single_stream_entry_points_are_not_ported(entry):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tpan, entry)(tpan.PannerConfig())
+    """They are ported now (the test keeps its name): each entry point has
+    the JAX function's parameters, in order, plus ``device``, and no module
+    carries the old message.  ``tests/test_torch_single_stream.py`` holds
+    their outputs against the JAX package."""
+    import inspect
+
+    ref = [p for p in inspect.signature(getattr(jpan, entry)).parameters
+           if not p.startswith("_")]
+    got = [p for p in inspect.signature(getattr(tpan, entry)).parameters
+           if p != "device"]
+    assert got == ref
+    assert not hasattr(tpan, "_SINGLE_STREAM")

@@ -346,5 +346,15 @@ def test_solo_and_mute_gains_vs_jax():
 
 @pytest.mark.parametrize("entry", ["design", "init_state", "process"])
 def test_single_stream_entry_points_are_not_ported(entry):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(trb, entry)(trb.RoomBinauraliserConfig())
+    """They are ported now (the test keeps its name): each entry point has
+    the JAX function's parameters, in order, plus ``device``, and no module
+    carries the old message.  ``tests/test_torch_single_stream.py`` holds
+    their outputs against the JAX package."""
+    import inspect
+
+    ref = [p for p in inspect.signature(getattr(jrb, entry)).parameters
+           if not p.startswith("_")]
+    got = [p for p in inspect.signature(getattr(trb, entry)).parameters
+           if p != "device"]
+    assert got == ref
+    assert not hasattr(trb, "_SINGLE_STREAM")

@@ -1199,11 +1199,19 @@ def phase_array2sh(array2sh, presets, ak, dev, rng, card):
 
 def frames(process, st, x, fsz, n):
     """x (n_in, T) on the card through ``process(st, frame) -> (y, st)`` in
-    ``n`` frames of ``fsz`` samples → (n_out, n·fsz) numpy."""
-    outs = []
-    for f in range(n):
-        y, st = process(st, x[:, f * fsz:(f + 1) * fsz])
-        outs.append(y)
+    ``n`` frames of ``fsz`` samples → (n_out, n·fsz) numpy.  After the
+    first frame (which fills the caches of device constants) any operation
+    that makes the host wait for the card raises."""
+    y, st = process(st, x[:, :fsz])
+    outs = [y]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in range(1, n):
+            y, st = process(st, x[:, f * fsz:(f + 1) * fsz])
+            outs.append(y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     return torch.cat(outs, dim=-1).cpu().numpy()
 
 
@@ -1282,12 +1290,15 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
     with ``ypr`` living on the card and changing every block, so every
     block builds its SH rotation on the card.  Per case: no block may make
     the host wait (sync debug mode "error" around warm blocks, then blocks
-    enqueued behind a spin kernel), the launches per block (profiler), the
-    wall, host enqueue and device time per block, and the rotation's share.
-    ``process_ri`` must equal one stream of ``process_ri_batched`` with the
-    same rotation folded into the weights.  None of the six kernels may
-    launch on the single-stream paths."""
-    n_blocks = 16
+    enqueued behind a spin kernel), the wall, host enqueue and device time
+    per block, the rotation's share, and the launches per block.  The
+    launches come from torch.profiler in a second pass over all cases, after
+    every time was taken: once the profiler has run, each launch costs the
+    host several times more.  ``process_ri`` must equal one stream of
+    ``process_ri_batched`` with the same rotation folded into the weights.
+    None of the six kernels may launch on the single-stream paths."""
+    n_blocks, queued = 16, 4      # 4 blocks of ~200 launches fit the queue
+    runs = []
     for order, (Mre, Mim) in cases:
         cfg = ambi_bin.AmbiBinConfig(order=order, method="magls",
                                      enable_rotation=True)
@@ -1296,12 +1307,14 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
         inits = {"process_ri": ambi_bin.init_state_ri,
                  "process": ambi_bin.init_state}
         yprs = uniform(rng, (n_blocks, 3), dev, np.pi)
-        rot_n, _ = launches_per_call(
-            lambda: ambi_bin._rotation(cfg, yprs[0]), 4)
-        rot_ms = cuda_ms(lambda: ambi_bin._rotation(cfg, yprs[0]), 8,
-                         queued=True)
-        print(f"phase 22: SH rotation matrix, order {order} [{card}]: "
-              f"{rot_n:g} launches, device {rot_ms:.4f} ms per block")
+
+        def rotation(cfg=cfg, yprs=yprs):
+            return ambi_bin._rotation(cfg, yprs[0])
+
+        rotation()
+        rot_ms = cuda_ms(rotation, 8, queued=True)
+        runs.append((f"SH rotation matrix, order {order}", rotation,
+                     f"device {rot_ms:.4f} ms per block"))
         for T in (128, 4096):
             xs = uniform(rng, (n_blocks, cfg.nsh, T), dev)
             for entry in ("process_ri", "process"):
@@ -1309,7 +1322,8 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
                 state = {"st": inits[entry](cfg, device=dev), "i": 0}
                 ys = []
 
-                def step():
+                def step(proc=proc, w=w, state=state, xs=xs, yprs=yprs,
+                         cfg=cfg, ys=ys):
                     i = state["i"] % n_blocks
                     y, state["st"] = proc(cfg, w, state["st"], xs[i], yprs[i])
                     state["i"] += 1
@@ -1328,31 +1342,27 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
                 torch.cuda.synchronize()
                 check(all(bool(torch.isfinite(y).all()) and y.shape == (2, T)
                           for y in ys), f"{entry}: output wrong")
-                n_launch, busy_ms = launches_per_call(step, 4)
-                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(n_blocks):
                     step()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / n_blocks
-                # the launch queue holds 1024 entries: enqueue what fits
-                queued = max(1, min(n_blocks, int(800 // n_launch)))
-                runs = [device_ms(step, queued) for _ in range(3)]
-                dev_ms, host_ms = (float(np.median([r[i] for r in runs]))
+                timed = [device_ms(step, queued) for _ in range(3)]
+                dev_ms, host_ms = (float(np.median([r[i] for r in timed]))
                                    for i in (0, 1))
-                ahead = all(r[2] for r in runs)
+                ahead = all(r[2] for r in timed)
                 ran = {k: getattr(ak, k).launches - before[k]
                        for k in KERNELS}
-                print(f"phase 22: ambi_bin.{entry} order {order}, one "
-                      f"listener, blocks of {T} samples, ypr on the card "
-                      f"[{card}]: wall {wall:.4f} ms, host enqueue "
-                      f"{host_ms:.4f} ms, device {dev_ms:.4f} ms per block "
-                      f"({queued} blocks queued; kernels busy {busy_ms:.4f} "
-                      f"ms), {n_launch:g} launches per block, rotation "
-                      f"{100 * rot_ms / dev_ms:.1f} % of the device time; "
-                      f"{T / FS * 1e3:.2f} ms of audio per block = "
-                      f"{T / FS / (wall / 1e3):.1f} audio-seconds per second;"
-                      f" no host wait: {ahead}")
+                ys.clear()
+                runs.append((
+                    f"ambi_bin.{entry} order {order}, one listener, blocks "
+                    f"of {T} samples, ypr on the card", step,
+                    f"wall {wall:.4f} ms, host enqueue {host_ms:.4f} ms, "
+                    f"device {dev_ms:.4f} ms per block ({queued} blocks "
+                    f"queued), rotation {100 * rot_ms / dev_ms:.1f} % of the "
+                    f"device time; {T / FS * 1e3:.2f} ms of audio per block "
+                    f"= {T / FS / (wall / 1e3):.1f} audio-seconds per "
+                    f"second; no host wait: {ahead}"))
                 check(ahead, f"{entry}: a block made the host wait")
                 check(not any(ran.values()),
                       f"{entry}: a single-stream block launched {ran}")
@@ -1376,6 +1386,12 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
               f"(peak {peak:.3f}, tol {KERNEL_TOL} of max(1, peak))")
         check(err <= KERNEL_TOL * max(1.0, peak),
               f"process_ri disagrees with the batched path: {err}")
+    for label, fn, line in runs:
+        n_launch, busy_ms = launches_per_call(fn, 4)
+        print(f"phase 22: {label} [{card}]: {line}; {n_launch:g} launches "
+              f"per block, {busy_ms:.4f} ms of them busy (profiler)")
+        check(n_launch * queued <= 1000,
+              f"{label}: {queued} blocks overflow the launch queue")
 
 
 def phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card):

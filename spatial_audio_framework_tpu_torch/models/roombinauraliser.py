@@ -316,8 +316,13 @@ def interp_hrtfs_ri(cfg: RoomBinauraliserConfig, w: RoomBinauraliserWeightsRI,
         row = C.round_half_up((rot_deg[..., 1] + 90.0) / cfg.elev_res) \
             * n_azi + row
     row, outside = C.table_row(row, w.table_w.shape[0])
-    w3 = torch.where(outside[..., None], math.nan, w.table_w[row])  # (..., 3)
-    i3 = w.table_idx[row].clamp(0, n_dirs - 1)                      # (..., 3)
+    # index_select, not table[row]: for one listener ``row`` is 0-dim, and
+    # indexing by a 0-dim tensor reads it back to the host
+    flat = row.reshape(-1)
+    w3 = torch.where(outside[..., None], math.nan,
+                     w.table_w.index_select(0, flat).reshape(row.shape + (3,)))
+    i3 = w.table_idx.index_select(0, flat).reshape(
+        row.shape + (3,)).clamp(0, n_dirs - 1)                      # (..., 3)
     w3b = w3[..., None, None, None, :]               # over (nSrc, nBands, 2)
 
     def gather(table):   # (nSrc, nBands, 2, nDirs) → (..., nSrc, nBands, 2, 3)

@@ -316,7 +316,9 @@ def get_sh_rot_mtx_real_torch(R: torch.Tensor, order: int) -> torch.Tensor:
     nsh = order2nsh(order)
     out = torch.zeros(R.shape[:-2] + (nsh, nsh), dtype=R.dtype,
                       device=R.device)
-    out[..., 0, 0] = 1.0
+    # fill_ on the view: assigning a Python scalar to a fully indexed
+    # (0-dim) element synchronises the host with the card
+    out[..., 0, 0].fill_(1.0)
     if order >= 1:
         out[..., 1:4, 1:4] = R1
     r_m1, r_0, r_p1 = (R1[..., :, None, k:k + 1] for k in range(3))

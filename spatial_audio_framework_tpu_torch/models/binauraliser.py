@@ -39,7 +39,7 @@ import torch
 from spatial_audio_framework_tpu_torch import default_device, f32_tensor
 from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.modules import hrir as hrir_mod, vbap
-from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
+from spatial_audio_framework_tpu_torch.ops import afstft, afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
@@ -146,16 +146,7 @@ def weights_complex_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
     return BinauraliserWeights(torch.complex(w.hrtf_re, w.hrtf_im), *w[2:])
 
 
-def state_complex_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
-                             device: torch.device | str | None = None
-                             ) -> AfSTFTState:
-    """The complex filterbank's state (e.g. the JAX package's) from numpy
-    arrays, its hybrid history as an (re, im) pair."""
-    return AfSTFTState(
-        in_tail=f32_tensor(in_tail, device),
-        hyb_tail=torch.complex(f32_tensor(hyb_tail_re, device),
-                               f32_tensor(hyb_tail_im, device)),
-        ola_tail=f32_tensor(ola_tail, device))
+state_complex_from_numpy = afstft.state_from_numpy
 
 
 def state_from_numpy(in_tail: np.ndarray, ola_tail: np.ndarray,

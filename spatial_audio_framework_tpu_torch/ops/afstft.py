@@ -83,6 +83,17 @@ class AfSTFTState(NamedTuple):
     ola_tail: torch.Tensor  # (n_ch_out, 9*hop) synthesis overlap-add tail
 
 
+def state_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
+                     device: torch.device | str | None = None) -> AfSTFTState:
+    """The complex filterbank's state (e.g. the JAX package's) from numpy
+    arrays, its hybrid history as an (re, im) pair."""
+    return AfSTFTState(
+        in_tail=f32_tensor(in_tail, device),
+        hyb_tail=torch.complex(f32_tensor(hyb_tail_re, device),
+                               f32_tensor(hyb_tail_im, device)),
+        ola_tail=f32_tensor(ola_tail, device))
+
+
 @dataclass(frozen=True)
 class AfSTFT:
     """Static configuration (the analogue of afSTFT_create's arguments)."""

@@ -13,7 +13,10 @@ Conventions match the reference (saf_sh.h):
 * ``get_sh_complex`` — physics convention with Condon–Shortley phase
   (saf_sh.c:333-395);
 * ``get_sh_rot_mtx_real`` — Ivanic & Ruedenberg recursion
-  (saf_sh.c:506-590).
+  (saf_sh.c:506-590);
+* the sector half: ``wigner_3j``, ``gaunt_mtx``, ``compute_vel_coeffs_mtx``,
+  the velocity patterns and ``compute_sector_coeffs`` (saf_sh.c:594-700,
+  saf_sh_internal.c:100), for the sector-based analysers (dirass).
 """
 from __future__ import annotations
 
@@ -410,3 +413,140 @@ def rotate_axis_coeffs_real(order: int, c_n, theta_0: float, phi_0: float):
     """Real-SH version (saf_sh.c ``rotateAxisCoeffsReal``)."""
     c_nm = rotate_axis_coeffs_complex(order, c_n, theta_0, phi_0)
     return complex2real_coeffs(order, c_nm[:, None])[:, 0]
+
+
+def wigner_3j(j1: int, j2: int, j3: int, m1: int, m2: int, m3: int) -> float:
+    """Wigner 3j symbol via the Racah formula (saf_sh_internal ``wigner_3j``),
+    float64 factorials (exact for the small orders used here)."""
+    if (m1 + m2 + m3 != 0 or j3 < abs(j1 - j2) or j3 > j1 + j2
+            or abs(m1) > j1 or abs(m2) > j2 or abs(m3) > j3):
+        return 0.0
+    f = math.factorial
+    pre = math.sqrt(f(j1 + j2 - j3) * f(j1 - j2 + j3) * f(-j1 + j2 + j3)
+                    / f(j1 + j2 + j3 + 1)
+                    * f(j1 - m1) * f(j1 + m1) * f(j2 - m2) * f(j2 + m2)
+                    * f(j3 - m3) * f(j3 + m3))
+    t_min = max(0, j2 - j3 - m1, j1 - j3 + m2)
+    t_max = min(j1 + j2 - j3, j1 - m1, j2 + m2)
+    s = 0.0
+    for t in range(t_min, t_max + 1):
+        s += ((-1.0) ** t) / (f(t) * f(j3 - j2 + t + m1) * f(j3 - j1 + t - m2)
+                              * f(j1 + j2 - j3 - t) * f(j1 - t - m1)
+                              * f(j2 - t + m2))
+    return ((-1.0) ** (j1 - j2 - m3)) * pre * s
+
+
+def gaunt_mtx(N1: int, N2: int, N: int) -> np.ndarray:
+    """Gaunt coefficients (integrals of three complex SH)
+    (saf_sh_internal.c:100 ``gaunt_mtx``).  → (D1, D2, D3)."""
+    D1, D2, D3 = order2nsh(N1), order2nsh(N2), order2nsh(N)
+    A = np.zeros((D1, D2, D3))
+    for n in range(N + 1):
+        for m in range(-n, n + 1):
+            q = n * (n + 1) + m
+            for n1 in range(N1 + 1):
+                for m1 in range(-n1, n1 + 1):
+                    q1 = n1 * (n1 + 1) + m1
+                    for n2 in range(N2 + 1):
+                        for m2 in range(-n2, n2 + 1):
+                            if n < abs(n1 - n2) or n > n1 + n2:
+                                continue
+                            q2 = n2 * (n2 + 1) + m2
+                            A[q1, q2, q] = ((-1.0) ** m
+                                            * math.sqrt((2 * n1 + 1) * (2 * n2 + 1)
+                                                        * (2 * n + 1) / (4 * math.pi))
+                                            * wigner_3j(n1, n2, n, m1, m2, -m)
+                                            * wigner_3j(n1, n2, n, 0, 0, 0))
+    return A
+
+
+def compute_vel_coeffs_mtx(sector_order: int) -> np.ndarray:
+    """Matrices converting sector patterns to their velocity (dipole-weighted)
+    patterns (saf_sh.c:594 ``computeVelCoeffsMtx``).
+    → A_xyz ((Ns+2)², (Ns+1)², 3) complex."""
+    Ns = sector_order
+    Nxyz = Ns + 1
+    x1 = math.sqrt(2.0 * math.pi / 3.0)
+    x3 = -x1
+    y1 = y3 = math.sqrt(2.0 * math.pi / 3.0)
+    z2 = math.sqrt(4.0 * math.pi / 3.0)
+    G = gaunt_mtx(Ns, 1, Nxyz)  # (nC_s, 4, nC_xyz)
+    A = np.zeros((order2nsh(Nxyz), order2nsh(Ns), 3), np.complex128)
+    A[..., 0] = (x1 * G[:, 1, :] + x3 * G[:, 3, :]).T
+    A[..., 1] = 1j * (y1 * G[:, 1, :] + y3 * G[:, 3, :]).T
+    A[..., 2] = (z2 * G[:, 2, :]).T
+    return A
+
+
+def beam_weights_velocity_patterns_complex(order: int, b_n, azi_rad: float,
+                                           elev_rad: float,
+                                           A_xyz: np.ndarray) -> np.ndarray:
+    """Velocity-pattern coefficients for a steered axisymmetric beam
+    (saf_sh.c ``beamWeightsVelocityPatternsComplex``).
+    → ((order+2)², 3) complex."""
+    c_nm = rotate_axis_coeffs_complex(order, b_n, np.pi / 2.0 - elev_rad, azi_rad)
+    return np.einsum("isd,s->id", A_xyz, np.asarray(c_nm))
+
+
+def beam_weights_velocity_patterns_real(order: int, b_n, azi_rad: float,
+                                        elev_rad: float,
+                                        A_xyz: np.ndarray) -> np.ndarray:
+    """Real-SH variant (saf_sh.c ``beamWeightsVelocityPatternsReal``)."""
+    vel_c = beam_weights_velocity_patterns_complex(order, b_n, azi_rad,
+                                                   elev_rad, A_xyz)
+    return complex2real_coeffs(order + 1, vel_c)
+
+
+# ACN/N3D → WXYZ (FuMa-style B-format) conversion (saf_sh.c:42 wxyzCoeffs)
+WXYZ_COEFFS = np.array([
+    [3.544907701811032, 0.0, 0.0, 0.0],
+    [0.0, 0.0, 0.0, 2.046653415892977],
+    [0.0, 2.046653415892977, 0.0, 0.0],
+    [0.0, 0.0, 2.046653415892977, 0.0]], np.float32)
+
+SECTOR_PATTERN_PWD = "pwd"
+SECTOR_PATTERN_MAXRE = "maxre"
+SECTOR_PATTERN_CARDIOID = "cardioid"
+
+
+def _sector_b_n(order: int, pattern: str):
+    if pattern == SECTOR_PATTERN_PWD:
+        b = beam_weights_hypercardioid(order)
+        Q = float((order + 1) ** 2)
+    elif pattern == SECTOR_PATTERN_MAXRE:
+        b = beam_weights_max_ev(order)
+        Q = 4.0 * math.pi / float(b @ b)
+    elif pattern == SECTOR_PATTERN_CARDIOID:
+        b = beam_weights_cardioid(order)
+        Q = 2.0 * order + 1.0
+    else:
+        raise ValueError(pattern)
+    return b, Q
+
+
+def compute_sector_coeffs(order_sec: int, pattern: str,
+                          sec_dirs_deg: np.ndarray,
+                          energy_preserving: bool = True):
+    """Sector coefficients (W, X, Y, Z beams per sector)
+    (saf_sh.c ``computeSectorCoeffsEP``/``AP``).
+
+    → (sectorCoeffs (nSec, 4, (order_sec+2)²) float32, normSec).
+    """
+    sec_dirs_deg = np.atleast_2d(np.asarray(sec_dirs_deg, np.float64))
+    n_sec = sec_dirs_deg.shape[0]
+    if order_sec == 0:
+        return WXYZ_COEFFS.reshape(1, 4, 4).copy(), 1.0
+    nsh = (order_sec + 2) ** 2
+    b_n, Q = _sector_b_n(order_sec, pattern)
+    norm_sec = (Q / n_sec) if energy_preserving else (order_sec + 1) / n_sec
+    gain = math.sqrt(norm_sec) if energy_preserving else norm_sec
+    A_xyz = compute_vel_coeffs_mtx(order_sec)
+    out = np.zeros((n_sec, 4, nsh), np.float32)
+    for ns, (azi_d, elev_d) in enumerate(sec_dirs_deg):
+        azi, elev = math.radians(azi_d), math.radians(elev_d)
+        c_nm = rotate_axis_coeffs_real(order_sec, b_n, np.pi / 2.0 - elev, azi)
+        xyz_nm = beam_weights_velocity_patterns_real(order_sec, b_n, azi, elev,
+                                                     A_xyz)
+        out[ns, 0, : c_nm.shape[0]] = gain * np.asarray(c_nm)
+        out[ns, 1:, :] = gain * np.asarray(xyz_nm).T
+    return out, norm_sec

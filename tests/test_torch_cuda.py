@@ -944,3 +944,200 @@ def test_single_stream_lookups_bad_directions_on_card(cuda):
         saw_nan |= bool(torch.isnan(ref).any())
         saw_finite |= bool(torch.isfinite(ref).any())
     assert saw_nan and saw_finite
+
+
+# -- the analysers and the decorrelator --------------------------------------
+
+@pytest.mark.parametrize("rows,H", [(16 * 4, 64), (16 * 4, 1), (64 * 16, 64)])
+def test_analysis_front_at_the_analyser_rows(cuda, rows, H):
+    """analysis_front_ri over the decorrelator's 16 streams x 4 channels
+    (64 rows, under one wave of the card) and ambi_drc's 64 x 16."""
+    rng = np.random.default_rng(rows + H)
+    tail = _u(rng, (rows, 15 * 128), cuda) * 0.5
+    x = _u(rng, (rows, H * 128), cuda) * 0.5
+    for k, p in zip(tak.analysis_front_ri(tail, x),
+                    tak.analysis_front_ri_reference(tail, x)):
+        assert k.shape == (rows, H + 6, 129)
+        assert (k - p).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows,H", [(16 * 4, 64), (16 * 4, 1), (64 * 16, 64)])
+def test_synthesis_back_at_the_analyser_rows(cuda, rows, H):
+    """synthesis_back_ri over 64 one-row blocks (the decorrelator) and
+    1024 rows (ambi_drc)."""
+    rng = np.random.default_rng(rows + H)
+    spec = _u(rng, (rows, H, 266), cuda) * 10.0
+    tail = _u(rng, (rows, 9, 128), cuda)
+    for k, p in zip(tak.synthesis_back_ri(spec, tail),
+                    tak.synthesis_back_ri_reference(spec, tail)):
+        assert (k - p).abs().max().item() <= TOL
+
+
+def _analyser_case(name, cuda):
+    """(process(st, x, fused) -> (out tensors, st), init_state(), x shape,
+    kernels a chunk) of one batched analyser or decorrelator path at a
+    small width."""
+    from spatial_audio_framework_tpu_torch.models import (ambi_drc,
+                                                          decorrelator,
+                                                          powermap, sldoa)
+
+    if name == "decorrelator":
+        cfg = decorrelator.DecorrelatorConfig(n_channels=4)
+        w = decorrelator.design(cfg, c_rand_offset=0, device=cuda)
+        return ((lambda st, x, f: _flat(*decorrelator.process_ri_batched(
+                    cfg, w, st, x, fused=f))),
+                lambda: decorrelator.init_state_batched(cfg, w, 3, cuda),
+                (3, 4), ("analysis_front_ri", "synthesis_back_ri"))
+    if name == "ambi_drc":
+        cfg = ambi_drc.AmbiDrcConfig(order=3, theshold_db=-20.0)
+        return ((lambda st, x, f: _flat(*ambi_drc.process_ri_batched(
+                    cfg, st, x, fused=f))),
+                lambda: ambi_drc.init_state_batched(cfg, 3, cuda),
+                (3, 16), ("analysis_front_ri", "synthesis_back_ri"))
+    if name == "powermap":
+        cfg = powermap.PowermapConfig(master_order=3, mode="music",
+                                      norm="n3d", n_sources=2,
+                                      analysis_grid="tdesign")
+        w = powermap.design(cfg, device=cuda)
+        return ((lambda st, x, f: _flat(*powermap.analysis_batched(
+                    cfg, w, st, x, fused=f))),
+                lambda: powermap.init_state_batched(cfg, w, 3, cuda),
+                (3, 16), ("analysis_front_ri",))
+    cfg = sldoa.SldoaConfig(master_order=3, norm="n3d", fit_grid_level=6)
+    w = sldoa.design(cfg, device=cuda)
+    return ((lambda st, x, f: _flat(*sldoa.analysis_batched(
+                cfg, w, st, x, fused=f))),
+            lambda: sldoa.init_state_batched(cfg, 3, cuda),
+            (3, 16), ("analysis_front_ri",))
+
+
+def _flat(out, st):
+    """Every tensor of an output and a state, in order, and the state."""
+    def leaves(o):
+        if isinstance(o, torch.Tensor):
+            return [o]
+        return [t for v in o for t in leaves(v)] if isinstance(
+            o, tuple) else []
+    return leaves(out) + leaves(st), st
+
+
+@pytest.mark.parametrize("name", ["decorrelator", "ambi_drc", "powermap",
+                                  "sldoa"])
+def test_analyser_route_matches_plain_path(cuda, monkeypatch, name):
+    """Each batched path over chunks of 9 and 4 hops: its kernels once a
+    chunk, never a plain version, and ``fused=False``'s outputs and
+    states (angles as unit vectors: an azimuth jumps by 2π across ±180°)."""
+    process, init_state, lead, kernels = _analyser_case(name, cuda)
+    rng = np.random.default_rng(5)
+    xs = [_u(rng, lead + (h * 128,), cuda) for h in (9, 4)]
+
+    def run(fused):
+        st, outs = init_state(), []
+        for x in xs:
+            leaves, st = process(st, x, fused)
+            outs += leaves
+        return outs
+
+    plain = run(False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    for k in _ALL_KERNELS:
+        monkeypatch.setattr(tak, f"{k}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    fused = run(True)
+    torch.cuda.synchronize()
+    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    assert ran == {n: 2 * (n in kernels) for n in _ALL_KERNELS}
+    for k, p in zip(fused, plain):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all())
+        if name == "sldoa" and k.shape[-1:] == (2,) and k.ndim == 5:
+            k, p = _unit(k), _unit(p)
+            assert (k - p).abs().max().item() <= 2e-3
+            continue
+        scale = max(1.0, p.abs().max().item())
+        assert (k - p).abs().max().item() <= 1e-4 * scale
+
+
+def _unit(azi_elev):
+    a, e = azi_elev[..., 0], azi_elev[..., 1]
+    return torch.stack([e.cos() * a.cos(), e.cos() * a.sin(), e.sin()], -1)
+
+
+@pytest.mark.parametrize("name", ["decorrelator", "ambi_drc", "sldoa"])
+def test_analyser_chunk_loop_never_waits_for_the_device(cuda, monkeypatch,
+                                                        name):
+    """Once warm, a chunk makes no tensor from host data and never makes
+    the host wait for the card (the lattice's block matrices, the delay
+    starts and the smoother constants are device tensors made once)."""
+    process, init_state, lead, _ = _analyser_case(name, cuda)
+    rng = np.random.default_rng(6)
+    xs = [_u(rng, lead + (8 * 128,), cuda) for _ in range(3)]
+    st = init_state()
+    _, st = process(st, xs[0], True)
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor was made from host data per chunk")
+
+    with monkeypatch.context() as m:
+        for fn in ("from_numpy", "tensor", "as_tensor"):
+            m.setattr(torch, fn, refuse)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for x in xs[1:]:
+                _, st = process(st, x, True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_powermap_silent_scene_gives_a_zero_map_on_card(cuda):
+    """The trace guard on the card: no energy, a zero map and state (the
+    eigh of a zero covariance is still taken, and masked)."""
+    from spatial_audio_framework_tpu_torch.models import powermap
+
+    cfg = powermap.PowermapConfig(master_order=3, mode="music", norm="n3d",
+                                  analysis_grid="tdesign")
+    w = powermap.design(cfg, device=cuda)
+    st = powermap.init_state_batched(cfg, w, 2, cuda)
+    xs = torch.zeros((3, 2, 16, 4 * 128), device=cuda)
+    p, st = powermap.analysis_chunks(cfg, w, st, xs)
+    assert p.shape == (3, 2, w.interp_table.shape[0])
+    assert p.abs().max().item() == 0.0 and st.prev_pmap.abs().max().item() == 0
+
+
+@pytest.mark.parametrize("mode", ["off", "upscale", "nearest"])
+def test_dirass_on_card_matches_the_cpu(cuda, mode):
+    """dirass launches none of the six kernels; its maps and states on the
+    card equal the CPU's to 2e-3: float32 sums in another order through the
+    100 Hz high-pass, whose poles sit near the unit circle, reach ~1.5e-3
+    on the [0, 1] maps (off mode).  The nearest mode's map is not held: a
+    sector whose direction moves by 1e-4 rad can land in the next display
+    cell; its state (energies, intensities) is."""
+    from spatial_audio_framework_tpu_torch.models import dirass
+
+    cfg = dirass.DirassConfig(input_order=2, upscale_order=6, mode=mode,
+                              grid_tdesign=18, norm="n3d")
+    rng = np.random.default_rng(8)
+    xs = rng.standard_normal((3, 9, 8192)).astype(np.float32)
+
+    def run(device):
+        w = dirass.design(cfg, device=device)
+        st, out = dirass.init_state(cfg, w, device=device), []
+        for x in xs:
+            p, st = dirass.analysis(cfg, w, st, torch.from_numpy(x).to(device))
+            out.append(p.cpu())
+        return torch.stack(out), [t.cpu() for t in st[2:]]
+
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    got, got_st = run(cuda)
+    assert {n: getattr(tak, n).launches for n in _ALL_KERNELS} == before
+    ref, ref_st = run("cpu")
+    assert bool(torch.isfinite(got).all())
+    if mode != "nearest":
+        assert (got - ref).abs().max().item() <= 2e-3
+    for a, b in zip(got_st, ref_st):
+        assert (a - b).abs().max().item() <= 2e-3 * max(
+            b.abs().max().item(), 1e-30)

@@ -2,6 +2,7 @@
 CPU: every public ``device`` parameter defaults to None, which resolves to
 ``cuda:0`` through ``default_device()``, and without a card that raises
 instead of falling back to the CPU."""
+import functools
 import importlib
 import inspect
 import pkgutil
@@ -11,14 +12,17 @@ import pytest
 import torch
 
 import spatial_audio_framework_tpu_torch as port
+from spatial_audio_framework_tpu_torch.models import (ambi_drc, decorrelator,
+                                                      dirass, powermap, sldoa)
 from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
                                                       ambi_enc, array2sh,
                                                       beamformer, binauraliser,
                                                       binauraliser_nf, panner,
                                                       roombinauraliser,
                                                       rotator)
-from spatial_audio_framework_tpu_torch.ops import afstft_ri
+from spatial_audio_framework_tpu_torch.ops import afstft_ri, herm_ri, iir
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT
+from spatial_audio_framework_tpu_torch.utils import decor, filters
 
 
 def _public_functions_with_device():
@@ -162,6 +166,103 @@ NEW_ENTRY_POINTS = {
 }
 _STATE_RI = (np.zeros((4, 9 * 128)), np.zeros((4, 6, 129)),
              np.zeros((4, 6, 129)), np.zeros((2, 9 * 128)))
+
+# the analysers, the decorrelator and their modules, on coarse grids
+_DCFG = decorrelator.DecorrelatorConfig(n_channels=2)
+_DDES = decorrelator.DecorrelatorConfig(n_channels=2).lattice.design(
+    AfSTFT().centre_freqs(48000.0), rng=np.random.default_rng(0))
+_RCFG = ambi_drc.AmbiDrcConfig(order=1)
+_PMCFG = powermap.PowermapConfig(master_order=1, analysis_grid="tdesign",
+                                 grid_tdesign=4, interp_res_deg=30)
+_SLCFG = sldoa.SldoaConfig(master_order=2, fit_grid_level=2)
+_DICFG = dirass.DirassConfig(input_order=1, upscale_order=2, grid_tdesign=4,
+                             interp_res_deg=30)
+
+# CPU designs made at first use, not while the module is imported
+@functools.cache
+def _w(model, cfg):
+    return model.design(cfg, device="cpu")
+
+
+_BANKB = (np.zeros((2, 4, 15 * 128)), np.zeros((2, 1, 9 * 128)))
+_C4 = np.zeros((133, 4, 4))
+def _sldoa_weights(w, **kw):
+    return sldoa.weights_from_numpy(
+        *(t.numpy() for t in w[:5]), w.sec_dirs_deg, w.orders_per_band,
+        [(m.numpy(), c.numpy()) for m, c in w.order_groups], **kw)[:5]
+
+
+def _dirass_weights(w, **kw):
+    return dirass.weights_from_numpy(
+        *(t.numpy() for t in w[:6]), w.grid_dirs_deg, w.interp_dirs_deg,
+        w.interp_u.numpy(), **kw)[:6]
+
+
+NEW_ENTRY_POINTS.update({
+    "decorrelator.design": lambda **kw: decorrelator.design(
+        _DCFG, c_rand_offset=0, **kw)["_device"],
+    "decorrelator.design_from_numpy": lambda **kw: (
+        decorrelator.design_from_numpy(dict(_DDES), **kw)["_device"]),
+    "decorrelator.init_state": lambda **kw: decorrelator.init_state(
+        _DCFG, _DDES, **kw),
+    "decorrelator.init_state_batched": lambda **kw: (
+        decorrelator.init_state_batched(_DCFG, _DDES, 2, **kw)),
+    "decorrelator.state_from_numpy": lambda **kw: (
+        decorrelator.state_from_numpy(
+            _STATE_RI, ((np.zeros(3),) * 2, (np.zeros(3),) * 2, np.zeros(3),
+                        np.zeros(3)), (np.zeros(3), np.zeros(3)), **kw)),
+    "decorrelator.state_batched_from_numpy": lambda **kw: (
+        decorrelator.state_batched_from_numpy(
+            _BANKB, (np.zeros(3),) * 4, (np.zeros(3),) * 2, **kw)),
+    "ambi_drc.init_state": lambda **kw: ambi_drc.init_state(_RCFG, **kw),
+    "ambi_drc.init_state_batched": lambda **kw: ambi_drc.init_state_batched(
+        _RCFG, 2, **kw),
+    "ambi_drc.state_from_numpy": lambda **kw: ambi_drc.state_from_numpy(
+        _STATE_RI, np.zeros(133), **kw),
+    "ambi_drc.state_batched_from_numpy": lambda **kw: (
+        ambi_drc.state_batched_from_numpy(*_BANKB, np.zeros((2, 133)), **kw)),
+    "powermap.design": lambda **kw: powermap.design(_PMCFG, **kw),
+    "powermap.weights_from_numpy": lambda **kw: powermap.weights_from_numpy(
+        *(t.numpy() for t in _w(powermap, _PMCFG)[:4]),
+        *_w(powermap, _PMCFG)[4:], **kw),
+    "powermap.init_state": lambda **kw: powermap.init_state(
+        _PMCFG, _w(powermap, _PMCFG), **kw),
+    "powermap.init_state_batched": lambda **kw: powermap.init_state_batched(
+        _PMCFG, _w(powermap, _PMCFG), 2, **kw),
+    "powermap.state_from_numpy": lambda **kw: powermap.state_from_numpy(
+        _BANKB, _C4, _C4, np.zeros(10), **kw),
+    "sldoa.design": lambda **kw: sldoa.design(_SLCFG, **kw)[:5],
+    "sldoa.weights_from_numpy": lambda **kw: _sldoa_weights(
+        _w(sldoa, _SLCFG), **kw),
+    "sldoa.init_state": lambda **kw: sldoa.init_state(_SLCFG, **kw)[1:],
+    "sldoa.init_state_batched": lambda **kw: sldoa.init_state_batched(
+        _SLCFG, 2, **kw),
+    "sldoa.state_from_numpy": lambda **kw: sldoa.state_from_numpy(
+        _BANKB, np.zeros((133, 4, 3)), np.zeros((133, 4)), **kw),
+    "dirass.design": lambda **kw: dirass.design(_DICFG, **kw)[:6],
+    "dirass.weights_from_numpy": lambda **kw: _dirass_weights(
+        _w(dirass, _DICFG), **kw),
+    "dirass.init_state": lambda **kw: dirass.init_state(
+        _DICFG, _w(dirass, _DICFG), **kw),
+    "dirass.state_from_numpy": lambda **kw: dirass.state_from_numpy(
+        np.zeros((4, 2)), np.zeros((4, 2)), np.zeros(6), np.zeros((6, 3)),
+        **kw),
+    "iir.block_mats": lambda **kw: iir.block_mats(
+        np.array([1.0, 0.5]), np.array([1.0, -0.5]), 4, **kw),
+    "iir.onepole_ewma_mats": lambda **kw: iir.onepole_ewma_mats(0.5, 4, **kw),
+    "decor.LatticeDecorrelator.init_state": lambda **kw: (
+        _DCFG.lattice.init_state(_DDES, 133, **kw)),
+    "decor.lattice_init_state_ri": lambda **kw: decor.lattice_init_state_ri(
+        _DCFG.lattice, _DDES, 133, (2,), **kw),
+    "decor.lattice_design_on_device": lambda **kw: (
+        decor.lattice_design_on_device(dict(_DDES), **kw)),
+    "decor.transient_ducker_init": lambda **kw: decor.transient_ducker_init(
+        133, 2, **kw),
+    "filters.FafIIRFilterbank.init_device_state": lambda **kw: (
+        filters.FafIIRFilterbank(1, np.array([1000.0]), 48000.0)
+        .init_device_state((2,), **kw)),
+    "herm_ri.split": lambda **kw: herm_ri.split(np.ones(3) * 1j, **kw),
+})
 _ACFG = array2sh.Array2SHConfig(order=1)
 _SENSORS = np.array([[0.0, 0], [90, 0], [180, 0], [-90, 0], [0, 90],
                      [0, -90]])
@@ -170,6 +271,8 @@ _SENSORS = np.array([[0.0, 0], [90, 0], [180, 0], [-90, 0], [0, 90],
 def _tensors(out):
     if isinstance(out, torch.Tensor):
         return [out]
+    if isinstance(out, dict):
+        return _tensors(list(out.values()))
     return [t for o in out for t in _tensors(o)] if isinstance(
         out, (tuple, list)) else []
 

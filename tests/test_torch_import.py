@@ -311,6 +311,89 @@ print("ok")
 """
 
 
+# the analysers and the decorrelator with their modules (ops/iir, ops/herm_ri,
+# utils/filters, utils/decor, modules/sh_est, the sector half of modules/sh)
+_SCRIPT_ANALYSERS = _SCRIPT_SINGLE_STREAM.split("import numpy as np")[0] + """
+import numpy as np
+import torch
+from spatial_audio_framework_tpu_torch.models import (
+    ambi_drc, decorrelator, dirass, powermap, sldoa)
+from spatial_audio_framework_tpu_torch.modules import sh, sh_est
+from spatial_audio_framework_tpu_torch.ops import herm_ri, iir
+from spatial_audio_framework_tpu_torch.utils import decor, filters, presets
+
+rng = np.random.default_rng(0)
+u = lambda *shape: torch.from_numpy(
+    rng.uniform(-1, 1, shape).astype(np.float32))
+ok = lambda y, shape: tuple(y.shape) == shape and bool(torch.isfinite(y).all())
+
+b, a = filters.biquad_coeffs(filters.BIQUAD_FILTER_HPF, 100.0, 48000.0, 0.7071)
+y, z = iir.iir_filter(b, a, u(2, 300), torch.zeros(2, 2))
+assert ok(y, (2, 300))
+fb = filters.FafIIRFilterbank(3, np.array([500.0, 2000.0]), 48000.0)
+y, _ = fb.apply_device(u(2, 256), fb.init_device_state((2,), device="cpu"))
+assert ok(y, (3, 2, 256))
+assert decor.synthesise_noise_reverb(1, 8000.0, np.array([0.1, 0.1]),
+                                     np.array([500.0, 1000.0])).ndim == 2
+sec, _ = sh.compute_sector_coeffs(1, sh.SECTOR_PATTERN_MAXRE,
+                                  presets.tdesign(4))
+assert sec.shape[1:] == (4, 9)
+C = u(4, 4)
+C = (C @ C.T + 4 * torch.eye(4), torch.zeros(4, 4))
+assert ok(sh_est.generate_music_map_ri(C, u(4, 10), 1), (10,))
+assert ok(herm_ri.herm_solve(C, (u(4, 3), u(4, 3)))[0], (4, 3))
+
+dc = decorrelator.DecorrelatorConfig(n_channels=2, enable_transient_ducker=True)
+dw = decorrelator.design(dc, c_rand_offset=0, device="cpu")
+y, _ = decorrelator.process_ri_batched(
+    dc, dw, decorrelator.init_state_batched(dc, dw, 2, device="cpu"),
+    u(2, 2, 512))
+assert ok(y, (2, 2, 512))
+y, _ = decorrelator.process(dc, dw, decorrelator.init_state(dc, dw, "cpu"),
+                            u(2, 256))
+assert ok(y, (2, 256))
+rc = ambi_drc.AmbiDrcConfig(order=1, theshold_db=-10.0)
+y, _ = ambi_drc.process_ri_batched(
+    rc, ambi_drc.init_state_batched(rc, 2, device="cpu"), u(2, 4, 512))
+assert ok(y, (2, 4, 512))
+y, _ = ambi_drc.process(rc, ambi_drc.init_state(rc, device="cpu"), u(4, 256))
+assert ok(y, (4, 256))
+for mode in ("pwd", "mvdr", "cropac_lcmv", "music", "minnorm_log"):
+    pc = powermap.PowermapConfig(master_order=1, mode=mode, norm="n3d",
+                                 analysis_grid="tdesign", grid_tdesign=6,
+                                 interp_res_deg=30)
+    pw = powermap.design(pc, device="cpu")
+    n_disp = pw.interp_table.shape[0]
+    p, _ = powermap.analysis_chunks(
+        pc, pw, powermap.init_state_batched(pc, pw, 2, device="cpu"),
+        u(2, 2, 4, 256))
+    assert ok(p, (2, 2, n_disp))
+    p, _ = powermap.analysis(pc, pw, powermap.init_state(pc, pw, "cpu"),
+                             u(4, 256))
+    assert ok(p, (n_disp,))
+sc = sldoa.SldoaConfig(master_order=2, fit_grid_level=4)
+sw = sldoa.design(sc, device="cpu")
+o, _ = sldoa.analysis_batched(sc, sw, sldoa.init_state_batched(sc, 2, "cpu"),
+                              u(2, 9, 256))
+assert ok(o.azi_deg, (2, 133, 4))
+o, _ = sldoa.analysis(sc, sw, sldoa.init_state(sc, "cpu"), u(9, 256))
+assert ok(o.energy, (133, 4, 2))
+for mode in ("off", "upscale", "nearest"):
+    rcfg = dirass.DirassConfig(input_order=2, upscale_order=4, mode=mode,
+                               grid_tdesign=6, interp_res_deg=30)
+    rw = dirass.design(rcfg, device="cpu")
+    p, _ = dirass.analysis(rcfg, rw, dirass.init_state(rcfg, rw, "cpu"),
+                           u(9, 512))
+    assert ok(p, (rw.interp_table.shape[0],))
+leaked = [m for m in sys.modules
+          if m == "spatial_audio_framework_tpu"
+          or m.startswith("spatial_audio_framework_tpu.")]
+assert not leaked, leaked
+assert "jax" not in sys.modules
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -335,3 +418,10 @@ def test_single_stream_entry_points_run_without_jax():
     process, rotator, beamformer, array2sh (bessel, array_proc) and
     ambi_dec's binaural preview."""
     _run(_SCRIPT_SINGLE_STREAM)
+
+
+def test_analysers_and_decorrelator_run_without_jax():
+    """decorrelator, ambi_drc, powermap (five modes), sldoa and dirass
+    (three modes) with ops/iir, ops/herm_ri, utils/filters, utils/decor,
+    modules/sh_est and the sector half of modules/sh."""
+    _run(_SCRIPT_ANALYSERS)

@@ -1,0 +1,135 @@
+"""sldoa in the PyTorch port vs the JAX reference (CPU): the design (the
+per-order VBAP sector fits over the geosphere fit grid), the
+single-instance ``analysis`` and the n-instance ``analysis_batched`` (the
+batched filterbank, its front kernel's plain version on CPU tensors; the
+JAX side with its plain front, as off the TPU), with the JAX state handed
+across at a block boundary (``state_from_numpy``).
+
+Tolerances: directions are compared as unit vectors (an azimuth alone
+jumps by 2π where the intensity's y component changes sign, and is
+ill-conditioned near the poles): 2e-3 (0.11°) for the per-slot estimates
+and 5e-4 (0.03°) for the display, because a sector whose omni and dipole
+signals are nearly orthogonal has an intensity that cancels, and float32
+rounding of the spectra then turns its direction by up to ~7e-4 (seen at
+order 3); the C golden's own budget is 0.05° (tests/test_c_goldens.py).
+Energies 1e-5 of their largest, the alpha display 1e-4; the design exactly
+(the same numpy code, cast to float32 on both sides)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spatial_audio_framework_tpu.models import sldoa as J
+from spatial_audio_framework_tpu.modules import sh as jsh
+from spatial_audio_framework_tpu_torch.models import sldoa as T
+
+
+def _unit(azi, elev):
+    azi, elev = np.asarray(azi, np.float64), np.asarray(elev, np.float64)
+    return np.stack([np.cos(elev) * np.cos(azi), np.cos(elev) * np.sin(azi),
+                     np.sin(elev)], -1)
+
+
+def _check(oj, ot):
+    dj, dt = np.asarray(oj.doa_rad), ot.doa_rad.numpy()
+    assert dj.shape == dt.shape
+    assert np.abs(_unit(dj[..., 0], dj[..., 1])
+                  - _unit(dt[..., 0], dt[..., 1])).max() <= 2e-3
+    ej = np.asarray(oj.energy)
+    assert np.abs(ej - ot.energy.numpy()).max() <= 1e-5 * np.abs(ej).max()
+    uj = _unit(np.radians(np.asarray(oj.azi_deg)),
+               np.radians(np.asarray(oj.elev_deg)))
+    ut = _unit(np.radians(ot.azi_deg.numpy()), np.radians(ot.elev_deg.numpy()))
+    assert np.abs(uj - ut).max() <= 5e-4
+    assert np.abs(np.asarray(oj.alpha_scale) - ot.alpha_scale.numpy()).max() \
+        <= 1e-4
+    assert np.array_equal(np.asarray(oj.colour_scale),
+                          ot.colour_scale.numpy())
+
+
+def _scene(rng, lead, order, T_len):
+    nsh = (order + 1) ** 2
+    n = int(np.prod(lead)) if lead else 1
+    out = np.empty((n, nsh, T_len), np.float32)
+    for i in range(n):
+        dirs = np.stack([rng.uniform(-180, 180, 3), rng.uniform(-60, 60, 3)],
+                        -1)
+        out[i] = (jsh.get_rsh(order, dirs) @ rng.standard_normal((3, T_len))
+                  + 0.1 * rng.standard_normal((nsh, T_len)))
+    return out.reshape(tuple(lead) + (nsh, T_len))
+
+
+def _hand_over(sj):
+    return T.state_from_numpy(tuple(np.asarray(a) for a in sj.bank),
+                              np.asarray(sj.doa_xyz), np.asarray(sj.energy),
+                              device="cpu")
+
+
+def _weights_equal(wj, wt):
+    for name in ("sec_coeffs", "sec_mask", "band_in_range", "colour_scale",
+                 "conv_in"):
+        assert np.array_equal(np.asarray(getattr(wj, name)),
+                              getattr(wt, name).numpy()), name
+    assert np.array_equal(wj.orders_per_band, wt.orders_per_band)
+    assert wj.sec_dirs_deg.keys() == wt.sec_dirs_deg.keys()
+    for k in wj.sec_dirs_deg:
+        assert np.array_equal(wj.sec_dirs_deg[k], wt.sec_dirs_deg[k])
+    for (mj, cj), (mt, ct) in zip(wj.order_groups, wt.order_groups):
+        assert np.array_equal(np.asarray(mj), mt.numpy())
+        assert np.array_equal(np.asarray(cj), ct.numpy())
+
+
+def test_design_equals_jax():
+    """Order 3 on the reference's 2562-point fit grid, and a per-band order
+    vector on a coarser grid."""
+    for kw in (dict(master_order=3, norm="n3d"),
+               dict(master_order=3, fit_grid_level=6, min_freq=300.0,
+                    analysis_order_per_band=tuple([1] * 30 + [2] * 50
+                                                  + [3] * 53))):
+        jc, tc = J.SldoaConfig(**kw), T.SldoaConfig(**kw)
+        _weights_equal(J.design(jc), T.design(tc, device="cpu"))
+
+
+@pytest.mark.parametrize("order,avg_ms", [(2, 500.0), (3, 5.0)])
+def test_analysis_vs_jax(order, avg_ms):
+    kw = dict(master_order=order, norm="n3d", fit_grid_level=6, avg_ms=avg_ms,
+              max_freq=10000.0)
+    jc, tc = J.SldoaConfig(**kw), T.SldoaConfig(**kw)
+    wj, wt = J.design(jc), T.design(tc, device="cpu")
+    rng = np.random.default_rng(order)
+    sj, st = J.init_state(jc), T.init_state(tc, device="cpu")
+    for blk in range(3):
+        x = _scene(rng, (), order, 512)
+        if blk == 1:
+            st = _hand_over(sj)
+        oj, sj = J.analysis(jc, wj, sj, jnp.asarray(x))
+        ot, st = T.analysis(tc, wt, st, torch.from_numpy(x))
+        _check(oj, ot)
+
+
+def test_analysis_batched_vs_jax():
+    kw = dict(master_order=2, norm="n3d", fit_grid_level=6,
+              analysis_order_per_band=tuple([1] * 40 + [2] * 93))
+    jc, tc = J.SldoaConfig(**kw), T.SldoaConfig(**kw)
+    wj, wt = J.design(jc), T.design(tc, device="cpu")
+    rng = np.random.default_rng(9)
+    n = 3
+    sj = J.init_state_batched(jc, n)
+    st = T.init_state_batched(tc, n, device="cpu")
+    for blk in range(3):
+        x = _scene(rng, (n,), 2, 512)
+        if blk == 1:
+            st = _hand_over(sj)
+        oj, sj = J.analysis_batched(jc, wj, sj, jnp.asarray(x))
+        ot, st = T.analysis_batched(tc, wt, st, torch.from_numpy(x))
+        assert ot.azi_deg.shape == (n, 133, 4)
+        _check(oj, ot)
+    # each instance of the batched path equals ``analysis`` on it alone
+    x = _scene(rng, (n,), 2, 512)
+    ob, _ = T.analysis_batched(tc, wt, T.init_state_batched(tc, n, "cpu"),
+                               torch.from_numpy(x), fused=False)
+    for i in range(n):
+        oi, _ = T.analysis(tc, wt, T.init_state(tc, "cpu"),
+                           torch.from_numpy(x[i]))
+        assert float((ob.energy[i] - oi.energy).abs().max()) \
+            <= 1e-5 * float(oi.energy.abs().max())

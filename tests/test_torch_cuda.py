@@ -1111,11 +1111,12 @@ def test_powermap_silent_scene_gives_a_zero_map_on_card(cuda):
 @pytest.mark.parametrize("mode", ["off", "upscale", "nearest"])
 def test_dirass_on_card_matches_the_cpu(cuda, mode):
     """dirass launches none of the six kernels; its maps and states on the
-    card equal the CPU's to 2e-3: float32 sums in another order through the
-    100 Hz high-pass, whose poles sit near the unit circle, reach ~1.5e-3
-    on the [0, 1] maps (off mode).  The nearest mode's map is not held: a
-    sector whose direction moves by 1e-4 rad can land in the next display
-    cell; its state (energies, intensities) is."""
+    card equal the CPU's to 1e-4: float32 sums in another order (5.5e-6
+    seen on the [0, 1] maps; the 100 Hz high-pass's scan composes its
+    pole-matrix powers in float64 on the host, so it does not amplify
+    rounding).  The nearest mode's map is not held: a sector whose
+    direction moves can land in the next display cell; its state
+    (energies, intensities) is."""
     from spatial_audio_framework_tpu_torch.models import dirass
 
     cfg = dirass.DirassConfig(input_order=2, upscale_order=6, mode=mode,
@@ -1137,7 +1138,7 @@ def test_dirass_on_card_matches_the_cpu(cuda, mode):
     ref, ref_st = run("cpu")
     assert bool(torch.isfinite(got).all())
     if mode != "nearest":
-        assert (got - ref).abs().max().item() <= 2e-3
+        assert (got - ref).abs().max().item() <= 1e-4
     for a, b in zip(got_st, ref_st):
-        assert (a - b).abs().max().item() <= 2e-3 * max(
+        assert (a - b).abs().max().item() <= 1e-4 * max(
             b.abs().max().item(), 1e-30)

@@ -42,7 +42,17 @@ state carried from chunk to chunk:
   64 streams: both at 1024 rows), powermap (order 3, MUSIC; 32 instances:
   ``analysis_front_ri`` at 512 rows, 8 chunks a call through
   ``analysis_chunks``) and sldoa (order 3, 32 instances: the same front),
-  their single-instance paths and dirass (none of the six kernels).
+  their single-instance paths and dirass (none of the six kernels);
+* convolution and room simulation at the JAX benchmark's widths: tvconv
+  (64 positions x 2 channels x 2048-tap IRs; a moving listener, a static
+  one, 32 moving instances) and ambi_roomsim (order 2, 2 sources; 1
+  instance and 32): ``torch.fft`` and batched products, none of the six
+  kernels, as in the JAX package;
+* HADES (binaural BMVDR, blocks of 1024) and the spreader (OM, 1 source,
+  frames of 512): one instance many blocks a call on the plain
+  single-stream filterbank, and 32 instances a call through
+  ``analysis_front_ri`` (64 and 32 rows, 32 hops) and
+  ``synthesis_back_ri`` (64 rows) around the closed-form 2x2 chains.
 
 Phases:
 
@@ -155,7 +165,35 @@ Phases:
     (the maps through the (re, im) generators), ``dcr`` (rand() offset
     5016) and ``dkr``, ``drc``, ``pm``, ``pmp``, ``pmv``, ``pml``, ``pmc``,
     ``pmn``, ``sl_*``, ``dir``, ``dirn``, ``diro``, ``diru``; the
-    decorrelator, ambi_drc and sldoa through their batched kernels too.
+    decorrelator, ambi_drc and sldoa through their batched kernels too;
+31. tvconv, 64 positions x 2 channels x 2048-tap IRs, hop 128, chunks of
+    8192 samples: a moving listener (a new nearest position every chunk),
+    a static one, 32 moving instances; none of the six kernels (the
+    counters reset before, read after), the card against the CPU, the warm
+    chunks under ``set_sync_debug_mode("error")`` (the crossfade rows are
+    computed every chunk and selected on the card), wall and host enqueue
+    ms per chunk, then device busy ms and launches per chunk by
+    torch.profiler, audio-s/s;
+32. ambi_roomsim, order 2, 2 sources, 1 receiver, reflection order 2, the
+    default room and walls, 1 instance and 32, as phase 31;
+33. HADES, binaural BMVDR with covariance matching, the default HRIRs
+    [::4] as the 2-mic array, blocks of 1024: one instance at 64 blocks a
+    call (plain, as phase 31) and 32 instances at 4 blocks a call through
+    ``process_chunk_batched`` (one ``analysis_front_ri`` at 64 rows and
+    one ``synthesis_back_ri`` at 64 rows a call), held against
+    ``fused=False``: the front's tails and SCMs at KERNEL_TOL, the output
+    at CHAIN_TOL, the mixing matrices printed; as phase 25 otherwise;
+34. the spreader, OM mode, 1 source, frames of 512: 32 frames a chunk for
+    one instance (plain) and 8 frames for 32 instances through
+    ``process_chunk``'s instance axis (the front at 32 rows, the back at
+    64), as phase 33;
+35. parity with the C on the card at the JAX tests' tolerances: ``mc_*``
+    (both modes, and the (re, im) form), ``mtc_*``, ``tvc_*`` (both
+    forms), ``ars`` (warm frames under the sync debug mode), ``cdf_*``
+    (real and complex, with and without energy), ``hds``, ``hdt``,
+    ``hdr``, ``hdh`` (diffuseness each block, DoA indices held equal) and
+    ``spr_*`` in all three modes.  Phase 2 times both kernels at the
+    HADES and spreader rows too.
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -185,6 +223,19 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-5   # kernel vs plain, both fp32: only the order of sums differs
 C_TOL = 1e-4        # vs the compiled C reference (tests/test_c_goldens.py)
 N_STREAMS, HOPS, N_CHUNKS = 64, 64, 8
+# HADES and the spreader many instances a call, as the JAX benchmark runs
+# them (bench.py:920, :1330): 32 instances of 32 hops a call (HADES 4 blocks
+# of 1024, the spreader 8 frames of 512)
+NB_INST, NB_HOPS = 32, 32
+# the outputs of HADES's and the spreader's solve / CDF4SAP chains, card vs
+# CPU and kernel path vs plain, relative to max(1, |ref|): the C's own
+# output moves 5.3e-4 for a one-ulp input change (tests/test_c_goldens.py),
+# and on the CPU two plain orders of the same front already differ by
+# 9.8e-5 (HADES x 32) and 6.2e-5 (the spreader x 32) through band 0's DoA
+# (its diffuse covariance has condition 2e6) and the near-degenerate SVDs.
+# The mixing matrices themselves are free there and printed, not held;
+# the covariances the front feeds are held at KERNEL_TOL.
+CHAIN_TOL = 5e-4
 # the array2sh slice: 16 Eigenmike32 recordings encoded to order 4
 A2S_STREAMS, A2S_SENSORS, A2S_NSH = 16, 32, 25
 # the analysers and the decorrelator, at the JAX benchmark's widths: the
@@ -453,14 +504,18 @@ def phase_analysis_front(ak, dev, rng, card):
     delay: one short tile (H = 1), the least tail, four tiles (130 and 136
     frames), odd rows past the persistent grid.  The last two cases are
     timed: the decorrelator (16 streams x 4 channels), the array2sh slice
-    (16 streams x 32 sensors) and the ambi_dec slice (64 streams x 16
-    channels).  Returns the max error and the times by rows."""
+    (16 streams x 32 sensors), the ambi_dec slice (64 streams x 16
+    channels), and at 32 hops HADES x 32 (64 rows) and the spreader x 32
+    (32 rows).  Returns the max error and the times by (rows, H)."""
     worst = 0.0
-    timed = {DCR_STREAMS * DCR_CH: "the decorrelator's shape",
-             A2S_STREAMS * A2S_SENSORS: "the array2sh slice's shape (and "
-                                        "powermap / sldoa x 32)",
-             N_STREAMS * 16: "the ambi_dec slice's shape (and ambi_drc; with "
-                             f"the dense C/S product: {EARLIER_FRONT_MS} ms)"}
+    timed = {(DCR_STREAMS * DCR_CH, HOPS): "the decorrelator's shape",
+             (A2S_STREAMS * A2S_SENSORS, HOPS):
+                 "the array2sh slice's shape (and powermap / sldoa x 32)",
+             (N_STREAMS * 16, HOPS):
+                 "the ambi_dec slice's shape (and ambi_drc; with "
+                 f"the dense C/S product: {EARLIER_FRONT_MS} ms)",
+             (NB_INST * 2, NB_HOPS): "HADES x 32's shape (2 mics)",
+             (NB_INST, NB_HOPS): "the spreader x 32's shape (1 source)"}
     times = {}
     cases = ((5, 15, 4, False), (3, 9, 2, True), (7, 15, 40, True),
              (3, 15, 1, False), (5, 9, 4, True), (7, 9, 130, False),
@@ -468,7 +523,8 @@ def phase_analysis_front(ak, dev, rng, card):
              (DCR_STREAMS * DCR_CH, 15, 1, False),
              (DCR_STREAMS * DCR_CH, 15, HOPS, False),
              (A2S_STREAMS * A2S_SENSORS, 15, HOPS, False),
-             (N_STREAMS * 16, 15, HOPS, False))
+             (N_STREAMS * 16, 15, HOPS, False),
+             (NB_INST * 2, 15, NB_HOPS, False), (NB_INST, 15, NB_HOPS, False))
     for rows, t_hops, H, ld in cases:
         def step(x, tail, kernel):
             fn = (ak.analysis_front_ri if kernel
@@ -487,14 +543,14 @@ def phase_analysis_front(ak, dev, rng, card):
         check(err <= KERNEL_TOL,
               f"analysis_front_ri disagrees with plain: {err}")
         worst = max(worst, err)
-        if rows not in timed or H != HOPS:
+        if (rows, H) not in timed:
             continue
         x = uniform(rng, (rows, H * 128), dev, ANA_AMP)
         t = ab_times({"kernel": lambda: ak.analysis_front_ri(tail, x),
                       "plain": lambda: ak.analysis_front_ri_reference(tail,
                                                                       x)},
                      20, queued=True)
-        report_times("analysis_front_ri", t, card, timed[rows])
+        report_times("analysis_front_ri", t, card, timed[rows, H])
         re, im = ak.analysis_front_ri(tail, x)
 
         def pairs(out):
@@ -504,7 +560,7 @@ def phase_analysis_front(ak, dev, rng, card):
         t["library"] = library_time(
             "analysis_front_ri", stft_call(tail, x), pairs, card,
             f"torch.stft(n_fft=1280)[:, ::5] at {rows} rows")
-        times[rows] = t
+        times[rows, H] = t
     return worst, times
 
 
@@ -513,14 +569,18 @@ def phase_synthesis_back(ak, dev, rng, card):
     one frame, H < 9, 17 steps of 8 frames (H = 130), odd rows.  Timed at
     H = 64: the decorrelator (16 streams x 4 channels: 64 one-row blocks),
     the array2sh slice (16 streams x 25 SH channels), ambi_drc (64 streams
-    x 16) and the ambi_dec slice (64 streams x 22 loudspeakers).  Returns
-    the max error and the times by rows."""
+    x 16) and the ambi_dec slice (64 streams x 22 loudspeakers); at 32
+    hops HADES x 32 and the spreader x 32 (64 rows: 32 instances x 2
+    ears).  Returns the max error and the times by (rows, H)."""
     worst = 0.0
-    timed = {DCR_STREAMS * DCR_CH: "the decorrelator's shape",
-             A2S_STREAMS * A2S_NSH: "the array2sh slice's shape",
-             DRC_STREAMS * 16: "ambi_drc's shape",
-             N_STREAMS * 22: "the ambi_dec slice's shape (with the dense "
-                             f"[P.A; P.B] product: {EARLIER_BACK_MS} ms)"}
+    timed = {(DCR_STREAMS * DCR_CH, HOPS): "the decorrelator's shape",
+             (A2S_STREAMS * A2S_NSH, HOPS): "the array2sh slice's shape",
+             (DRC_STREAMS * 16, HOPS): "ambi_drc's shape",
+             (N_STREAMS * 22, HOPS):
+                 "the ambi_dec slice's shape (with the dense "
+                 f"[P.A; P.B] product: {EARLIER_BACK_MS} ms)",
+             (NB_INST * 2, NB_HOPS): "HADES x 32's and the spreader x 32's "
+                                     "shape"}
     times = {}
     cases = ((5, 4, False, True), (3, 1, True, True), (6, 9, False, False),
              (4, 33, True, False), (3, 1, False, False), (5, 4, True, True),
@@ -530,7 +590,8 @@ def phase_synthesis_back(ak, dev, rng, card):
              (DCR_STREAMS * DCR_CH, HOPS, False, True),
              (A2S_STREAMS * A2S_NSH, HOPS, False, True),
              (DRC_STREAMS * 16, HOPS, False, True),
-             (N_STREAMS * 22, HOPS, False, True))
+             (N_STREAMS * 22, HOPS, False, True),
+             (NB_INST * 2, NB_HOPS, False, True))
     for rows, H, ld, hyb in cases:
         K = 2 * (133 if hyb else 129)
 
@@ -550,9 +611,9 @@ def phase_synthesis_back(ak, dev, rng, card):
         check(err <= KERNEL_TOL,
               f"synthesis_back_ri disagrees with plain: {err}")
         worst = max(worst, err)
-        if rows in timed and H == HOPS:
-            times[rows] = time_synthesis_back(ak, dev, rng, card, rows, H, K,
-                                              tail, timed[rows])
+        if (rows, H) in timed:
+            times[rows, H] = time_synthesis_back(ak, dev, rng, card, rows, H,
+                                                 K, tail, timed[rows, H])
     return worst, times
 
 
@@ -1687,10 +1748,12 @@ class EighWatch:
 
 
 def phase_path(name, phase, process, init_state, xs, expect, compare, ak,
-               card, chunks_per_call=1, queued_calls=None, streams=1):
+               card, chunks_per_call=1, queued_calls=None, streams=1,
+               samples=HOPS * 128):
     """A main path of the analysers or the decorrelator: ``process(st, x,
     fused) -> (out, st)`` over the calls ``xs`` (each ``chunks_per_call``
-    chunks of 64 hops for ``streams`` streams or instances), with every
+    chunks of ``samples`` samples, by default 64 hops, for ``streams``
+    streams or instances), with every
     launch counter reset just before and read just after (``expect``: the
     launches each kernel must show), held against ``fused=False``
     (``compare(out_k, st_k, out_p, st_p) -> {label: err or (err, tol)}``,
@@ -1715,7 +1778,7 @@ def phase_path(name, phase, process, init_state, xs, expect, compare, ak,
     launches = {k: getattr(ak, k).launches for k in KERNELS}
     n_chunks = len(xs) * chunks_per_call
     print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
-          f"{streams} x {HOPS * 128} samples in {len(xs)} calls; launches = "
+          f"{streams} x {samples} samples in {len(xs)} calls; launches = "
           f"{launches}")
     check(launches == {k: expect.get(k, 0) for k in KERNELS},
           f"{name}: expected launches {expect}")
@@ -1762,8 +1825,8 @@ def phase_path(name, phase, process, init_state, xs, expect, compare, ak,
         ms, runs = t[path]
         print(f"phase {phase}: {name} chunk, {path} path [{card}]: "
               f"{ms / chunks_per_call:.4f} ms per chunk of {streams} x "
-              f"{HOPS * 128} samples = "
-              f"{streams * HOPS * 128 / FS / (ms / chunks_per_call / 1e3):.1f}"
+              f"{samples} samples = "
+              f"{streams * samples / FS / (ms / chunks_per_call / 1e3):.1f}"
               f" audio-seconds per second (runs per call "
               f"{['%.4f' % r for r in runs]})")
     wall = t["kernel"][0] / chunks_per_call
@@ -2183,6 +2246,457 @@ def phase_analyser_c_parity(ak, dev, card):
                  1e-3 if mode == "off" else 1e-2)
 
 
+def _on(x, device):
+    return (tuple(_on(t, device) for t in x) if isinstance(x, tuple)
+            else x.to(device))
+
+
+def plain_path(name, phase, make, xs, ak, dev, card, audio_s, tol,
+               held=lambda st: [], compare_calls=2, state_tol=None):
+    """A path that runs none of the six kernels (as in the JAX package):
+    ``make(device) -> (init_state(), process(st, x) -> (y, st))`` over the
+    calls ``xs`` (on the card ``dev``).  Every launch counter reset just before the
+    main run and read just after (all must stay 0); the card against the
+    CPU on the same inputs over ``compare_calls`` calls (the output at most
+    ``tol`` and the ``held(state)`` leaves at most ``state_tol``, default
+    ``tol``, relative to max(1, |CPU|));
+    the warm calls under ``set_sync_debug_mode("error")``; then wall ms per
+    call by CUDA events, host enqueue ms per call, and (last: the profiler
+    slows the host afterwards) device busy ms and launches per call by
+    torch.profiler.  ``audio_s``: audio seconds a call.  Returns the
+    numbers."""
+    init, process = make(dev)
+    for k in KERNELS:
+        getattr(ak, k).launches = 0
+    st, ys = init(), []
+    for x in xs:
+        y, st = process(st, x)
+        ys.append(y)
+    torch.cuda.synchronize()
+    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    print(f"phase {phase}: {name} ran {len(xs)} calls; launches = "
+          f"{launches}")
+    check(not any(launches.values()), f"{name} launched {launches}")
+    check(all(bool(torch.isfinite(y).all()) for y in ys),
+          f"{name}: non-finite output")
+    cinit, cproc = make("cpu")
+    cst, st = cinit(), init()
+    errs = {"y": 0.0}
+    for x in xs[:compare_calls]:
+        yc, cst = cproc(cst, _on(x, "cpu"))
+        yk, st = process(st, x)
+        errs["y"] = max(errs["y"], rel_err(yk.cpu(), yc))
+    for i, (a, b) in enumerate(zip(held(st), held(cst))):
+        errs[f"state {i}"] = rel_err(a.cpu(), b)
+    state_tol = tol if state_tol is None else state_tol
+    print(f"phase {phase}: {name} on the card vs on the CPU over "
+          f"{compare_calls} calls, max |err| relative to max(1, |CPU|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {tol} on y, {state_tol} on the states)")
+    check(all(v <= (tol if k == "y" else state_tol)
+              for k, v in errs.items()), f"{name}: {errs}")
+
+    st = init()
+    _, st = process(st, xs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x in xs[1:]:
+            _, st = process(st, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"phase {phase}: {name}: {len(xs) - 1} warm calls under "
+          "set_sync_debug_mode('error'): no host wait")
+
+    state = {"st": st, "i": 0}
+
+    def step():
+        _, state["st"] = process(state["st"], xs[state["i"] % len(xs)])
+        state["i"] += 1
+
+    step()
+    wall = [cuda_ms(step, len(xs)) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(len(xs)):
+        step()
+    host = (time.perf_counter() - t0) * 1e3 / len(xs)
+    torch.cuda.synchronize()
+    n_launch, busy = launches_per_call(step, 2)
+    w = float(np.mean(wall))
+    print(f"phase {phase}: {name} [{card}]: {w:.4f} ms per call (runs "
+          f"{['%.4f' % r for r in wall]}) = {audio_s / (w / 1e3):.1f} "
+          f"audio-seconds per second; host enqueue {host:.4f} ms per call; "
+          f"device busy {busy:.4f} ms in {n_launch:.0f} launches per call "
+          f"(torch.profiler), so the device idles "
+          f"{100 * (1 - busy / w):.1f} %")
+    return {"ms": w, "host_ms": host, "device_ms": busy,
+            "launches_per_call": n_launch}
+
+
+def phase_conv_room(ak, dev, rng, card) -> None:
+    """Phases 31-32: tvconv (64 positions x 2 channels x 2048-tap IRs, hop
+    128, chunks of 8192 samples: a moving listener with a new nearest
+    position every chunk, a static listener, and 32 moving instances) and
+    ambi_roomsim (order 2, 2 sources, 1 receiver, reflection order 2, the
+    default room and walls; 1 instance and 32), the JAX benchmark's cells
+    (bench.py:1103-1216).  None of the six kernels, as in the JAX package:
+    each against the CPU, the warm chunks under the sync debug mode (TVConv
+    selects its crossfade rows on the card), times."""
+    from spatial_audio_framework_tpu_torch.models import (ambi_roomsim,
+                                                          conv_examples)
+
+    T = HOPS * 128
+    t0 = time.perf_counter()
+    irs = 0.1 * rng.standard_normal((64, 2, 2048)).astype(np.float32)
+    irs[:, :, 0] += 1.0
+    pos = rng.uniform(0, 5, (64, 3)).astype(np.float32)
+    ex = conv_examples.TVConvExample()
+    designs = {d: ex.design_ri(irs, pos, d) for d in ("cpu", dev)}
+    print(f"phase 31: tvconv design (64 positions x 2 channels x 2048 taps, "
+          f"{designs[dev][0].n_part} partitions of 128) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for label, n in (("moving listener", None), ("static listener", None),
+                     (f"{NB_INST} moving instances", NB_INST)):
+        batch = () if n is None else (n,)
+        xs = []
+        for k in range(N_CHUNKS):
+            x = uniform(rng, batch + (T,), dev)
+            if n is not None:
+                lp = torch.from_numpy(pos[(k * n + np.arange(n)) % 64])
+            else:
+                lp = torch.from_numpy(pos[3 if label[0] == "s" else k])
+            xs.append((x, (lp + 0.01).to(dev)))
+
+        def make(d, batch=batch):
+            conv, H, p = designs[d if d == "cpu" else dev]
+
+            def process(st, xp):
+                return ex.process_ri(conv, H, st, xp[0], xp[1], p)
+            return (lambda: ex.init_state_ri(conv, batch=batch, device=d),
+                    process)
+
+        plain_path(f"tvconv {label}", 31, make, xs, ak, dev, card,
+                   (n or 1) * T / FS, KERNEL_TOL,
+                   held=lambda st: [st.X_hist, st.ola, st.ola_last])
+    time_tv_crossfade(designs[dev], rng, dev, card)
+
+    t0 = time.perf_counter()
+    cfg = ambi_roomsim.AmbiRoomSimConfig(sh_order=2, n_sources=2,
+                                         refl_order=2)
+    src = np.array([[2.0, 3.0, 1.5], [4.0, 2.0, 1.7]])
+    rec = np.array([[3.0, 2.5, 1.6]])
+    rw = {d: ambi_roomsim.design_ri(cfg, src, rec, device=d)
+          for d in ("cpu", dev)}
+    print(f"phase 32: ambi_roomsim design (order 2, 2 sources, reflection "
+          f"order 2: RIRs of {rw[dev].conv.length_h} taps, "
+          f"{rw[dev].conv.n_part} partitions) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for n in (None, NB_INST):
+        batch = () if n is None else (n,)
+        xs = [uniform(rng, batch + (2, T), dev) for _ in range(N_CHUNKS)]
+
+        def make(d, batch=batch):
+            w = rw[d if d == "cpu" else dev]
+            return (lambda: ambi_roomsim.init_state_ri(cfg, w, batch, d),
+                    lambda st, x: ambi_roomsim.process_ri(cfg, w, st, x))
+
+        plain_path(f"ambi_roomsim order 2 x {n or 1}", 32, make, xs, ak, dev,
+                   card, (n or 1) * T / FS, KERNEL_TOL,
+                   held=lambda st: list(st))
+        time_mac(rw[dev], batch, rng, dev, card)
+
+
+def time_tv_crossfade(design, rng, dev, card) -> None:
+    """The cost of TVConv's crossfade rows, computed every block: device ms
+    (calls queued behind a spin kernel) of the per-hop ``apply_block_ri``
+    (its two crossfade streams are whole-block convolutions, selected per
+    hop) against ``apply_block_ri_const`` (one whole-block convolution and
+    three single-hop ones), one listener and 32, a moving index."""
+    conv, H, _ = design
+    T, nh = HOPS * 128, HOPS
+    for n in (None, NB_INST):
+        batch = () if n is None else (n,)
+        st = conv.init_state_ri(0, batch, dev)
+        x = uniform(rng, batch + (T,), dev)
+        idx = torch.arange(nh, device=dev, dtype=torch.int32) % 64
+        idx = idx.expand(batch + (nh,)).contiguous()
+        idxc = idx[..., 0].contiguous()
+        t = {"per hop": cuda_ms(lambda: conv.apply_block_ri(H, st, x, idx),
+                                8, queued=True),
+             "const": cuda_ms(lambda: conv.apply_block_ri_const(H, st, x,
+                                                               idxc),
+                              8, queued=True)}
+        print(f"phase 31: tvconv x {n or 1} [{card}]: apply_block_ri "
+              f"(per-hop index, crossfade rows of two more whole-block "
+              f"convolutions every block) {t['per hop']:.4f} ms, "
+              f"apply_block_ri_const {t['const']:.4f} ms of device per "
+              f"chunk of {nh} hops")
+
+
+def time_mac(w, batch, rng, dev, card) -> None:
+    """The convolvers' one spectral core, ``matrix_conv._mac`` (one complex
+    product batched over the bins), alone at ambi_roomsim's shape: device
+    ms per chunk, queued behind a spin kernel."""
+    from spatial_audio_framework_tpu_torch.ops import matrix_conv
+
+    Hc = torch.complex(*w.Hf)
+    P, n_out, n_in, nb = Hc.shape
+    win = torch.complex(*(uniform(rng, batch + (HOPS, P, n_in, nb), dev)
+                          for _ in range(2)))
+    ms = cuda_ms(lambda: matrix_conv._mac(win, Hc), 20, queued=True)
+    print(f"phase 32: the spectral core _mac at {batch + (HOPS, P, n_in)} "
+          f"x {nb} bins -> {n_out} outputs [{card}]: {ms:.4f} ms of device "
+          f"per chunk")
+
+
+def phase_hades_spreader(ak, dev, rng, card) -> dict:
+    """Phases 33-34: HADES (binaural BMVDR with covariance matching, the
+    default HRIRs [::4] as the 2-mic array, blocks of 1024; one instance at
+    64 blocks a call on the plain single-stream filterbank, 32 instances at
+    4 blocks a call through ``process_chunk_batched``) and the spreader (OM
+    mode, 1 source, frames of 512; 32 frames a chunk for one instance, 8
+    frames for 32 instances through ``process_chunk``'s instance axis), the
+    JAX benchmark's cells (bench.py:886-936, :1294-1358).  The batched
+    paths launch ``analysis_front_ri`` and ``synthesis_back_ri`` once a
+    call each, held against ``fused=False``; the single-instance paths
+    launch none, held against the CPU.  Returns the batched paths'
+    launches."""
+    from spatial_audio_framework_tpu_torch.models import spreader
+    from spatial_audio_framework_tpu_torch.modules import hades
+
+    out = {}
+    t0 = time.perf_counter()
+    pipes = {}
+    for d in ("cpu", dev):
+        ana = hades.HadesAnalysis(device=d)
+        pipes[d] = hades.HadesPipeline(ana, hades.HadesSynthesis(
+            ana, beam_option=hades.HADES_BEAMFORMER_BMVDR))
+    ana = pipes[dev].ana
+    print(f"phase 33: HADES design ({ana.n_mics} mics, {ana.n_grid}-point "
+          f"grid, BMVDR, triangular HRTFs) twice (card, CPU) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    bs = ana.blocksize
+    xs = [uniform(rng, (64, 2, bs), dev) for _ in range(2)]
+
+    def make_h(d):
+        p = pipes[d if d == "cpu" else dev]
+        return p.init_state, p.process_chunk
+
+    plain_path("HADES x 1, 64 blocks a call", 33, make_h, xs, ak, dev, card,
+               64 * bs / FS, CHAIN_TOL, held=lambda st: list(st[1]),
+               state_tol=KERNEL_TOL)
+    pipe = pipes[dev]
+
+    def hades_compare(yk, sk, yp, sp):
+        # the front's outputs (the tails, the SCMs) at KERNEL_TOL, the
+        # chain's output at CHAIN_TOL, the mixing matrices printed
+        errs = {"y": (rel_err(yk, yp), CHAIN_TOL)}
+        for label, a, b in zip(("in_tail", "ola_tail", "Cx_re", "Cx_im",
+                                "M_re", "M_im", "syn in_tail", "syn ola_tail"),
+                               tensors(sk), tensors(sp)):
+            errs[label] = rel_err(a, b)
+            if label.startswith("M_"):
+                errs[label] = (errs[label], None)
+            elif label == "syn ola_tail":
+                errs[label] = (errs[label], CHAIN_TOL)
+        return errs
+
+    xs = [uniform(rng, (NB_INST, NB_HOPS * 128 // bs, 2, bs), dev)
+          for _ in range(N_CHUNKS)]
+    out["hades"] = phase_path(
+        f"HADES binaural BMVDR x {NB_INST}", 33,
+        lambda st, x, f: pipe.process_chunk_batched(st, x, fused=f),
+        lambda: pipe.init_state_batched(NB_INST), xs,
+        {"analysis_front_ri": N_CHUNKS, "synthesis_back_ri": N_CHUNKS},
+        hades_compare, ak, card, streams=NB_INST, samples=NB_HOPS * 128)
+
+    t0 = time.perf_counter()
+    cfg = spreader.SpreaderConfig(n_sources=1, mode=spreader.MODE_OM)
+    sw = {d: spreader.design(cfg, device=d) for d in ("cpu", dev)}
+    print(f"phase 34: spreader design (OM, {sw[dev].H_re.shape[-1]}-point "
+          f"HRIR grid, lattice decorrelator) twice (card, CPU) on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    dirs = {d: torch.tensor([[40.0, 10.0]], device=d) for d in ("cpu", dev)}
+    spread = {d: torch.tensor([60.0], device=d) for d in ("cpu", dev)}
+    F = 512
+
+    def make_s(d, n=None):
+        dd = d if d == "cpu" else dev
+        return ((lambda: spreader.init_state(cfg, sw[dd], n, device=d)),
+                lambda st, x, f=True: spreader.process_chunk(
+                    cfg, sw[dd], st, x, dirs[dd], spread[dd], fused=f))
+
+    # OM's mixing matrices are free on the rank-one prototype's null space
+    # (one source): the covariance averages and the output are held
+    xs = [uniform(rng, (32, 1, F), dev) for _ in range(N_CHUNKS)]
+    plain_path("spreader OM x 1, 32 frames a call", 34, make_s, xs, ak, dev,
+               card, 32 * F / FS, CHAIN_TOL,
+               held=lambda st: [st.Cproto_re, st.Cproto_im, st.Cy_re,
+                                st.Cy_im], state_tol=KERNEL_TOL)
+
+    def spr_compare(yk, sk, yp, sp):
+        errs = {"y": (rel_err(yk, yp), CHAIN_TOL),
+                "ola_tail": (rel_err(sk.bank.ola_tail, sp.bank.ola_tail),
+                             CHAIN_TOL)}
+        for label in ("Cproto_re", "Cproto_im", "Cy_re", "Cy_im"):
+            errs[label] = rel_err(getattr(sk, label), getattr(sp, label))
+        for label in ("prev_M_re", "prev_M_im", "prev_Mr"):
+            errs[label] = (rel_err(getattr(sk, label), getattr(sp, label)),
+                           None)
+        return errs
+
+    init_b, proc_b = make_s(dev, NB_INST)
+    xs = [uniform(rng, (NB_INST, NB_HOPS * 128 // F, 1, F), dev)
+          for _ in range(N_CHUNKS)]
+    out["spreader"] = phase_path(
+        f"spreader OM x {NB_INST}", 34, proc_b, init_b, xs,
+        {"analysis_front_ri": N_CHUNKS, "synthesis_back_ri": N_CHUNKS},
+        spr_compare, ak, card, streams=NB_INST, samples=NB_HOPS * 128)
+    return out
+
+
+def phase_conv_hades_c_parity(ak, dev, card) -> None:
+    """Phase 35: parity with the compiled C on the card at the JAX tests'
+    tolerances (tests/test_c_goldens.py): the convolvers (``mc_*`` both
+    modes and the (re, im) form, ``mtc_*``, ``tvc_*`` both forms),
+    ambi_roomsim (``ars``), CDF4SAP's generic path (``cdf_*``, real and
+    complex, with and without energy), HADES through its two-stage path
+    (``hds``, ``hdt``, ``hdr``, ``hdh``: diffuseness and DoA indices each
+    block, DoA held equal) and the spreader in its three modes
+    (``spr_*``)."""
+    from spatial_audio_framework_tpu_torch.models import ambi_roomsim
+    from spatial_audio_framework_tpu_torch.models import spreader as SPR
+    from spatial_audio_framework_tpu_torch.modules import cdf4sap, hrir
+    from spatial_audio_framework_tpu_torch.modules import hades as HD
+    from spatial_audio_framework_tpu_torch.ops import matrix_conv as MC
+
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+
+    def held(key, out, ref, tol=C_TOL, what=""):
+        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+        ref = np.asarray(ref).reshape(out.shape) if np.size(ref) == np.size(
+            out) else np.asarray(ref)
+        err = (float(np.abs(out - ref).max()) if out.shape == ref.shape
+               else float("inf"))
+        print(f"phase 35: {key}{what} vs the C reference on the card "
+              f"[{card}]: {err:.3e} (tol {tol})")
+        check(np.isfinite(out).all() and err <= tol, f"{key}: {err}")
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    x = t(g["mc_in"])
+    for part in (False, True):
+        mc = MC.MatrixConv(hop=128, length_h=1024, n_in=2, n_out=3,
+                           partitioned=part)
+        Hd, st, outs = mc.design(np.asarray(g["mc_H"]), dev), \
+            mc.init_state(device=dev), []
+        for b in range(8):
+            y, st = mc.apply_block(Hd, st, x[:, b * 128:(b + 1) * 128])
+            outs.append(y)
+        key = "mc_out_part" if part else "mc_out_nonpart"
+        held(key, torch.cat(outs, -1), g[key])
+    y, _ = mc.apply_block_ri(mc.design_ri(np.asarray(g["mc_H"]), dev),
+                             mc.init_state_ri(device=dev), x)
+    held("mc_out_part", y, g["mc_out_part"], what=" ((re, im) form)")
+    for part in (False, True):
+        mu = MC.MultiConv(hop=128, length_h=300, n_ch=3, partitioned=part)
+        y, _ = mu.apply_block(mu.design(np.asarray(g["mtc_H"]), dev),
+                              mu.init_state(device=dev), t(g["mtc_in"]))
+        key = "mtc_out_part" if part else "mtc_out_nonpart"
+        held(key, y, g[key])
+    tv = MC.TVConv(hop=128, length_h=512, n_out=2, n_irs=3)
+    idx = t(g["tvc_idx"], np.int32)
+    y, _ = tv.apply_block(tv.design(np.asarray(g["tvc_H"]), dev),
+                          tv.init_state(0, device=dev), t(g["tvc_in"]), idx)
+    held("tvc_out", y, g["tvc_out"])
+    y, _ = tv.apply_block_ri(tv.design_ri(np.asarray(g["tvc_H"]), dev),
+                             tv.init_state_ri(0, device=dev), t(g["tvc_in"]),
+                             idx)
+    held("tvc_out", y, g["tvc_out"], what=" ((re, im) form)")
+
+    cfg = ambi_roomsim.AmbiRoomSimConfig(sh_order=2, n_sources=2,
+                                         n_receivers=1, refl_order=2)
+    w = ambi_roomsim.design_ri(cfg, np.array([[2.0, 3.0, 1.5],
+                                              [4.0, 2.0, 1.7]]),
+                               np.array([[3.0, 2.5, 1.6]]), device=dev)
+    out = frames(lambda st, xb: ambi_roomsim.process_ri(cfg, w, st, xb),
+                 ambi_roomsim.init_state_ri(cfg, w, device=dev),
+                 t(g["ars_in"]), 128, 64)
+    held("ars_out", out, g["ars_out"], what=" (warm frames under the sync "
+         "debug mode)")
+
+    for cplx in (False, True):
+        s = "_c" if cplx else ""
+        dt = np.complex64 if cplx else np.float32
+        f = (cdf4sap.formulate_M_and_Cr_cmplx if cplx
+             else cdf4sap.formulate_M_and_Cr)
+        for energy in (False, True):
+            M, Cr = f(*(torch.from_numpy(np.asarray(g[f"cdf_{k}{s}"]).astype(
+                dt)).to(dev) for k in ("Cx", "Cy", "Q")), energy, 0.01)
+            suff = s + ("_energy" if energy else "")
+            held("cdf_M" + suff, M, g["cdf_M" + suff], 1e-3)
+            held("cdf_Cr" + suff, Cr, g["cdf_Cr" + suff], 1e-3)
+
+    hr, hd, hfs = hrir.default_hrirs()
+    grid = np.asarray(g["hds_grid_dirs_deg"], np.float64)
+    for pfx, kw, skw, n_blocks, tol in (
+            ("hds", dict(hybrid=False, low_delay=True),
+             dict(beam_option="bmvdr", interp_option="nearest"), 16, 5e-4),
+            ("hdt", dict(hybrid=False, low_delay=True),
+             dict(beam_option="none", interp_option="triangular",
+                  enable_cm=False, hrirs=np.asarray(g["hdt_hrirs"],
+                                                    np.float32),
+                  hrir_dirs_deg=grid, hrir_fs=44100.0), 12, 1e-5),
+            ("hdr", dict(hybrid=False, low_delay=True),
+             dict(beam_option="filter_and_sum", interp_option="nearest"), 12,
+             6e-4),
+            ("hdh", dict(hybrid=True, low_delay=False),
+             dict(beam_option="bmvdr", interp_option="nearest"), 8, 3e-4)):
+        ana = HD.HadesAnalysis(
+            fs=48000.0, hop=64,
+            h_array=np.asarray(g[f"{pfx}_h_array"], np.float32),
+            grid_dirs_deg=grid, blocksize=256, device=dev, **kw)
+        skw = dict(dict(hrirs=hr, hrir_dirs_deg=hd, hrir_fs=hfs,
+                        enable_cm=True), **skw)
+        syn = HD.HadesSynthesis(ana, ref_indices=(1, 5), **skw)
+        ed = HD.HadesRadialEditor(ana.grid_dirs_deg) if pfx == "hdr" else None
+        ramp = -70.0 + 0.45 * np.arange(360)
+        xin = np.asarray(g[f"{pfx}_in"], np.float32)
+        outs, worst = [], 0.0
+        for blk in range(n_blocks):
+            params, sigs = ana.apply(t(xin[:, blk * 256:(blk + 1) * 256]))
+            worst = max(worst, float(np.abs(
+                params.diffuseness - g[f"{pfx}_diffuseness"][blk]).max()))
+            check(np.array_equal(params.doa_idx, np.asarray(
+                g[f"{pfx}_doa_idx"][blk]).astype(int)),
+                f"{pfx}: DoA indices differ from the C at block {blk}")
+            if ed is not None:
+                params = ed.apply(params, ramp)
+            outs.append(syn.apply(params, sigs))
+        print(f"phase 35: {pfx}: DoA indices equal the C's in all "
+              f"{n_blocks} x {ana.n_bands} band-blocks; diffuseness max "
+              f"|err| {worst:.3e} (tol 1e-5)")
+        check(worst <= 1e-5, f"{pfx} diffuseness: {worst}")
+        key = "hds_out_bin" if pfx == "hds" else f"{pfx}_out"
+        held(key, np.concatenate(outs, -1), g[key], tol)
+
+    xs = t(g["spr_in"])
+    for mode, key, off, tol in (("naive", "spr_out_naive", None, 2 * C_TOL),
+                                ("om", "spr_out_om", 9272, 1e-3),
+                                ("evd", "spr_out_evd", 16036, 1e-3)):
+        cfg = SPR.SpreaderConfig(n_sources=1, mode=mode, cov_avg_coeff=0.5)
+        w = SPR.design(cfg, c_rand_offset=off, device=dev)
+        d = torch.tensor([[40.0, 10.0]], device=dev)
+        sp = torch.tensor([60.0], device=dev)
+        out = frames(lambda st, xb: SPR.process(cfg, w, st, xb, d, sp),
+                     SPR.init_state(cfg, w, device=dev), xs[None], 512, 8)
+        held(key, out, g[key], tol, " (warm frames under the sync debug "
+             "mode)")
+
+
 def bound(in_floats: float, out_floats: float, flop: float) -> dict:
     """The least time of a kernel's work on the card (see HBM_BYTES_PER_S):
     the larger of its bytes over the HBM rate and its operations over the
@@ -2415,8 +2929,8 @@ def main() -> int:
         ak, dev, rng, card)
     rows_times = {"analysis_front_ri": front_times,
                   "synthesis_back_ri": back_times}
-    times["analysis_front_ri"] = front_times[N_STREAMS * 16]
-    times["synthesis_back_ri"] = back_times[N_STREAMS * 22]
+    times["analysis_front_ri"] = front_times[N_STREAMS * 16, HOPS]
+    times["synthesis_back_ri"] = back_times[N_STREAMS * 22, HOPS]
     errs["analysis_front_dg_ri"], times["analysis_front_dg_ri"] = \
         phase_analysis_front_dg(ak, dev, rng, card)
     for dg in (False, True):
@@ -2607,40 +3121,55 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_analyser_c_parity(ak, dev, card)
     print(f"phase 30 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_conv_room(ak, dev, rng, card)
+    hs = phase_hades_spreader(ak, dev, rng, card)
+    print(f"phases 31-34 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_conv_hades_c_parity(ak, dev, card)
+    print(f"phase 35 took {time.perf_counter() - t0:.1f} s")
 
     bounds = kernel_bounds()
-    # (kernel, rows, path, its launches in that path's main run)
+    # (kernel, rows, hops, path, its launches in that path's main run)
     shapes = (
-        ("analysis_front_ri", A2S_STREAMS * A2S_SENSORS,
+        ("analysis_front_ri", A2S_STREAMS * A2S_SENSORS, HOPS,
          "array2sh Eigenmike32 -> order 4, 16 streams",
          a2s["analysis_front_ri"]),
-        ("analysis_front_ri", DCR_STREAMS * DCR_CH,
+        ("analysis_front_ri", DCR_STREAMS * DCR_CH, HOPS,
          f"decorrelator {DCR_CH} ch x {DCR_STREAMS} streams",
          an["decorrelator"]["analysis_front_ri"]),
-        ("analysis_front_ri", PM_INSTANCES * 16,
+        ("analysis_front_ri", PM_INSTANCES * 16, HOPS,
          f"powermap order {AN_ORDER} MUSIC x {PM_INSTANCES}",
          an[f"powermap {PM_INSTANCES}"]["analysis_front_ri"]),
-        ("analysis_front_ri", PM_INSTANCES * 16,
+        ("analysis_front_ri", PM_INSTANCES * 16, HOPS,
          f"sldoa order {AN_ORDER} x {PM_INSTANCES}",
          an[f"sldoa {PM_INSTANCES}"]["analysis_front_ri"]),
-        ("analysis_front_ri", DRC_STREAMS * 16,
+        ("analysis_front_ri", DRC_STREAMS * 16, HOPS,
          f"ambi_drc order {AN_ORDER} x {DRC_STREAMS} streams",
          an["ambi_drc"]["analysis_front_ri"]),
-        ("synthesis_back_ri", A2S_STREAMS * A2S_NSH,
+        ("synthesis_back_ri", A2S_STREAMS * A2S_NSH, HOPS,
          "array2sh Eigenmike32 -> order 4, 16 streams",
          a2s["synthesis_back_ri"]),
-        ("synthesis_back_ri", DCR_STREAMS * DCR_CH,
+        ("synthesis_back_ri", DCR_STREAMS * DCR_CH, HOPS,
          f"decorrelator {DCR_CH} ch x {DCR_STREAMS} streams",
          an["decorrelator"]["synthesis_back_ri"]),
-        ("synthesis_back_ri", DRC_STREAMS * 16,
+        ("synthesis_back_ri", DRC_STREAMS * 16, HOPS,
          f"ambi_drc order {AN_ORDER} x {DRC_STREAMS} streams",
-         an["ambi_drc"]["synthesis_back_ri"]))
+         an["ambi_drc"]["synthesis_back_ri"]),
+        ("analysis_front_ri", NB_INST * 2, NB_HOPS,
+         f"HADES binaural BMVDR x {NB_INST}", hs["hades"]["analysis_front_ri"]),
+        ("analysis_front_ri", NB_INST, NB_HOPS,
+         f"spreader OM x {NB_INST}", hs["spreader"]["analysis_front_ri"]),
+        ("synthesis_back_ri", NB_INST * 2, NB_HOPS,
+         f"HADES binaural BMVDR x {NB_INST}", hs["hades"]["synthesis_back_ri"]),
+        ("synthesis_back_ri", NB_INST * 2, NB_HOPS,
+         f"spreader OM x {NB_INST}", hs["spreader"]["synthesis_back_ri"]))
     other = {"analysis_front_ri": [], "synthesis_back_ri": []}
-    for name, rows, path, n in shapes:
+    for name, rows, H, path, n in shapes:
         front = name == "analysis_front_ri"
-        shape = f"({rows} rows, H {HOPS}" + (")" if front else ", K 266)")
-        b = front_bound(rows) if front else back_bound(rows)
-        t = rows_times[name][rows]
+        shape = f"({rows} rows, H {H}" + (")" if front else ", K 266)")
+        b = front_bound(rows, H) if front else back_bound(rows, H)
+        t = rows_times[name][rows, H]
         other[name].append(shape_entry(shape, path, n, t, b))
         print(f"phase 2: {name} at {shape}, the shape of {path} [{card}]: "
               f"kernel {t['kernel'][0]:.4f} ms, plain {t['plain'][0]:.4f} "

@@ -735,3 +735,346 @@ def test_dirass_end_to_end(g, tag, mode):
         assert np.corrcoef(pmap, ref)[0, 1] >= 0.995
     else:
         assert np.abs(pmap - ref).max() <= (1e-3 if mode == "off" else 1e-2)
+
+
+# -- the fixtures of earlier slices held through the port: SH, afSTFT, VBAP,
+# -- decoders, beams, ambi_enc gains, the quickhull, utility surfaces ------
+
+def test_get_sh_real_order7(g):
+    Y = sh.get_sh_real(7, g["sh_dirs_rad"])
+    assert np.abs(Y - g["sh_Y_o7"]).max() <= TOL
+
+
+def test_get_rsh_order4(g):
+    assert np.abs(sh.get_rsh(4, g["sh_dirs_deg"]) - g["sh_RSH_o4"]
+                  ).max() <= TOL
+
+
+def test_afstft_forward_backward(g):
+    """Blockwise forward spectra and the round trip of the complex afSTFT
+    (hybrid, hop 128) match the C."""
+    bank = AfSTFT(hop=128, hybrid=True, low_delay=False)
+    assert np.abs(bank.centre_freqs(48000.0)
+                  - g["afstft_centre_freqs"]).max() == 0.0
+    x = torch.from_numpy(np.asarray(g["afstft_in"], np.float32))
+    st = bank.init_state(4, 4, device="cpu")
+    specs, outs = [], []
+    for f in range(8):
+        S, st = bank.analysis(st, x[:, f * 512:(f + 1) * 512])
+        specs.append(S.numpy())
+        y, st = bank.synthesis(st, S)
+        outs.append(y.numpy())
+    spec_err = np.abs(np.stack(specs) - g["afstft_spec"]).max()
+    assert spec_err <= 2e-4 * np.abs(g["afstft_spec"]).max()
+    assert np.abs(np.concatenate(outs, -1) - g["afstft_out"]).max() <= TOL
+
+
+def test_vbap_gain_table_3d(g):
+    ls = np.asarray(g["vbap_ls_dirs"], np.float64)
+    gt = vbap.generate_vbap_gain_table_3d(ls, 15, 15)
+    assert gt.shape == tuple(g["vbap_gtable_15deg"].shape)
+    assert np.abs(gt - g["vbap_gtable_15deg"]).max() <= TOL
+    gt = vbap.generate_vbap_gain_table_3d(ls, 15, 15, spread=30.0)
+    assert np.abs(gt - g["vbap_gtable_15deg_spread30"]).max() <= TOL
+
+
+@pytest.mark.parametrize("method", ["sad", "mmd", "epad", "allrad"])
+@pytest.mark.parametrize("maxre", [0, 1])
+def test_loudspeaker_decoder_mtx(g, method, maxre):
+    dec = hoa.get_loudspeaker_decoder_mtx(
+        np.asarray(g["lsdec_dirs"], np.float64), method, 3,
+        enable_max_re_weighting=bool(maxre))
+    assert np.abs(dec - g[f"lsdec_{method}_o3_maxre{maxre}"]).max() <= TOL
+
+
+def test_beam_weights(g):
+    for key, fn in [("bw_cardioid", sh.beam_weights_cardioid),
+                    ("bw_hypercardioid", sh.beam_weights_hypercardioid),
+                    ("bw_maxev", sh.beam_weights_max_ev)]:
+        for n in range(1, 5):
+            assert np.abs(fn(n) - g[key][n - 1][:n + 1]).max() <= TOL
+    mine = sh.rotate_axis_coeffs_real(3, sh.beam_weights_hypercardioid(3),
+                                      1.1, -0.6)
+    assert np.abs(mine - g["bw_rot_cnm_o3"]).max() <= TOL
+
+
+def test_ambi_enc_gains_solo(g):
+    """Per-source gains changed mid-stream and solo / unsolo
+    (ambi_enc.c:135-137): gains scale the input frame that feeds the next
+    output frame."""
+    cfg = ambi_enc.AmbiEncConfig(order=2, n_sources=3, norm="n3d",
+                                 frame_size=64)
+    conv = ambi_enc.design(cfg, device="cpu")
+    dirs = torch.from_numpy(np.asarray(g["aeg_dirs"], np.float32))
+    st = ambi_enc.init_state(cfg, np.asarray(g["aeg_dirs"], np.float64),
+                             device="cpu")
+    x = torch.from_numpy(np.asarray(g["aeg_in"], np.float32))
+    gains = {0: [1.0, 1.0, 1.0], 8: [0.5, 2.0, 1.0], 16: [0.0, 0.0, 1.0],
+             24: [1.0, 1.0, 1.0]}
+    outs = []
+    for f in range(32):
+        gg = torch.tensor(gains[8 * (f // 8)])
+        y, st = ambi_enc.process(cfg, conv, st, x[:, f * 64:(f + 1) * 64],
+                                 dirs, src_gains=gg)
+        outs.append(y.numpy())
+    assert np.abs(np.concatenate(outs, -1) - g["aeg_out"]).max() <= TOL
+
+
+def test_convhull3d_triangulation(g):
+    """The quickhull's faces, face order and vertex order, three grids in
+    one rand() stream (as the C process made them)."""
+    from spatial_audio_framework_tpu_torch.utils.convhull3d import (
+        convhull_3d_build, glibc_rand)
+
+    stream = glibc_rand()
+    for tag in ("hrir836", "grid60", "tdes48"):
+        faces = convhull_3d_build(np.asarray(g[f"vbh_{tag}_verts"],
+                                             np.float64), rand_stream=stream)
+        np.testing.assert_array_equal(faces, np.asarray(g[f"vbh_{tag}_faces"]),
+                                      err_msg=tag)
+
+
+def test_get_sh_complex(g):
+    Y = sh.get_sh_complex(4, np.asarray(g["mu_shc_dirs_rad"], np.float64))
+    assert np.abs(Y - g["mu_shc_Y_o4"]).max() <= TOL
+
+
+def test_rotate_axis_coeffs_complex(g):
+    c = sh.rotate_axis_coeffs_complex(3, sh.beam_weights_cardioid(3), 0.8,
+                                      -1.3)
+    assert np.abs(c - g["mu_rot_cnm_cmplx_o3"]).max() <= TOL
+
+
+def test_check_cond_number_sht_real(g):
+    grid = presets.tdesign(9)
+    dirs_rad = np.stack([np.radians(grid[:, 0]),
+                         np.pi / 2 - np.radians(grid[:, 1])], -1)
+    cond = sh.check_cond_number_sht_real(4, dirs_rad)
+    assert np.abs(cond - g["mu_cond_o4"]).max() <= 1e-5 * cond.max()
+
+
+def test_truncation_eq(g):
+    w_n = hoa.get_max_re_weights(1)
+    gain = hoa.truncation_eq(np.array([w_n[0], w_n[1]]), 1, 7,
+                             np.asarray(g["mu_teq_kr"], np.float64), 12.0)
+    assert np.abs(gain - g["mu_teq_gain"]).max() <= TOL * 10.0
+
+
+def test_binaural_diffuse_coherence(g):
+    hrirs, dirs, fs = hrir.default_hrirs()
+    coh = hrir.binaural_diffuse_coherence(
+        hrir.hrirs_to_hrtfs_afstft(hrirs, 128), hrir.estimate_itds(hrirs, fs),
+        AfSTFT(hop=128, hybrid=True).centre_freqs(48000.0))
+    assert np.abs(coh - g["mu_bin_coh"]).max() <= TOL
+
+
+# -- convolution, room simulation, CDF4SAP, HADES and the spreader ----------
+
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_matrix_conv(g, partitioned):
+    from spatial_audio_framework_tpu_torch.ops.matrix_conv import MatrixConv
+
+    mc = MatrixConv(hop=128, length_h=1024, n_in=2, n_out=3,
+                    partitioned=partitioned)
+    Hd = mc.design(np.asarray(g["mc_H"]), "cpu")
+    st = mc.init_state(device="cpu")
+    x = torch.from_numpy(np.asarray(g["mc_in"], np.float32))
+    outs = []
+    for b in range(8):
+        y, st = mc.apply_block(Hd, st, x[:, b * 128:(b + 1) * 128])
+        outs.append(y.numpy())
+    ref = g["mc_out_part" if partitioned else "mc_out_nonpart"]
+    assert np.abs(np.concatenate(outs, -1) - ref).max() <= TOL
+    if partitioned:       # the (re, im) form, the whole input in one block
+        y, _ = mc.apply_block_ri(mc.design_ri(np.asarray(g["mc_H"]), "cpu"),
+                                 mc.init_state_ri(device="cpu"), x)
+        assert np.abs(y.numpy() - ref).max() <= TOL
+
+
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_multiconv(g, partitioned):
+    from spatial_audio_framework_tpu_torch.ops.matrix_conv import MultiConv
+
+    mc = MultiConv(hop=128, length_h=300, n_ch=3, partitioned=partitioned)
+    y, _ = mc.apply_block(mc.design(np.asarray(g["mtc_H"]), "cpu"),
+                          mc.init_state(device="cpu"),
+                          torch.from_numpy(np.asarray(g["mtc_in"],
+                                                      np.float32)))
+    key = "mtc_out_part" if partitioned else "mtc_out_nonpart"
+    assert np.abs(y.numpy() - g[key]).max() <= TOL
+
+
+def test_tvconv(g):
+    """saf_TVConv across position changes (the one-hop crossfade), both
+    forms of the per-hop block path."""
+    from spatial_audio_framework_tpu_torch.ops.matrix_conv import TVConv
+
+    H = np.asarray(g["tvc_H"])
+    x = torch.from_numpy(np.asarray(g["tvc_in"], np.float32))
+    idx = torch.from_numpy(np.asarray(g["tvc_idx"], np.int32))
+    tv = TVConv(hop=128, length_h=512, n_out=2, n_irs=3)
+    y, _ = tv.apply_block(tv.design(H, "cpu"), tv.init_state(0, device="cpu"),
+                          x, idx)
+    assert np.abs(y.numpy() - g["tvc_out"]).max() <= TOL
+    y, _ = tv.apply_block_ri(tv.design_ri(H, "cpu"),
+                             tv.init_state_ri(0, device="cpu"), x, idx)
+    assert np.abs(y.numpy() - g["tvc_out"]).max() <= TOL
+
+
+def test_ims_shoebox_rir(g):
+    from spatial_audio_framework_tpu_torch.modules import reverb
+
+    base = np.array([0.30, 0.24, 0.12, 0.06])
+    room = reverb.ShoeboxRoom(
+        room_dims=[10.0, 7.0, 4.0],
+        abs_wall=base[:, None] + 0.02 * np.arange(6)[None, :],
+        lowest_octave_band=250.0, fs=48000.0)
+    sid = room.add_source([6.2, 5.1, 1.2])
+    rid = room.add_receiver_sh(1, [2.1, 3.3, 1.6])
+    room.compute_echograms(max_order=3)
+    rir = room.render_rirs(fractional_delays=False)[(rid, sid)]
+    assert rir.shape == g["ims_rir_o3_sh1"].shape
+    assert np.abs(rir - g["ims_rir_o3_sh1"]).max() <= TOL
+
+
+@pytest.mark.parametrize("entry", ["process_ri", "process"])
+def test_ambi_roomsim_end_to_end(g, entry):
+    """64 frames through the ambi_roomsim example (order 2, 2 sources,
+    reflection order 2, broadband default absorption)."""
+    from spatial_audio_framework_tpu_torch.models import ambi_roomsim as RS
+
+    cfg = RS.AmbiRoomSimConfig(sh_order=2, n_sources=2, n_receivers=1,
+                               refl_order=2, room_dims=(10.0, 7.0, 4.0))
+    src = np.array([[2.0, 3.0, 1.5], [4.0, 2.0, 1.7]])
+    rec = np.array([[3.0, 2.5, 1.6]])
+    if entry == "process_ri":
+        w = RS.design_ri(cfg, src, rec, device="cpu")
+        st, proc = RS.init_state_ri(cfg, w, device="cpu"), RS.process_ri
+    else:
+        w = RS.design(cfg, src, rec, device="cpu")
+        st, proc = RS.init_state(cfg, w, device="cpu"), RS.process
+    x = torch.from_numpy(np.asarray(g["ars_in"], np.float32))
+    outs = []
+    for f in range(64):
+        y, st = proc(cfg, w, st, x[:, f * 128:(f + 1) * 128])
+        outs.append(y.numpy())
+    assert np.abs(np.concatenate(outs, -1) - g["ars_out"]).max() <= TOL
+
+
+@pytest.mark.parametrize("energy", [0, 1])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_cdf4sap(g, cplx, energy):
+    """The generic path on float32 tensors (torch.linalg.svd), at the JAX
+    test's 1e-3."""
+    from spatial_audio_framework_tpu_torch.modules import cdf4sap
+
+    s = "_c" if cplx else ""
+    dt = np.complex64 if cplx else np.float32
+    f = (cdf4sap.formulate_M_and_Cr_cmplx if cplx
+         else cdf4sap.formulate_M_and_Cr)
+    M, Cr = f(*(torch.from_numpy(np.asarray(g[f"cdf_{k}{s}"]).astype(dt))
+                for k in ("Cx", "Cy", "Q")), use_energy=bool(energy),
+              reg=0.01)
+    suff = s + ("_energy" if energy else "")
+    assert np.abs(M.numpy() - g["cdf_M" + suff]).max() <= 1e-3
+    assert np.abs(Cr.numpy() - g["cdf_Cr" + suff]).max() <= 1e-3
+
+
+def _hades_run(g, pfx, *, hybrid, low_delay, beam, interp, enable_cm,
+               n_blocks, out_tol, hrirs=None, hrir_dirs=None, hfs=48000.0,
+               redit=False):
+    """The JAX tests' HADES recipe (tests/test_c_goldens.py) through the
+    port's two-stage path: a 6-mic array on the 36-direction t-design
+    grid, hop 64, blocks of 256; diffuseness and DoA per block, the
+    binaural output at the end."""
+    from spatial_audio_framework_tpu_torch.modules import hades as HD
+
+    ana = HD.HadesAnalysis(
+        fs=48000.0, hop=64, h_array=np.asarray(g[f"{pfx}_h_array"], np.float32),
+        grid_dirs_deg=np.asarray(g["hds_grid_dirs_deg"], np.float64),
+        blocksize=256, hybrid=hybrid, low_delay=low_delay, device="cpu")
+    assert np.abs(ana.freq_vector - g[f"{pfx}_freq_vector"]).max() <= 1e-2
+    if hrirs is None:
+        hrirs, hrir_dirs, hfs = hrir.default_hrirs()
+    syn = HD.HadesSynthesis(ana, hrirs=hrirs, hrir_dirs_deg=hrir_dirs,
+                            hrir_fs=hfs, beam_option=beam,
+                            ref_indices=(1, 5), enable_cm=enable_cm,
+                            interp_option=interp)
+    assert np.abs(syn.H_bin - g[f"{pfx}_H_bin"]).max() <= 2e-5
+    assert np.abs(syn.diff_eq - g[f"{pfx}_diff_eq"]).max() <= 1e-5
+    ed = HD.HadesRadialEditor(ana.grid_dirs_deg) if redit else None
+    ramp = -70.0 + 0.45 * np.arange(360)          # crosses both dB clamps
+    x = np.asarray(g[f"{pfx}_in"], np.float32)
+    outs = []
+    for blk in range(n_blocks):
+        params, sigs = ana.apply(x[:, blk * 256:(blk + 1) * 256])
+        assert np.abs(params.diffuseness
+                      - g[f"{pfx}_diffuseness"][blk]).max() <= 1e-5, blk
+        assert (params.doa_idx
+                == np.asarray(g[f"{pfx}_doa_idx"][blk]).astype(int)).all(), blk
+        if ed is not None:
+            params = ed.apply(params, ramp)
+        outs.append(syn.apply(params, sigs))
+    if redit:
+        assert np.abs(params.gains_dir - g[f"{pfx}_gains_dir"]).max() <= 1e-6
+    ref = np.asarray(g[f"{pfx}_out" if pfx != "hds" else "hds_out_bin"])
+    err = np.abs(np.concatenate(outs, -1) - ref.reshape(2, -1)).max()
+    assert err <= out_tol, err
+    return ana, syn
+
+
+def test_hades_end_to_end(g):
+    """BMVDR + covariance matching, nearest HRTFs, low-delay non-hybrid
+    bank (``hds``), 16 blocks, at the JAX test's 5e-4 (the C's own chain
+    moves by 5.3e-4 for a one-ulp input change)."""
+    ana, syn = _hades_run(g, "hds", hybrid=False, low_delay=True,
+                          beam="bmvdr", interp="nearest", enable_cm=True,
+                          n_blocks=16, out_tol=5e-4)
+    assert np.abs(ana.H_array - g["hds_H_array_fb"]).max() <= 1e-5
+    assert np.abs(ana.DCM - g["hds_DCM"]).max() <= 1e-5
+    assert abs(ana.cov_avg_coeff - float(np.ravel(g["hds_cov_avg"])[0])) <= 1e-6
+
+
+@pytest.mark.parametrize("pfx", ["hdt", "hdr", "hdh"])
+def test_hades_variants_end_to_end(g, pfx):
+    """The three option branches: ``hdt`` beamformer none + triangular HRTF
+    interpolation on the analysis grid (no solve or SVD chain: 1e-5),
+    ``hdr`` filter-and-sum with the radial editor between the stages
+    (6e-4), ``hdh`` the hybrid non-low-delay bank with BMVDR (3e-4)."""
+    if pfx == "hdt":
+        _hades_run(g, "hdt", hybrid=False, low_delay=True, beam="none",
+                   interp="triangular", enable_cm=False, n_blocks=12,
+                   out_tol=1e-5, hrirs=np.asarray(g["hdt_hrirs"], np.float32),
+                   hrir_dirs=np.asarray(g["hds_grid_dirs_deg"], np.float64),
+                   hfs=44100.0)
+    elif pfx == "hdr":
+        _hades_run(g, "hdr", hybrid=False, low_delay=True,
+                   beam="filter_and_sum", interp="nearest", enable_cm=True,
+                   n_blocks=12, out_tol=6e-4, redit=True)
+    else:
+        _hades_run(g, "hdh", hybrid=True, low_delay=False, beam="bmvdr",
+                   interp="nearest", enable_cm=True, n_blocks=8,
+                   out_tol=3e-4)
+
+
+@pytest.mark.parametrize("mode,key,off,tol", [
+    ("naive", "spr_out_naive", None, 2 * TOL),
+    ("om", "spr_out_om", 9272, 1e-3), ("evd", "spr_out_evd", 16036, 1e-3)])
+def test_spreader(g, mode, key, off, tol):
+    """All three modes sample for sample: the decorrelation delays from the
+    C's rand() stream (offsets 9272 / 16036), the C's un-reset high-band
+    target accumulator, LAPACK cheev's eigenvector signs for EVD."""
+    from spatial_audio_framework_tpu_torch.models import spreader as SPR
+
+    cfg = SPR.SpreaderConfig(n_sources=1, mode=mode, cov_avg_coeff=0.5)
+    w = SPR.design(cfg, c_rand_offset=off, device="cpu")
+    st = SPR.init_state(cfg, w, device="cpu")
+    dirs, spread = torch.tensor([[40.0, 10.0]]), torch.tensor([60.0])
+    x = torch.from_numpy(np.asarray(g["spr_in"], np.float32))
+    outs = []
+    for f in range(8):
+        y, st = SPR.process(cfg, w, st, x[None, f * 512:(f + 1) * 512], dirs,
+                            spread)
+        outs.append(y.numpy())
+    ref = np.asarray(g[key]).reshape(2, -1)
+    assert np.abs(np.concatenate(outs, -1) - ref).max() <= tol, mode

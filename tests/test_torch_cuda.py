@@ -1142,3 +1142,176 @@ def test_dirass_on_card_matches_the_cpu(cuda, mode):
     for a, b in zip(got_st, ref_st):
         assert (a - b).abs().max().item() <= 1e-4 * max(
             b.abs().max().item(), 1e-30)
+
+
+# -- convolution, room simulation, HADES and the spreader --------------------
+
+@pytest.mark.parametrize("rows,H", [(64, 32), (32, 32), (4, 4)])
+def test_front_back_at_the_hades_spreader_rows(cuda, rows, H):
+    """analysis_front_ri at HADES x 32 (64 rows: 32 instances x 2 mics) and
+    the spreader x 32 (32 rows), 32 hops a call; synthesis_back_ri at 64
+    rows (32 instances x 2 ears) for both."""
+    rng = np.random.default_rng(rows + H)
+    tail = _u(rng, (rows, 15 * 128), cuda) * 0.5
+    x = _u(rng, (rows, H * 128), cuda) * 0.5
+    for k, p in zip(tak.analysis_front_ri(tail, x),
+                    tak.analysis_front_ri_reference(tail, x)):
+        assert k.shape == (rows, H + 6, 129)
+        assert (k - p).abs().max().item() <= TOL
+    spec = _u(rng, (rows, H, 266), cuda) * 10.0
+    otail = _u(rng, (rows, 9, 128), cuda)
+    for k, p in zip(tak.synthesis_back_ri(spec, otail),
+                    tak.synthesis_back_ri_reference(spec, otail)):
+        assert (k - p).abs().max().item() <= TOL
+
+
+# the outputs of HADES's and the spreader's solve / CDF4SAP chains, kernel
+# path vs plain: the C's own output moves 5.3e-4 for a one-ulp input change
+# (tests/test_c_goldens.py), and two plain orders of the same front differ
+# by up to 1e-4 on the CPU (band 0's DoA, near-degenerate SVDs); the
+# covariances the front feeds agree to TOL
+CHAIN_TOL = 5e-4
+
+
+def _batched_case(name, cuda):
+    """(process(st, x, fused) -> (y, st), init_state(), x shape,
+    held(st) -> [(state leaf, tol)]) of HADES or the spreader, 3
+    instances."""
+    from spatial_audio_framework_tpu_torch.modules import hrir
+
+    h, d, fs = hrir.default_hrirs()
+    if name == "hades":
+        from spatial_audio_framework_tpu_torch.modules import hades
+
+        ana = hades.HadesAnalysis(h_array=h[::16], grid_dirs_deg=d[::16],
+                                  blocksize=512, device=cuda)
+        pipe = hades.HadesPipeline(ana, hades.HadesSynthesis(
+            ana, beam_option="bmvdr"))
+        return (lambda st, x, f: pipe.process_chunk_batched(st, x, fused=f),
+                lambda: pipe.init_state_batched(3), (3, 4, 2, 512),
+                lambda st: [(c, TOL) for c in st[1]]
+                + [(st[3].ola_tail, CHAIN_TOL)])
+    from spatial_audio_framework_tpu_torch.models import spreader
+
+    cfg = spreader.SpreaderConfig(mode="om")
+    w = spreader.design(cfg, h[::8], d[::8], fs, device=cuda)
+    dirs = torch.tensor([[40.0, 10.0]], device=cuda)
+    spread = torch.tensor([60.0], device=cuda)
+    # the covariance averages; OM's mixing matrices are free on the rank-one
+    # prototype's null space, so only what they produce is held
+    return (lambda st, x, f: spreader.process_chunk(cfg, w, st, x, dirs,
+                                                    spread, fused=f),
+            lambda: spreader.init_state(cfg, w, n_instances=3, device=cuda),
+            (3, 4, 1, 512), lambda st: [(st.bank.ola_tail, CHAIN_TOL),
+                                        (st.Cproto_re, TOL), (st.Cy_re, TOL)])
+
+
+@pytest.mark.parametrize("name", ["hades", "spreader"])
+def test_batched_hades_spreader_route_matches_plain_path(cuda, monkeypatch,
+                                                         name):
+    """The instance-batched paths: one analysis_front_ri and one
+    synthesis_back_ri launch a call, never a plain version, and
+    ``fused=False``'s output and states, relative to max(1, scale): the
+    covariances at TOL, the output at CHAIN_TOL."""
+    process, init_state, shape, held = _batched_case(name, cuda)
+    rng = np.random.default_rng(11)
+    xs = [_u(rng, shape, cuda) for _ in range(2)]
+
+    def run(fused):
+        st, outs = init_state(), []
+        for x in xs:
+            y, st = process(st, x, fused)
+            outs += [(y, CHAIN_TOL)] + held(st)
+        return outs
+
+    plain = run(False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took a plain version")
+
+    for k in _ALL_KERNELS:
+        monkeypatch.setattr(tak, f"{k}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    fused = run(True)
+    torch.cuda.synchronize()
+    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    assert ran == {n: 2 * (n in ("analysis_front_ri", "synthesis_back_ri"))
+                   for n in _ALL_KERNELS}
+    for (k, tol), (p, _) in zip(fused, plain):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all())
+        scale = max(1.0, p.abs().max().item())
+        assert (k - p).abs().max().item() <= tol * scale
+
+
+def _conv_case(name, cuda):
+    """(step(i) for chunk i, launched kernels expected none) of the plain
+    paths: tvconv with a moving and a static listener and 4 moving
+    instances, ambi_roomsim, and the kernel paths of HADES and the spreader
+    x 3 (which must not wait either)."""
+    from spatial_audio_framework_tpu_torch.models import (ambi_roomsim,
+                                                          conv_examples)
+
+    rng = np.random.default_rng(12)
+    if name.startswith("tvconv"):
+        ex = conv_examples.TVConvExample()
+        irs = 0.1 * rng.standard_normal((8, 2, 512)).astype(np.float32)
+        conv, H, pos = ex.design_ri(irs, rng.uniform(0, 5, (8, 3)), cuda)
+        batch = (4,) if name == "tvconv x4" else ()
+        state = {"st": ex.init_state_ri(conv, batch=batch, device=cuda)}
+        lps = pos[torch.arange(6, device=cuda) % 8]
+        if batch:
+            lps = torch.stack([pos[(torch.arange(4, device=cuda) + i) % 8]
+                               for i in range(6)])
+        xs = _u(rng, (6,) + batch + (8 * 128,), cuda)
+
+        def step(i):
+            lp = lps[i] if name != "tvconv static" else lps[0]
+            _, state["st"] = ex.process_ri(conv, H, state["st"], xs[i], lp,
+                                           pos)
+        return step
+    if name == "roomsim":
+        cfg = ambi_roomsim.AmbiRoomSimConfig(sh_order=2, n_sources=2,
+                                             refl_order=1)
+        w = ambi_roomsim.design_ri(cfg, np.array([[2.0, 3, 1.5], [4, 2, 1.7]]),
+                                   np.array([[3.0, 2.5, 1.6]]), device=cuda)
+        state = {"st": ambi_roomsim.init_state_ri(cfg, w, (3,), cuda)}
+        xs = _u(rng, (6, 3, 2, 8 * 128), cuda)
+
+        def step(i):
+            _, state["st"] = ambi_roomsim.process_ri(cfg, w, state["st"],
+                                                     xs[i])
+        return step
+    process, init_state, shape, _ = _batched_case(name, cuda)
+    state = {"st": init_state()}
+    xs = _u(rng, (6,) + shape, cuda)
+
+    def step(i):
+        _, state["st"] = process(state["st"], xs[i], True)
+    return step
+
+
+@pytest.mark.parametrize("name", ["tvconv moving", "tvconv static",
+                                  "tvconv x4", "roomsim", "hades",
+                                  "spreader"])
+def test_conv_hades_spreader_chunks_never_wait(cuda, monkeypatch, name):
+    """Once warm, a chunk makes no tensor from host data and never makes
+    the host wait: TVConv computes its crossfade rows every chunk and
+    selects them on the card (no branch on a device predicate), and picks
+    filters and positions by index_select and argmin on the card."""
+    step = _conv_case(name, cuda)
+    step(0)
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor was made from host data per chunk")
+
+    with monkeypatch.context() as m:
+        for fn in ("from_numpy", "tensor", "as_tensor"):
+            m.setattr(torch, fn, refuse)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(1, 6):
+                step(i)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -263,6 +263,146 @@ NEW_ENTRY_POINTS.update({
         .init_device_state((2,), **kw)),
     "herm_ri.split": lambda **kw: herm_ri.split(np.ones(3) * 1j, **kw),
 })
+
+# convolution, room simulation, HADES and the spreader, at tiny sizes
+from spatial_audio_framework_tpu_torch.models import (ambi_roomsim,  # noqa: E402
+                                                      conv_examples, spreader)
+from spatial_audio_framework_tpu_torch.modules import hades, reverb  # noqa: E402
+from spatial_audio_framework_tpu_torch.ops import matrix_conv as mconv  # noqa: E402
+
+_MC = mconv.MatrixConv(hop=64, length_h=100, n_in=2, n_out=3)
+_MU = mconv.MultiConv(hop=64, length_h=100, n_ch=2)
+_TV = mconv.TVConv(hop=64, length_h=100, n_out=2, n_irs=3)
+_H3 = np.ones((3, 2, 100), np.float32)
+_RSCFG = ambi_roomsim.AmbiRoomSimConfig(refl_order=0, room_dims=(4.0, 3.0,
+                                                                 2.5))
+_RSPOS = (np.array([[1.0, 1.0, 1.0]]), np.array([[2.0, 2.0, 1.2]]))
+_SPCFG = spreader.SpreaderConfig(mode="naive")
+
+
+@functools.cache
+def _hades_pipe():
+    from spatial_audio_framework_tpu_torch.modules import hrir
+
+    h, d, fs = hrir.default_hrirs()
+    ana = hades.HadesAnalysis(h_array=h[::64], grid_dirs_deg=d[::64],
+                              device="cpu")
+    return hades.HadesPipeline(ana, hades.HadesSynthesis(
+        ana, h[::64], d[::64], interp_option="nearest"))
+
+
+@functools.cache
+def _spreader_w():
+    from spatial_audio_framework_tpu_torch.modules import hrir
+
+    h, d, fs = hrir.default_hrirs()
+    return spreader.design(_SPCFG, h[::64], d[::64], fs, device="cpu")
+
+
+NEW_ENTRY_POINTS.update({
+    "matrix_conv.MatrixConv.design": lambda **kw: _MC.design(_H3, **kw),
+    "matrix_conv.MatrixConv.design_ri": lambda **kw: _MC.design_ri(_H3, **kw),
+    "matrix_conv.MatrixConv.init_state": lambda **kw: _MC.init_state(**kw),
+    "matrix_conv.MatrixConv.init_state_ri": lambda **kw: (
+        _MC.init_state_ri(**kw)),
+    "matrix_conv.MultiConv.design": lambda **kw: _MU.design(_H3[0], **kw),
+    "matrix_conv.MultiConv.design_ri": lambda **kw: _MU.design_ri(_H3[0],
+                                                                  **kw),
+    "matrix_conv.MultiConv.init_state": lambda **kw: _MU.init_state(**kw),
+    "matrix_conv.MultiConv.init_state_ri": lambda **kw: (
+        _MU.init_state_ri(**kw)),
+    "matrix_conv.TVConv.design": lambda **kw: _TV.design(_H3, **kw),
+    "matrix_conv.TVConv.design_ri": lambda **kw: _TV.design_ri(_H3, **kw),
+    "matrix_conv.TVConv.init_state": lambda **kw: _TV.init_state(**kw),
+    "matrix_conv.TVConv.init_state_ri": lambda **kw: _TV.init_state_ri(**kw),
+    "matrix_conv.design_from_numpy": lambda **kw: mconv.design_from_numpy(
+        (np.zeros(3), np.zeros(3)), **kw),
+    "matrix_conv.state_from_numpy": lambda **kw: mconv.state_from_numpy(
+        np.zeros((1, 2, 66), np.complex64), np.zeros((3, 64)), **kw),
+    "matrix_conv.tv_state_from_numpy": lambda **kw: (
+        mconv.tv_state_from_numpy(np.zeros((1, 130)), np.zeros((2, 64)),
+                                  np.zeros((2, 64)), 0, 0, **kw)),
+    "conv_examples.MatrixConvExample": lambda **kw: (
+        conv_examples.MatrixConvExample(hop=64).design(_H3, **kw)[1],
+        conv_examples.MatrixConvExample(hop=64).design_ri(_H3, **kw)[1],
+        conv_examples.MatrixConvExample(hop=64).init_state(_MC, **kw),
+        conv_examples.MatrixConvExample(hop=64).init_state_ri(_MC, **kw)),
+    "conv_examples.MultiConvExample": lambda **kw: (
+        conv_examples.MultiConvExample(hop=64).design(_H3[0], **kw)[1],
+        conv_examples.MultiConvExample(hop=64).design_ri(_H3[0], **kw)[1],
+        conv_examples.MultiConvExample(hop=64).init_state(_MU, **kw),
+        conv_examples.MultiConvExample(hop=64).init_state_ri(_MU, **kw)),
+    "conv_examples.TVConvExample": lambda **kw: (
+        conv_examples.TVConvExample(hop=64).design(_H3, np.zeros((3, 3)),
+                                                   **kw)[1:],
+        conv_examples.TVConvExample(hop=64).design_ri(_H3, np.zeros((3, 3)),
+                                                      **kw)[1:],
+        conv_examples.TVConvExample(hop=64).init_state(_TV, **kw),
+        conv_examples.TVConvExample(hop=64).init_state_ri(_TV, **kw)),
+    "reverb.ImsTDApplicator.init_state": lambda **kw: reverb.ImsTDApplicator(
+        48000.0, 2, 4, (500.0,), 64).init_state(**kw),
+    "reverb.taps_from_numpy": lambda **kw: reverb.taps_from_numpy(
+        reverb.EchogramTaps(np.zeros((2, 4), np.int32),
+                            np.zeros((2, 1, 4, 4))), **kw),
+    "reverb.td_state_from_numpy": lambda **kw: reverb.td_state_from_numpy(
+        np.zeros((2, 1, 64)), **kw),
+    "ambi_roomsim.design": lambda **kw: ambi_roomsim.design(
+        _RSCFG, *_RSPOS, **kw).Hf,
+    "ambi_roomsim.design_ri": lambda **kw: ambi_roomsim.design_ri(
+        _RSCFG, *_RSPOS, **kw).Hf,
+    "ambi_roomsim.weights_from_numpy": lambda **kw: (
+        ambi_roomsim.weights_from_numpy(_RSCFG, np.zeros((2, 4, 1, 129),
+                                                         np.complex64),
+                                        **kw).Hf),
+    "ambi_roomsim.init_state": lambda **kw: ambi_roomsim.init_state(
+        _RSCFG, ambi_roomsim.weights_from_numpy(
+            _RSCFG, np.zeros((2, 4, 1, 129), np.complex64), "cpu"), **kw),
+    "ambi_roomsim.init_state_ri": lambda **kw: ambi_roomsim.init_state_ri(
+        _RSCFG, ambi_roomsim.weights_from_numpy(
+            _RSCFG, np.zeros((2, 4, 1, 129), np.complex64), "cpu"), **kw),
+    "hades.HadesAnalysis": lambda **kw: hades.HadesAnalysis(
+        hop=128, h_array=np.ones((4, 2, 64), np.float32),
+        grid_dirs_deg=np.array([[0.0, 0], [90, 0], [180, 0], [-90, 0]]),
+        **kw).Cx_avg,
+    "hades.HadesPipeline.state_from_numpy": lambda **kw: (
+        hades.HadesPipeline.state_from_numpy(
+            _STATE_RI, (np.zeros(3),) * 2, (np.zeros(3),) * 2, _STATE_RI,
+            **kw)),
+    "hades.HadesPipeline.state_batched_from_numpy": lambda **kw: (
+        hades.HadesPipeline.state_batched_from_numpy(
+            np.zeros((2, 2, 15 * 128)), (np.zeros(3),) * 2,
+            (np.zeros(3),) * 2, np.zeros((2, 2, 9 * 128)), **kw)),
+    "spreader.design": lambda **kw: _tensors(spreader.design(
+        _SPCFG, *(a[::64] for a in _hrirs()[:2]), _hrirs()[2], **kw))[:6],
+    "spreader.weights_from_numpy": lambda **kw: spreader.weights_from_numpy(
+        *(t.numpy() for t in _spreader_w()[:6]), dict(_spreader_w().lattice),
+        **kw)[:6],
+    "spreader.init_state": lambda **kw: spreader.init_state(
+        _SPCFG, _spreader_w(), n_instances=2, **kw),
+    "spreader.state_from_numpy": lambda **kw: spreader.state_from_numpy(
+        _BANKB, ((np.zeros(3),) * 4,), *(np.zeros(3),) * 7, **kw),
+})
+
+
+def _hrirs():
+    from spatial_audio_framework_tpu_torch.modules import hrir
+
+    return hrir.default_hrirs()
+
+
+def test_hades_pipeline_batched_state_raises_without_a_card(monkeypatch):
+    """HadesPipeline's states live on the analysis's device: a pipeline
+    made on the CPU makes CPU states, and without a card the default
+    analysis raises."""
+    pipe = _hades_pipe()
+    for st in (pipe.init_state(), pipe.init_state_batched(2)):
+        assert all(t.device.type == "cpu" for t in _tensors(st))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hades.HadesAnalysis(h_array=np.ones((4, 2, 64), np.float32),
+                            grid_dirs_deg=np.zeros((4, 2)))
+
+
 _ACFG = array2sh.Array2SHConfig(order=1)
 _SENSORS = np.array([[0.0, 0], [90, 0], [180, 0], [-90, 0], [0, 90],
                      [0, -90]])

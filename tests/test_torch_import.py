@@ -394,6 +394,81 @@ print("ok")
 """
 
 
+
+# convolution, room simulation, HADES and the spreader with their modules
+# (utils/misc, utils/sort, ops/matrix_conv, the 2x2 half of ops/herm_ri,
+# modules/reverb, modules/cdf4sap)
+_SCRIPT_CONV_HADES = _SCRIPT_SINGLE_STREAM.split("import numpy as np")[0] + """
+import numpy as np
+import torch
+from spatial_audio_framework_tpu_torch.models import (ambi_roomsim,
+                                                      conv_examples, spreader)
+from spatial_audio_framework_tpu_torch.modules import cdf4sap, hades, hrir
+from spatial_audio_framework_tpu_torch.modules import reverb
+from spatial_audio_framework_tpu_torch.ops import herm_ri, matrix_conv
+from spatial_audio_framework_tpu_torch.utils import misc, sort
+
+rng = np.random.default_rng(0)
+u = lambda *shape: torch.from_numpy(
+    rng.uniform(-1, 1, shape).astype(np.float32))
+ok = lambda y, shape: tuple(y.shape) == shape and bool(torch.isfinite(y).all())
+
+assert misc.lagrange_weights(2, np.array([0.25])).shape == (3, 1)
+assert len(misc.sort_cmplx_pairs(np.array([1 + 1j, 2.0, 1 - 1j]))) == 3
+assert sort.find_closest_grid_points(np.zeros((3, 2)), np.zeros((1, 2))).shape == (1,)
+
+ex = conv_examples.TVConvExample(hop=64)
+conv, H, pos = ex.design_ri(u(3, 2, 100).numpy(), u(3, 3).numpy(), "cpu")
+st = ex.init_state_ri(conv, batch=(2,), device="cpu")
+y, st = ex.process_ri(conv, H, st, u(2, 256), u(2, 3), pos)
+assert ok(y, (2, 2, 256))
+mc = matrix_conv.MatrixConv(hop=64, length_h=100, n_in=2, n_out=3,
+                            partitioned=False)
+y, _ = mc.apply_block(mc.design(u(3, 2, 100).numpy(), "cpu"),
+                      mc.init_state(device="cpu"), u(2, 256))
+assert ok(y, (3, 256))
+rcfg = ambi_roomsim.AmbiRoomSimConfig(refl_order=1, room_dims=(5.0, 4.0, 3.0))
+rw = ambi_roomsim.design_ri(rcfg, np.array([[1.0, 1.0, 1.0]]),
+                            np.array([[3.0, 2.0, 1.5]]), device="cpu")
+y, _ = ambi_roomsim.process_ri(rcfg, rw, ambi_roomsim.init_state_ri(
+    rcfg, rw, device="cpu"), u(1, 256))
+assert ok(y, (4, 256))
+room = reverb.ShoeboxRoom(np.array([5.0, 4.0, 3.0]),
+                          np.tile([[0.3] * 6], (2, 1)))
+room.add_source([1.0, 1.0, 1.0])
+room.add_receiver_sh(1, [3.0, 2.0, 1.5])
+room.compute_echograms(max_order=1)
+app = room.td_applicator(0, max_delay=1024)
+y, _ = app.process(app.init_state("cpu"), u(1, 256), room.pack_taps(0, 16))
+assert ok(y, (4, 256))
+
+C = u(5, 2, 2)
+C = (C @ C.transpose(-1, -2) + torch.eye(2), torch.zeros(5, 2, 2))
+assert ok(herm_ri.cheev_2x2(C)[0], (5, 2))
+assert ok(herm_ri.cgesv_ri(C, (u(5, 2), u(5, 2)))[0], (5, 2))
+assert ok(cdf4sap.formulate_M_and_Cr_ri(C, C, C)[0][0], (5, 2, 2))
+
+h, d, fs = hrir.default_hrirs()
+ana = hades.HadesAnalysis(h_array=h[::32], grid_dirs_deg=d[::32],
+                          blocksize=256, device="cpu")
+pipe = hades.HadesPipeline(ana, hades.HadesSynthesis(
+    ana, h[::32], d[::32], beam_option="bmvdr", interp_option="nearest"))
+y, _ = pipe.process_chunk_batched(pipe.init_state_batched(2), u(2, 2, 2, 256))
+assert ok(y, (2, 2, 2, 256))
+scfg = spreader.SpreaderConfig(mode="om")
+sw = spreader.design(scfg, h[::32], d[::32], fs, device="cpu")
+y, _ = spreader.process_chunk(scfg, sw, spreader.init_state(
+    scfg, sw, n_instances=2, device="cpu"), u(2, 2, 1, 256),
+    torch.tensor([[40.0, 10.0]]), torch.tensor([60.0]))
+assert ok(y, (2, 2, 2, 256))
+leaked = [m for m in sys.modules
+          if m == "spatial_audio_framework_tpu"
+          or m.startswith("spatial_audio_framework_tpu.")]
+assert not leaked, leaked
+assert "jax" not in sys.modules
+print("ok")
+"""
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -425,3 +500,10 @@ def test_analysers_and_decorrelator_run_without_jax():
     (three modes) with ops/iir, ops/herm_ri, utils/filters, utils/decor,
     modules/sh_est and the sector half of modules/sh."""
     _run(_SCRIPT_ANALYSERS)
+
+
+def test_convolution_room_hades_spreader_run_without_jax():
+    """matrix_conv and the conv examples, reverb and ambi_roomsim, the 2x2
+    half of herm_ri, cdf4sap, HADES (batched) and the spreader (instances)
+    with utils/misc and utils/sort."""
+    _run(_SCRIPT_CONV_HADES)

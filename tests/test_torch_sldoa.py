@@ -133,3 +133,42 @@ def test_analysis_batched_vs_jax():
                            torch.from_numpy(x[i]))
         assert float((ob.energy[i] - oi.energy).abs().max()) \
             <= 1e-5 * float(oi.energy.abs().max())
+
+
+def test_weak_slots_follow_jax():
+    """The card's sldoa phase (order 3, two plane waves in diffuse noise 20
+    dB down, a 64-hop chunk, the batched path) saw one weak slot's
+    direction move 0.049 rad between its kernel and plain paths while the
+    energies agreed to 6e-7: a weak slot's intensity cancels, so float32
+    rounding of the spectra turns it.  Here, on such scenes, the port's
+    plain path gives the JAX package's per-slot direction in every slot,
+    the weakest included, to float32 rounding's reach (the card's test
+    then holds the energy-weighted directions only, kernel against
+    plain)."""
+    kw = dict(master_order=3, norm="n3d", fit_grid_level=6)
+    jc, tc = J.SldoaConfig(**kw), T.SldoaConfig(**kw)
+    wj, wt = J.design(jc), T.design(tc, device="cpu")
+    rng = np.random.default_rng(28)
+    n, T_len = 2, 64 * 128
+    x = np.empty((n, 16, T_len), np.float32)
+    for i in range(n):
+        dirs = np.stack([rng.uniform(-180, 180, 2), rng.uniform(-60, 60, 2)],
+                        -1)
+        x[i] = (jsh.get_rsh(3, dirs) @ rng.standard_normal((2, T_len))
+                + 0.1 * rng.standard_normal((16, T_len)))
+    oj, _ = J.analysis_batched(jc, wj, J.init_state_batched(jc, n),
+                               jnp.asarray(x))
+    ot, _ = T.analysis_batched(tc, wt, T.init_state_batched(tc, n, "cpu"),
+                               torch.from_numpy(x), fused=False)
+    dj, dt = np.asarray(oj.doa_rad), ot.doa_rad.numpy()
+    du = np.linalg.norm(_unit(dj[..., 0], dj[..., 1])
+                        - _unit(dt[..., 0], dt[..., 1]), axis=-1)
+    e = np.asarray(oj.energy)
+    weak = e < 1e-3 * e.max()
+    assert weak.sum() > 100          # the scene has weak slots to hold
+    # 2e-3 (this file's per-slot bound) wherever the energy is above 1e-4
+    # of the peak; 5e-3 in the rest (seen: 2.2e-3 in one slot of 153,216,
+    # at 1.8e-5 of the peak energy, every other slot below 8e-4)
+    assert du[e >= 1e-4 * e.max()].max() <= 2e-3
+    assert du.max() <= 5e-3
+    _check(oj, ot)

@@ -1165,18 +1165,20 @@ def test_front_back_at_the_hades_spreader_rows(cuda, rows, H):
         assert (k - p).abs().max().item() <= TOL
 
 
-# the outputs of HADES's and the spreader's solve / CDF4SAP chains, kernel
-# path vs plain: the C's own output moves 5.3e-4 for a one-ulp input change
+# the spreader's output (its solve / CDF4SAP chain), kernel path vs plain:
+# the C's own output moves 5.3e-4 for a one-ulp input change
 # (tests/test_c_goldens.py), and two plain orders of the same front differ
-# by up to 1e-4 on the CPU (band 0's DoA, near-degenerate SVDs); the
-# covariances the front feeds agree to TOL
+# by 6.7e-5 on the CPU (scripts/chain_precision.py).  HADES's output is not
+# held: its DoA is an argmin over the grid whose near ties flip with
+# rounding (4.3e-3 between two plain orders, one band of one block); the
+# covariances the front feeds agree to TOL on both.
 CHAIN_TOL = 5e-4
 
 
 def _batched_case(name, cuda):
     """(process(st, x, fused) -> (y, st), init_state(), x shape,
-    held(st) -> [(state leaf, tol)]) of HADES or the spreader, 3
-    instances."""
+    held(st) -> [(state leaf, tol)], the output's tol or None) of HADES or
+    the spreader, 3 instances."""
     from spatial_audio_framework_tpu_torch.modules import hrir
 
     h, d, fs = hrir.default_hrirs()
@@ -1189,8 +1191,7 @@ def _batched_case(name, cuda):
             ana, beam_option="bmvdr"))
         return (lambda st, x, f: pipe.process_chunk_batched(st, x, fused=f),
                 lambda: pipe.init_state_batched(3), (3, 4, 2, 512),
-                lambda st: [(c, TOL) for c in st[1]]
-                + [(st[3].ola_tail, CHAIN_TOL)])
+                lambda st: [(c, TOL) for c in st[1]], None)
     from spatial_audio_framework_tpu_torch.models import spreader
 
     cfg = spreader.SpreaderConfig(mode="om")
@@ -1203,7 +1204,8 @@ def _batched_case(name, cuda):
                                                     spread, fused=f),
             lambda: spreader.init_state(cfg, w, n_instances=3, device=cuda),
             (3, 4, 1, 512), lambda st: [(st.bank.ola_tail, CHAIN_TOL),
-                                        (st.Cproto_re, TOL), (st.Cy_re, TOL)])
+                                        (st.Cproto_re, TOL), (st.Cy_re, TOL)],
+            CHAIN_TOL)
 
 
 @pytest.mark.parametrize("name", ["hades", "spreader"])
@@ -1211,9 +1213,9 @@ def test_batched_hades_spreader_route_matches_plain_path(cuda, monkeypatch,
                                                          name):
     """The instance-batched paths: one analysis_front_ri and one
     synthesis_back_ri launch a call, never a plain version, and
-    ``fused=False``'s output and states, relative to max(1, scale): the
-    covariances at TOL, the output at CHAIN_TOL."""
-    process, init_state, shape, held = _batched_case(name, cuda)
+    ``fused=False``'s states and output, relative to max(1, scale): the
+    covariances at TOL, the spreader's output at CHAIN_TOL."""
+    process, init_state, shape, held, y_tol = _batched_case(name, cuda)
     rng = np.random.default_rng(11)
     xs = [_u(rng, shape, cuda) for _ in range(2)]
 
@@ -1221,7 +1223,7 @@ def test_batched_hades_spreader_route_matches_plain_path(cuda, monkeypatch,
         st, outs = init_state(), []
         for x in xs:
             y, st = process(st, x, fused)
-            outs += [(y, CHAIN_TOL)] + held(st)
+            outs += held(st) + ([(y, y_tol)] if y_tol else [])
         return outs
 
     plain = run(False)
@@ -1281,7 +1283,7 @@ def _conv_case(name, cuda):
             _, state["st"] = ambi_roomsim.process_ri(cfg, w, state["st"],
                                                      xs[i])
         return step
-    process, init_state, shape, _ = _batched_case(name, cuda)
+    process, init_state, shape = _batched_case(name, cuda)[:3]
     state = {"st": init_state()}
     xs = _u(rng, (6,) + shape, cuda)
 

@@ -194,7 +194,32 @@ Phases:
     (real and complex, with and without energy), ``hds``, ``hdt``,
     ``hdr``, ``hdh`` (diffuseness each block, DoA indices held equal) and
     ``spr_*`` in all three modes.  Phase 2 times both kernels at the
-    HADES and spreader rows too.
+    HADES and spreader rows too;
+36. the real-time runtime over the flagship: ``StreamRunner`` on the
+    native ring buffers (``runtime/native.py`` over ``saf_runtime.cpp``,
+    built with g++), 64 streams x 16 SH channels in, 64 x 2 ears out,
+    frames of 1024 samples (H = 8 hops: ``render_full_ri`` once a frame),
+    the host feeding blocks of 480 samples (10 ms), 2 s of audio,
+    synchronously (``process_block``) and through the render thread
+    (``push`` / ``pull``): the launches, the output against a direct loop
+    of ``process_ri_batched`` delayed by one frame, wall ms per frame, the
+    frame clock's real-time factor and the device-to-host read's share;
+    ``render_full_ri`` timed at (64, 16, 2, 8) too;
+37. ``render_signal`` over the flagship: 64 streams, 8 blocks of 8192,
+    bit-equal to a hand loop, ``render_full_ri`` 8 launches, the blocks
+    under ``set_sync_debug_mode("error")``, and a ``trace_annotation`` span
+    seen among torch.profiler's events;
+38. the device grid (``parallel/mesh.py``) on the card's 1 x 1 grid over
+    the flagship, 2 chunks: equal to the unsharded render;
+39. the pitch shifter, 64 channels, fft 8192, osamp 16 (the defaults),
+    blocks of 8192 samples, 2 s, a new shift factor on the card every
+    block: none of the six kernels, the card against the CPU (printed),
+    no host wait, wall, host and device ms per block;
+40. QMF (hop 128, hybrid) and STFT (window 1024, hop 512) round trips of 64
+    channels, as phase 39, the card against the CPU held at KERNEL_TOL;
+41. parity with the C on the card: ``pitch_out_1p5`` / ``_0p5`` /
+    ``_2p0`` (1e-3), ``qmf_spec`` (1e-3) and ``qmf_out``, the FuMa / ACN
+    conversions on card tensors (``fuma_*``, ``acn_*``).
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -214,6 +239,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2706,6 +2732,396 @@ def phase_conv_hades_c_parity(ak, dev, card) -> None:
              "mode)")
 
 
+
+# the runtime's path: the flagship's 64 x 16 channels in frames of 1024
+# samples (8 hops), fed by the host in blocks of 10 ms, for 2 s of audio
+RT_FRAME, RT_BLOCK, RT_SECONDS = 1024, 480, 2.0
+# the runtime against a direct loop of the same frames: the same launches on
+# the same inputs (tests/test_runtime.py:113-145 holds the JAX runner at 1e-6)
+RT_TOL = 1e-6
+
+
+def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
+    """Phase 36: StreamRunner over the flagship, synchronous and on the
+    render thread; render_full_ri timed at the frame's shape.  Returns the
+    launches of each mode's main run and the kernel's times at H = 8."""
+    from spatial_audio_framework_tpu_torch.models import ambi_bin
+    from spatial_audio_framework_tpu_torch.runtime import (StreamRunner,
+                                                           native,
+                                                           torch_frame_fn)
+
+    check(native.native_available(),
+          "the native runtime library did not build (g++): the ring "
+          "buffers would be the pure-Python fallback")
+    print(f"phase 36: native runtime {native.library_path().name} built "
+          f"from {native.SRC.relative_to(ROOT)} by g++")
+    nsh, S, F = bcfg.nsh, N_STREAMS, RT_FRAME
+    n_in, n_out = S * nsh, S * 2
+    T = int(RT_SECONDS * FS) // RT_BLOCK * RT_BLOCK
+    n_frames = T // F
+    x = (ANA_AMP * rng.uniform(-1.0, 1.0, (n_in, T))).astype(np.float32)
+
+    def make():
+        box = [ambi_bin.init_state_batched(bcfg, S, dev)]
+
+        def fn(f):
+            y, box[0] = ambi_bin.process_ri_batched(bcfg, bw, box[0],
+                                                    f.reshape(S, nsh, F))
+            return y.reshape(n_out, F)
+        return fn
+
+    # the direct loop: the same frames through the same call, no runtime
+    direct = make()
+    xd = torch.from_numpy(x[:, :n_frames * F]).to(dev)
+    ref = torch.cat([direct(xd[:, k * F:(k + 1) * F])
+                     for k in range(n_frames)], dim=1).cpu().numpy()
+    runner = StreamRunner(torch_frame_fn(make(), n_in, F, dev), n_in, n_out,
+                          F, fs=FS)
+    runner.process_block(np.zeros((n_in, F), np.float32))   # warm: caches
+    out = {}
+    for mode in ("process_block", "render thread"):
+        runner = StreamRunner(torch_frame_fn(make(), n_in, F, dev), n_in,
+                              n_out, F, fs=FS, ring_frames=8)
+        for k in KERNELS:
+            getattr(ak, k).launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "process_block":
+            y = np.concatenate([runner.process_block(x[:, s:s + RT_BLOCK])
+                                for s in range(0, T, RT_BLOCK)], axis=1)
+        else:
+            runner.start()
+            fed, got, n_got = 0, [], 0
+            deadline = time.monotonic() + 120.0
+            try:
+                while n_got < n_frames * F:
+                    if fed < T:
+                        fed += runner.push(x[:, fed:fed + RT_BLOCK])
+                    chunk = runner.pull(RT_BLOCK)
+                    if chunk.size:
+                        got.append(chunk.copy())
+                        n_got += chunk.shape[1]
+                    else:
+                        time.sleep(0.0002)
+                    check(time.monotonic() < deadline,
+                          "the render thread stalled")
+            finally:
+                runner.stop()
+            y = np.concatenate(got, axis=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(ak, k).launches for k in KERNELS}
+        frames_run = runner.clock.frames
+        print(f"phase 36: StreamRunner ({mode}) over the flagship main path: "
+              f"{T} samples of {n_in} channels in blocks of {RT_BLOCK}, "
+              f"{frames_run} frames of {F}; launches = {launches}")
+        expect = {k: frames_run if k == "render_full_ri" else 0
+                  for k in KERNELS}
+        check(frames_run == n_frames and launches == expect,
+              f"runtime ({mode}): {frames_run} frames, expected launches "
+              f"{expect}")
+        if mode == "process_block":
+            got_, want = y[:, F:n_frames * F], ref[:, :(n_frames - 1) * F]
+            vs = "the direct loop delayed by one frame"
+        else:     # the rings add no FIFO latency: frame k is samples k·F..
+            got_, want = y[:, :n_frames * F], ref
+            vs = "the direct loop"
+        check(bool(np.isfinite(y).all()), f"runtime ({mode}): non-finite")
+        err = float(np.abs(got_ - want).max())
+        print(f"phase 36: StreamRunner ({mode}) vs {vs} of "
+              f"process_ri_batched: max |err| = {err:.3e} (tol {RT_TOL})")
+        check(err <= RT_TOL, f"runtime ({mode}) disagrees: {err}")
+        ms = wall * 1e3 / frames_run
+        print(f"phase 36: StreamRunner ({mode}) [{card}]: {ms:.4f} ms of "
+              f"wall per frame of {F / FS * 1e3:.2f} ms of audio "
+              f"({S} streams), frame clock rtf {runner.clock.rtf:.2f}, "
+              f"audio-s/s {S * n_frames * F / FS / wall:.1f}; the "
+              f"device-to-host read (pinned, its wait included) "
+              f"{runner.read_s * 1e3 / frames_run:.4f} ms per frame = "
+              f"{100 * runner.read_s / wall:.1f} % of the wall")
+        out[mode] = {"launches": launches["render_full_ri"], "ms": ms,
+                     "rtf": runner.clock.rtf,
+                     "read_share": runner.read_s / wall}
+    # the host's share, piece by piece: the FIFO framer's push of one block
+    # (the native per-sample loop), the rings' interleaved write of one
+    # block and read of one frame, the transposed frame staged into pinned
+    # memory (median ms of 20, host clock)
+    blk = np.ascontiguousarray(x[:, :RT_BLOCK])
+    framer, ring = native.FifoFramer(n_in, F), native.RingBuffer(4 * n_in * F)
+    pinned = torch.empty((n_in, F), dtype=torch.float32, pin_memory=True)
+    frame_t = np.ascontiguousarray(x[:, :F].T).T
+
+    def host_ms(fn):
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    def stage():
+        pinned.numpy()[...] = frame_t
+
+    pieces = {
+        "framer push (block)": lambda: framer.push(blk),
+        "ring write x.T + read (block)": lambda: (
+            ring.write(blk.T), ring.read(n_in * RT_BLOCK)),
+        "ring write + read (frame)": lambda: (
+            ring.write(frame_t.T), ring.read(n_in * F)),
+        "pinned staging of a transposed frame": stage}
+    print(f"phase 36: host pieces [{card}] (median ms, host clock): "
+          + ", ".join(f"{k} {host_ms(v):.3f}" for k, v in pieces.items())
+          + f"; a frame is {F / RT_BLOCK:.2f} blocks")
+    # render_full_ri at the frame's shape (64, 16, 2, 8)
+    H = F // 128
+    taps = random_taps(ak, rng, S, nsh, 2, False, True, dev)
+    in_tail = uniform(rng, (S, nsh, 15 * 128), dev)
+    ola = uniform(rng, (S, 2, 9, 128), dev)
+    xk = uniform(rng, (S, nsh, H * 128), dev)
+    ky, _ = ak.render_full_ri(in_tail, xk, ola, taps)
+    py, _ = ak.render_full_ri_reference(in_tail, xk, ola, taps)
+    err = (ky - py).abs().max().item()
+    check(err <= KERNEL_TOL, f"render_full_ri at H = {H}: {err}")
+    t = ab_times({
+        "kernel": lambda: ak.render_full_ri(in_tail, xk, ola, taps),
+        "plain": lambda: ak.render_full_ri_reference(in_tail, xk, ola,
+                                                     taps)}, 20, queued=True)
+    b = render_full_bound(S, nsh, 2, H)
+    report_times("render_full_ri", t, card,
+                 f"{(S, nsh, 2, H)}, the runtime's frame (max |err| vs plain "
+                 f"{err:.3e}; bound {b['bound_ms']:.4f} ms by "
+                 f"{b['bound_by']})")
+    out["times_h8"], out["bound_h8"] = t, b
+    return out
+
+
+def phase_render_signal(bcfg, bw, ak, dev, rng, card) -> int:
+    """Phase 37: render_signal over the flagship, 8 blocks of 8192."""
+    from spatial_audio_framework_tpu_torch.models import ambi_bin
+    from spatial_audio_framework_tpu_torch.parallel.streaming import (
+        render_signal)
+    from spatial_audio_framework_tpu_torch.utils.profiling import (
+        trace_annotation)
+
+    T = HOPS * 128
+    x = uniform(rng, (N_STREAMS, bcfg.nsh, N_CHUNKS * T), dev, ANA_AMP)
+
+    def proc(st, b):
+        return ambi_bin.process_ri_batched(bcfg, bw, st, b)
+
+    def init():
+        return ambi_bin.init_state_batched(bcfg, N_STREAMS, dev)
+
+    render_signal(proc, init(), x[..., :2 * T], T)      # warm: caches
+    st0 = init()
+    for k in KERNELS:
+        getattr(ak, k).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = render_signal(proc, st0, x, T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    print(f"phase 37: render_signal over the flagship main path, {N_CHUNKS} "
+          f"blocks of {(N_STREAMS, bcfg.nsh, T)} under "
+          f"set_sync_debug_mode('error'): no host wait; launches = "
+          f"{launches}")
+    check(launches == {k: N_CHUNKS if k == "render_full_ri" else 0
+                       for k in KERNELS}, "render_signal: launches")
+    st, outs = init(), []
+    for i in range(N_CHUNKS):
+        o, st = proc(st, x[..., i * T:(i + 1) * T])
+        outs.append(o)
+    check(torch.equal(y, torch.cat(outs, dim=-1)),
+          "render_signal differs from the hand loop")
+    print("phase 37: render_signal equals the hand loop bit for bit")
+    t = cuda_ms(lambda: render_signal(proc, init(), x, T), 3)
+    print(f"phase 37: render_signal [{card}]: {t:.4f} ms for {N_CHUNKS} "
+          f"blocks = {N_STREAMS * N_CHUNKS * T / FS / (t / 1e3):.1f} "
+          "audio-seconds per second")
+    name = "saf.render_signal.block"
+
+    def annotated(st, b):
+        with trace_annotation(name):
+            return proc(st, b)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        render_signal(annotated, init(), x[..., :T], T)
+        torch.cuda.synchronize()
+    seen = [e for e in prof.events() if e.name == name]
+    print(f"phase 37: trace_annotation {name!r}: {len(seen)} span(s) among "
+          "torch.profiler's events")
+    check(len(seen) >= 1, "the trace_annotation span is not in the profile")
+    return launches["render_full_ri"]
+
+
+def phase_mesh(bcfg, bw, ak, dev, rng, card) -> int:
+    """Phase 38: run_sharded on the card's grid over the flagship."""
+    from spatial_audio_framework_tpu_torch.models import ambi_bin
+    from spatial_audio_framework_tpu_torch.parallel import mesh
+
+    grid = mesh.make_mesh()
+    print(f"phase 38: device grid {grid.shape} of "
+          f"{[str(d) for d in grid.devices.ravel()]}")
+    xs = [uniform(rng, (N_STREAMS, bcfg.nsh, HOPS * 128), dev, ANA_AMP)
+          for _ in range(2)]
+
+    def proc(w, st, b):
+        return ambi_bin.process_ri_batched(bcfg, w, st, b)
+
+    for k in KERNELS:
+        getattr(ak, k).launches = 0
+    st, ys = ambi_bin.init_state_batched(bcfg, N_STREAMS, dev), []
+    for x in xs:
+        y, st = mesh.run_sharded(proc, bw, st, x, grid)
+        ys.append(y)
+    torch.cuda.synchronize()
+    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    n_dev = grid.devices.size
+    print(f"phase 38: run_sharded over the flagship main path, 2 chunks; "
+          f"launches = {launches}")
+    check(launches == {k: 2 * n_dev if k == "render_full_ri" else 0
+                       for k in KERNELS}, "run_sharded: launches")
+    rst = ambi_bin.init_state_batched(bcfg, N_STREAMS, dev)
+    for x, y in zip(xs, ys):
+        r, rst = proc(bw, rst, x)
+        check(torch.equal(y.to(dev), r), "run_sharded differs from the "
+              "unsharded render")
+    check(torch.equal(st.gather().ola_tail.to(dev), rst.ola_tail),
+          "run_sharded's state differs")
+    print("phase 38: run_sharded equals the unsharded render bit for bit "
+          "(outputs and gathered state)")
+    return launches["render_full_ri"]
+
+
+PITCH_CH, PITCH_BLOCK = 64, 8192
+
+
+def phase_pitch_qmf_stft(ak, dev, rng, card) -> None:
+    """Phases 39-40: the pitch shifter, QMF and STFT (none of the six
+    kernels) through plain_path."""
+    from spatial_audio_framework_tpu_torch.models import pitch_shifter as PS
+    from spatial_audio_framework_tpu_torch.ops import qmf, stft
+
+    n_blocks = int(np.ceil(RT_SECONDS * FS / PITCH_BLOCK))
+    t = np.arange(n_blocks * PITCH_BLOCK) / FS
+    f0 = rng.uniform(100.0, 2000.0, (PITCH_CH, 1))
+    sig = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
+        2 * np.pi * 2.5 * f0 * t + 1.0)).astype(np.float32)
+    xd = torch.from_numpy(sig).to(dev)
+    shifts = torch.from_numpy(rng.uniform(0.5, 2.0, n_blocks).astype(
+        np.float32)).to(dev)
+    xs = [(xd[:, i * PITCH_BLOCK:(i + 1) * PITCH_BLOCK], shifts[i])
+          for i in range(n_blocks)]
+    cfg = PS.PitchShifterConfig(n_ch=PITCH_CH)
+
+    def make_pitch(device):
+        mats = PS.design(cfg, device=device)
+        return (lambda: PS.init_state(cfg, device=device),
+                lambda st, xf: PS.process(cfg, st, xf[0], xf[1], mats))
+
+    print(f"phase 39: pitch shifter {PITCH_CH} ch, fft {cfg.fft_size}, osamp "
+          f"{cfg.osamp} ({cfg.fft_size // cfg.osamp}-sample hops), "
+          f"{n_blocks} blocks of {PITCH_BLOCK} ({n_blocks * PITCH_BLOCK / FS:.2f}"
+          " s), a new shift factor on the card every block")
+    plain_path("pitch shifter", 39, make_pitch, xs, ak, dev, card,
+               PITCH_CH * PITCH_BLOCK / FS, None)
+
+    bank = qmf.QMF(hop=128, hybrid=True)
+    qx = [uniform(rng, (PITCH_CH, PITCH_BLOCK), dev) for _ in range(4)]
+
+    def make_qmf(device):
+        def proc(st, x):
+            spec, st = bank.analysis(st, x)
+            return bank.synthesis(st, spec)
+        return (lambda: bank.init_state(PITCH_CH, PITCH_CH, device=device),
+                proc)
+
+    plain_path("QMF round trip (hop 128, hybrid)", 40, make_qmf, qx, ak,
+               dev, card, PITCH_CH * PITCH_BLOCK / FS, KERNEL_TOL,
+               held=lambda st: [st.syn_tail, st.hyb_tail.real])
+    init, proc = make_qmf(dev)
+    st, ys = init(), []
+    for x in qx:
+        y, st = proc(st, x)
+        ys.append(y)
+    y = torch.cat(ys, -1).cpu().numpy()
+    xin = torch.cat(qx, -1).cpu().numpy()
+    d = bank.proc_delay
+    err = float(np.abs(y[:, d:] - xin[:, :xin.shape[1] - d]).max())
+    print(f"phase 40: QMF round trip on the card vs the input delayed by "
+          f"{d}: max |err| = {err:.3e} (tol 0.01, tests/test_qmf.py)")
+    check(err < 0.01, f"QMF round trip: {err}")
+    st_ = stft.STFT(winsize=1024, hopsize=512, n_ch_in=PITCH_CH,
+                    n_ch_out=PITCH_CH)
+
+    def make_stft(device):
+        def proc(st, x):
+            spec, st = st_.forward(st, x)
+            return st_.backward(st, spec)
+        return lambda: st_.init_state(device=device), proc
+
+    plain_path("STFT round trip (window 1024, hop 512)", 40, make_stft, qx,
+               ak, dev, card, PITCH_CH * PITCH_BLOCK / FS, KERNEL_TOL,
+               held=lambda st: [st.ola_tail])
+
+
+def phase_last_c_parity(ak, dev, card) -> None:
+    """Phase 41: pitch_out_*, qmf_*, the FuMa / ACN conversions on the
+    card against the compiled C, at the JAX tests' tolerances."""
+    from spatial_audio_framework_tpu_torch.modules import hoa
+    from spatial_audio_framework_tpu_torch.ops.pitch import SmbPitchShift
+    from spatial_audio_framework_tpu_torch.ops.qmf import QMF
+
+    g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
+    ps = SmbPitchShift(fs=FS, n_ch=1, fft_size=4096, osamp=4)
+    x = torch.from_numpy(np.asarray(g["pitch_in"], np.float32))[None].to(dev)
+    for key, shift in (("pitch_out_1p5", 1.5), ("pitch_out_0p5", 0.5),
+                       ("pitch_out_2p0", 2.0)):
+        y, _ = ps.apply(ps.init_state(dev), x,
+                        torch.tensor(shift, device=dev))
+        err = float(np.abs(y[0].cpu().numpy() - g[key]).max())
+        print(f"phase 41: {key} vs the C reference on the card [{card}]: "
+              f"max |err| = {err:.3e} (tol 1e-3, tests/test_c_goldens.py:416)")
+        check(err <= 1e-3, f"{key}: {err}")
+    bank = QMF(hop=128, hybrid=True)
+    xq = torch.from_numpy(np.asarray(g["qmf_in"], np.float32)).to(dev)
+    st = bank.init_state(4, 4, device=dev)
+    specs, outs = [], []
+    for f in range(8):
+        spec, st = bank.analysis(st, xq[:, f * 512:(f + 1) * 512])
+        specs.append(spec.cpu().numpy())
+        y, st = bank.synthesis(st, spec)
+        outs.append(y)
+    err = float(np.abs(np.stack(specs) - g["qmf_spec"]).max())
+    print(f"phase 41: qmf_spec vs the C reference on the card [{card}]: max "
+          f"|err| = {err:.3e} (tol 1e-3, |spec| ~ O(10), "
+          "tests/test_c_goldens.py:258)")
+    check(err <= 1e-3, f"qmf_spec: {err}")
+    c_parity(41, "qmf_out", torch.cat(outs, -1).cpu().numpy(),
+             np.asarray(g["qmf_out"]), card)
+    sig = torch.from_numpy(np.asarray(g["fuma_sig"], np.float32)).to(dev)
+    for key, conv in (("fuma_to_acn", (hoa.HOA_CH_ORDER_FUMA,
+                                       hoa.HOA_CH_ORDER_ACN)),
+                      ("acn_to_fuma", (hoa.HOA_CH_ORDER_ACN,
+                                       hoa.HOA_CH_ORDER_FUMA))):
+        out = hoa.convert_hoa_channel_convention(sig, 2, *conv)
+        err = float(np.abs(out.cpu().numpy() - g[key]).max())
+        print(f"phase 41: {key} on the card: max |err| = {err:.3e} (exact)")
+        check(err == 0.0, f"{key}: {err}")
+    ones = torch.ones((4, 4), device=dev)
+    for key, conv in (("fuma_norm_to_n3d", (hoa.HOA_NORM_FUMA,
+                                            hoa.HOA_NORM_N3D)),
+                      ("n3d_norm_to_fuma", (hoa.HOA_NORM_N3D,
+                                            hoa.HOA_NORM_FUMA))):
+        c_parity(41, key, hoa.convert_hoa_norm_convention(
+            ones, 1, *conv).cpu().numpy(), np.asarray(g[key]), card)
+
+
 def bound(in_floats: float, out_floats: float, flop: float) -> dict:
     """The least time of a kernel's work on the card (see HBM_BYTES_PER_S):
     the larger of its bytes over the HBM rate and its operations over the
@@ -2912,7 +3328,12 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
+    # the runtime's g++ build (phase 36) runs beside the nvcc builds
+    from spatial_audio_framework_tpu_torch.runtime import native
+    rt_build = threading.Thread(target=native.native_available)
+    rt_build.start()
     seconds = _build.build()
+    rt_build.join()
     print(f"phase 1: built {_build.library_path().name} from "
           f"{_build.SRC_DIR.relative_to(ROOT)} in {seconds:.2f} s")
     log = _build.library_path().with_suffix(".log")
@@ -3137,6 +3558,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_conv_hades_c_parity(ak, dev, card)
     print(f"phase 35 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rt = phase_runtime(bcfg, bw, ak, dev, rng, card)
+    rs_launches = phase_render_signal(bcfg, bw, ak, dev, rng, card)
+    mesh_launches = phase_mesh(bcfg, bw, ak, dev, rng, card)
+    print(f"phases 36-38 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_pitch_qmf_stft(ak, dev, rng, card)
+    phase_last_c_parity(ak, dev, card)
+    print(f"phases 39-41 took {time.perf_counter() - t0:.1f} s")
 
     bounds = kernel_bounds()
     # (kernel, rows, hops, path, its launches in that path's main run)
@@ -3192,6 +3622,21 @@ def main() -> int:
         "ambi_dec binaural preview, order 3 -> 22.x -> 2 ears",
         preview["render_full_ri"], times["render_full_ri"],
         bounds["render_full_ri"])]
+    # the runtime's frames (H = 8), render_signal's blocks and the grid's
+    # chunks (the flagship's shape)
+    h8 = f"({N_STREAMS}, 16, 2, {RT_FRAME // 128})"
+    for mode in ("process_block", "render thread"):
+        other["render_full_ri"].append(shape_entry(
+            h8, f"StreamRunner ({mode}) over the flagship, frames of "
+            f"{RT_FRAME}, {RT_SECONDS:g} s", rt[mode]["launches"],
+            rt["times_h8"], rt["bound_h8"]))
+    for path, n in (("render_signal over the flagship, 8 blocks",
+                     rs_launches),
+                    ("run_sharded on the card's grid, flagship, 2 chunks",
+                     mesh_launches)):
+        other["render_full_ri"].append(shape_entry(
+            f"({N_STREAMS}, 16, 2, {HOPS})", path, n,
+            times["render_full_ri"], bounds["render_full_ri"]))
     for name in KERNELS:
         lib = times[name].get("library")
         print(f"phase 2: {name} at its main path's shape [{card}]: kernel "

@@ -11,10 +11,14 @@ Ported decoders (saf_hoa.h:413,447; internals saf_hoa_internal.c):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from spatial_audio_framework_tpu_torch.modules import sh as _sh
 from spatial_audio_framework_tpu_torch.utils import presets as _presets
 
+# Channel-order conventions (saf_hoa.h HOA_CH_ORDER)
+HOA_CH_ORDER_ACN = 0
+HOA_CH_ORDER_FUMA = 1
 # Normalisation conventions (saf_hoa.h HOA_NORM)
 HOA_NORM_N3D = 0
 HOA_NORM_SN3D = 1
@@ -34,6 +38,27 @@ BINAURAL_DECODER_TA = "ta"
 BINAURAL_DECODER_MAGLS = "magls"
 
 _4PI = 4.0 * np.pi
+
+
+def convert_hoa_channel_convention(sig, order: int, in_conv: int,
+                                   out_conv: int):
+    """sig: (..., nSH, T), numpy or a tensor.  FuMa↔ACN first-order swaps;
+    FuMa limited to order 1, higher channels zeroed (saf_hoa.c:40-70)."""
+    if order == 0 or in_conv == out_conv:
+        return sig
+    if in_conv == HOA_CH_ORDER_FUMA and out_conv == HOA_CH_ORDER_ACN:
+        perm = [0, 2, 3, 1]  # WXYZ → WYZX
+    elif in_conv == HOA_CH_ORDER_ACN and out_conv == HOA_CH_ORDER_FUMA:
+        perm = [0, 3, 1, 2]
+    else:
+        raise ValueError((in_conv, out_conv))
+    nsh = sig.shape[-2]
+    first4 = sig[..., perm, :]
+    if nsh <= 4:
+        return first4[..., :nsh, :]
+    if isinstance(sig, torch.Tensor):
+        return torch.cat([first4, torch.zeros_like(sig[..., 4:, :])], dim=-2)
+    return np.concatenate([first4, np.zeros_like(sig[..., 4:, :])], axis=-2)
 
 
 def norm_gains(order: int, in_norm: int, out_norm: int) -> np.ndarray:
@@ -61,6 +86,15 @@ def norm_gains(order: int, in_norm: int, out_norm: int) -> np.ndarray:
     else:
         raise ValueError((in_norm, out_norm))
     return g.astype(np.float32)
+
+
+def convert_hoa_norm_convention(sig, order: int, in_norm: int,
+                                out_norm: int):
+    """sig: (..., nSH, T), numpy or a tensor, scaled per channel."""
+    g = norm_gains(order, in_norm, out_norm)
+    if isinstance(sig, torch.Tensor):
+        g = torch.as_tensor(g, dtype=sig.dtype, device=sig.device)
+    return sig * g[:, None]
 
 
 def get_max_re_weights(order: int) -> np.ndarray:

@@ -40,7 +40,7 @@ def _unit_vecs(dirs_deg: np.ndarray) -> np.ndarray:
 
 
 def find_ls_triplets(ls_dirs_deg: np.ndarray, omit_large_triangles: bool = False,
-                     rand_stream=None):
+                     method: str = "c_parity", rand_stream=None):
     """Triangulate a loudspeaker setup (saf_vbap.c:499 ``findLsTriplets``).
     Returns (vertices (L,3), faces (nFaces,3)).
 
@@ -48,7 +48,8 @@ def find_ls_triplets(ls_dirs_deg: np.ndarray, omit_large_triangles: bool = False
     including the unseeded-rand() jitter that decides which diagonal splits
     a coplanar quad on regular grids; pass ``rand_stream=`` a
     ``glibc_rand()`` generator to model several calls in one C process.
-    (The JAX package's method='qhull', scipy's Qhull, is not ported.)"""
+    method='qhull' uses scipy's Qhull: same hull, potentially different
+    coplanar-quad diagonals."""
     if np.asarray(ls_dirs_deg).shape[0] < 4:
         # the C's "Failed to compute the Convex Hull of the specified
         # vertices." (saf_vbap.c:533-537)
@@ -56,16 +57,33 @@ def find_ls_triplets(ls_dirs_deg: np.ndarray, omit_large_triangles: bool = False
             "find_ls_triplets: 3-D triangulation needs >= 4 loudspeaker "
             f"directions, got {np.asarray(ls_dirs_deg).shape[0]} "
             "(saf_vbap.c findLsTriplets)")
-    # the C stores float32-rounded unit vectors (saf_vbap.c:522-529)
-    verts = _unit_vecs(ls_dirs_deg).astype(np.float32).astype(np.float64)
-    faces = convhull_3d_build(verts, rand_stream=rand_stream)
-    # drop faces whose normal opposes the centroid (saf_vbap.c:586-609);
-    # convhull_3d's faces are already outward-oriented so this only
-    # removes degenerate slivers
-    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
-    normal = np.cross(v1 - v0, v2 - v1)
-    centroid = (v0 + v1 + v2) / 3.0
-    faces = faces[(normal * centroid).sum(-1) > 0.0]
+    if method == "c_parity":
+        # the C stores float32-rounded unit vectors (saf_vbap.c:522-529)
+        verts = _unit_vecs(ls_dirs_deg).astype(np.float32).astype(np.float64)
+        faces = convhull_3d_build(verts, rand_stream=rand_stream)
+        # drop faces whose normal opposes the centroid (saf_vbap.c:586-609);
+        # convhull_3d's faces are already outward-oriented so this only
+        # removes degenerate slivers
+        v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+        normal = np.cross(v1 - v0, v2 - v1)
+        centroid = (v0 + v1 + v2) / 3.0
+        faces = faces[(normal * centroid).sum(-1) > 0.0]
+    elif method == "qhull":
+        from scipy.spatial import ConvexHull
+
+        verts = _unit_vecs(ls_dirs_deg)
+        faces = ConvexHull(verts).simplices.astype(int)
+        # scipy's simplices have arbitrary orientation: orient them outward
+        # as convhull_3d's are (the C's centroid test is then a no-op for a
+        # hull of on-sphere points)
+        v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+        normal = np.cross(v1 - v0, v2 - v1)
+        centroid = (v0 + v1 + v2) / 3.0
+        flip = (normal * centroid).sum(-1) < 0.0
+        faces[flip] = faces[flip][:, ::-1]
+    else:
+        raise ValueError(f"find_ls_triplets: unknown method {method!r} "
+                         "(c_parity or qhull)")
     # Drop degenerate faces whose three unit vectors are coplanar with the
     # origin: their VBAP matrices are singular.  The reference leaves these
     # in and relies on the gain validity check to skip them (saf_vbap.c:786).

@@ -107,6 +107,13 @@ class AfSTFT:
         return self.hop + (5 if self.hybrid else 1)
 
     @property
+    def proc_delay(self) -> int:
+        """Latency in samples (afSTFTlib.c:167-169)."""
+        if self.low_delay:
+            return (7 if self.hybrid else 4) * self.hop
+        return (12 if self.hybrid else 9) * self.hop
+
+    @property
     def h_len(self) -> int:
         return _TOTAL_HOPS * self.hop
 

@@ -377,9 +377,12 @@ def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
     :func:`render_full_ri`: analysis ⊗ decode ⊗ synthesis in one call."""
     hop = bank.hop
     taps, tail = _decode_inputs(bank, state, Mre, Mim)
+    # the kernel reads its rows densely: a block that is a view of a longer
+    # signal (render_signal's, a frame of a larger buffer) is copied first
     y, new_tail = render_full_ri(
-        state.in_tail, x, tail, taps, low_delay=bank.low_delay,
-        hybrid=bank.hybrid, per_stream=Mre.ndim == 4)
+        state.in_tail.contiguous(), x.contiguous(), tail, taps,
+        low_delay=bank.low_delay, hybrid=bank.hybrid,
+        per_stream=Mre.ndim == 4)
     return y, AfSTFTStateBatched(
         in_tail=_next_in_tail(state.in_tail, x, x.shape[2] // hop, hop),
         ola_tail=new_tail.reshape(state.ola_tail.shape))

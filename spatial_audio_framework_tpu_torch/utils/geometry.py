@@ -254,3 +254,141 @@ def get_voronoi_weights(dirs_deg):
     faces, verts = sph_delaunay(dirs_deg)
     vor, cells = sph_voronoi(faces, verts)
     return sph_voronoi_areas(vor, cells)
+
+
+# -- quaternions, cross products, norms: numpy or torch, whichever comes in
+#    (the JAX package's functions take numpy or jax arrays the same way) ----
+
+def _is_torch(*arrays) -> bool:
+    return any(isinstance(a, torch.Tensor) for a in arrays)
+
+
+def quaternion2rotation_matrix(q):
+    """q: (..., 4) [w, x, y, z] → (..., 3, 3)  (saf_utility_geometry.c:89-104)."""
+    xp = torch if _is_torch(q) else np
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return xp.stack([
+        xp.stack([2 * (w * w + z * z) - 1, 2 * (z * y - w * x), 2 * (z * x + w * y)], -1),
+        xp.stack([2 * (z * y + w * x), 2 * (w * w + y * y) - 1, 2 * (y * x - w * z)], -1),
+        xp.stack([2 * (z * x - w * y), 2 * (y * x + w * z), 2 * (w * w + x * x) - 1], -1),
+    ], -2)
+
+
+def rotation_matrix2quaternion(R):
+    """(..., 3, 3) → (..., 4) [w,x,y,z]  (saf_utility_geometry.c:107-121)."""
+    xp = torch if _is_torch(R) else np
+
+    def root(v):
+        return xp.sqrt(v.clamp(min=0.0) if xp is torch
+                       else np.maximum(0.0, v)) / 2
+
+    w = root(1 + R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])
+    z = root(1 + R[..., 0, 0] - R[..., 1, 1] - R[..., 2, 2])
+    y = root(1 - R[..., 0, 0] + R[..., 1, 1] - R[..., 2, 2])
+    x = root(1 - R[..., 0, 0] - R[..., 1, 1] + R[..., 2, 2])
+    z = xp.where(R[..., 2, 1] - R[..., 1, 2] < 0, -z, z)
+    y = xp.where(R[..., 0, 2] - R[..., 2, 0] < 0, -y, y)
+    x = xp.where(R[..., 1, 0] - R[..., 0, 1] < 0, -x, x)
+    return xp.stack([w, x, y, z], -1)
+
+
+def euler2quaternion(alpha, beta, gamma, degrees: bool = False,
+                     convention: int = EULER_ROTATION_YAW_PITCH_ROLL):
+    """Euler angles → quaternion (..., 4) [w, x, y, z]
+    (saf_utility_geometry.c:123-161 ``euler2Quaternion``)."""
+    xp = torch if _is_torch(alpha, beta, gamma) else np
+    if convention == EULER_ROTATION_YAW_PITCH_ROLL:
+        a_y, a_p, a_r = alpha, beta, gamma
+    elif convention == EULER_ROTATION_ROLL_PITCH_YAW:
+        a_y, a_p, a_r = gamma, beta, alpha
+    else:
+        raise ValueError(f"convention {convention!r} not supported "
+                         "(saf: saf_print_error)")
+    if degrees:
+        rad = torch.deg2rad if xp is torch else np.radians
+        a_y, a_p, a_r = rad(a_y), rad(a_p), rad(a_r)
+    cy, sy = xp.cos(a_y * 0.5), xp.sin(a_y * 0.5)
+    cp, sp = xp.cos(a_p * 0.5), xp.sin(a_p * 0.5)
+    cr, sr = xp.cos(a_r * 0.5), xp.sin(a_r * 0.5)
+    return xp.stack([cy * cr * cp + sy * sr * sp,
+                     cy * sr * cp - sy * cr * sp,
+                     cy * cr * sp + sy * sr * cp,
+                     sy * cr * cp - cy * sr * sp], -1)
+
+
+def quaternion2euler(q, degrees: bool = False,
+                     convention: int = EULER_ROTATION_YAW_PITCH_ROLL):
+    """Quaternion (..., 4) [w, x, y, z] → (alpha, beta, gamma)
+    (saf_utility_geometry.c:163-213 ``quaternion2euler``)."""
+    xp = torch if _is_torch(q) else np
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    sinr_cosp = 2.0 * (w * x + y * z)
+    cosr_cosp = 1.0 - 2.0 * (x * x + y * y)
+    sinp = 2.0 * (w * y - z * x)
+    siny_cosp = 2.0 * (w * z + x * y)
+    cosy_cosp = 1.0 - 2.0 * (y * y + z * z)
+    beta = xp.where(xp.abs(sinp) >= 1.0,
+                    xp.sign(sinp) * (np.pi / 2.0),
+                    xp.arcsin(xp.clip(sinp, -1.0, 1.0)))
+    if convention == EULER_ROTATION_YAW_PITCH_ROLL:
+        gamma = xp.arctan2(sinr_cosp, cosr_cosp)
+        alpha = xp.arctan2(siny_cosp, cosy_cosp)
+    elif convention == EULER_ROTATION_ROLL_PITCH_YAW:
+        alpha = xp.arctan2(sinr_cosp, cosr_cosp)
+        gamma = xp.arctan2(siny_cosp, cosy_cosp)
+    else:
+        raise ValueError(f"convention {convention!r} not supported "
+                         "(saf: saf_print_error)")
+    if degrees:
+        deg = torch.rad2deg if xp is torch else np.degrees
+        alpha, beta, gamma = deg(alpha), deg(beta), deg(gamma)
+    return alpha, beta, gamma
+
+
+def crossProduct3(a, b):
+    if _is_torch(a, b):
+        return torch.linalg.cross(a, b)
+    return np.cross(a, b)
+
+
+def L2_norm(v):
+    return ((v * v).sum(-1)) ** 0.5 if _is_torch(v) else np.sqrt(
+        (v * v).sum(-1))
+
+
+def rodrigues(axis, theta):
+    """Rotation about a unit axis by theta (general helper)."""
+    if _is_torch(axis):
+        axis = axis.to(torch.float64) if not axis.is_floating_point() \
+            else axis
+        zero = torch.zeros_like(axis[..., 0])
+        K = torch.stack([
+            torch.stack([zero, -axis[..., 2], axis[..., 1]], -1),
+            torch.stack([axis[..., 2], zero, -axis[..., 0]], -1),
+            torch.stack([-axis[..., 1], axis[..., 0], zero], -1)], -2)
+        theta = torch.as_tensor(theta, dtype=K.dtype, device=K.device)
+        eye = torch.eye(3, dtype=K.dtype, device=K.device)
+        return eye + torch.sin(theta) * K + (1 - torch.cos(theta)) * (K @ K)
+    axis = np.asarray(axis, dtype=float)
+    zero = np.zeros_like(axis[..., 0])
+    K = np.stack([
+        np.stack([zero, -axis[..., 2], axis[..., 1]], -1),
+        np.stack([axis[..., 2], zero, -axis[..., 0]], -1),
+        np.stack([-axis[..., 1], axis[..., 0], zero], -1)], -2)
+    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+
+def convhull_nd(points):
+    """N-dimensional convex hull (saf_utility_geometry.h ``convhullnd`` via
+    convhull_3d/qhull) → simplex vertex indices (nFaces, d), on the host."""
+    from scipy.spatial import ConvexHull
+
+    return ConvexHull(np.asarray(points, np.float64)).simplices
+
+
+def delaunay_nd(points):
+    """N-dimensional Delaunay triangulation (``delaunaynd``) → (nSimplices,
+    d+1) vertex indices, on the host."""
+    from scipy.spatial import Delaunay
+
+    return Delaunay(np.asarray(points, np.float64)).simplices

@@ -1078,3 +1078,115 @@ def test_spreader(g, mode, key, off, tol):
         outs.append(y.numpy())
     ref = np.asarray(g[key]).reshape(2, -1)
     assert np.abs(np.concatenate(outs, -1) - ref).max() <= tol, mode
+
+
+# -- the last modules of the port: pitch shifter, QMF, tracker, the HOA
+#    convention converters (tests/test_c_goldens.py:237, 416, 431, 528-560,
+#    1373, at their tolerances)
+
+@pytest.mark.parametrize("tag,shift", [("pitch_out_1p5", 1.5),
+                                       ("pitch_out_0p5", 0.5),
+                                       ("pitch_out_2p0", 2.0)])
+def test_smb_pitch_shifter(g, tag, shift):
+    """1e-3: long atan2 / phase-accumulation chains in float32 (the JAX
+    test's budget); 0.5 collapses analysis-bin pairs onto one synthesis bin
+    (last-k-wins), 2.0 maps half the bins out of range (skipped)."""
+    from spatial_audio_framework_tpu_torch.ops.pitch import SmbPitchShift
+
+    ps = SmbPitchShift(fs=48000.0, n_ch=1, fft_size=4096, osamp=4)
+    y, _ = ps.apply(ps.init_state("cpu"),
+                    torch.from_numpy(np.asarray(g["pitch_in"], np.float32))[None],
+                    torch.tensor(shift))
+    assert np.abs(y.numpy()[0] - np.asarray(g[tag])).max() <= 1e-3
+
+
+def test_qmf(g):
+    """Blockwise hybrid-QMF analysis spectra (|spec| ~ O(10): 1e-3) and the
+    round trip's output (1e-4) against the C qmf, hop 128, hybrid."""
+    from spatial_audio_framework_tpu_torch.ops.qmf import QMF
+
+    bank = QMF(hop=128, hybrid=True)
+    x = torch.from_numpy(np.asarray(g["qmf_in"], np.float32))
+    st = bank.init_state(4, 4, device="cpu")
+    specs, outs = [], []
+    for f in range(8):
+        spec, st = bank.analysis(st, x[:, f * 512:(f + 1) * 512])
+        specs.append(spec.numpy())
+        y, st = bank.synthesis(st, spec)
+        outs.append(y.numpy())
+    spec = np.stack(specs)
+    assert spec.shape == g["qmf_spec"].shape
+    assert np.abs(spec - g["qmf_spec"]).max() <= 1e-3
+    assert np.abs(np.concatenate(outs, -1) - g["qmf_out"]).max() <= TOL
+
+
+def test_tracker_numerical_core(g):
+    from spatial_audio_framework_tpu_torch.modules import tracker as T
+
+    F = np.zeros((6, 6))
+    F[:3, 3:] = np.eye(3)
+    A, Q = T.lti_disc(F, np.diag([0, 0, 0, 0.7, 0.7, 0.7]), 0.125)
+    assert np.abs(A - g["trk_ltidisc_A"]).max() <= TOL
+    assert np.abs(Q - g["trk_ltidisc_Q"]).max() <= TOL
+    Mp, Pp = T.kf_predict6(np.asarray(g["trk_kf_M0"], np.float64),
+                           np.asarray(g["trk_kf_P0"], np.float64),
+                           np.asarray(g["trk_ltidisc_A"], np.float64),
+                           np.asarray(g["trk_ltidisc_Q"], np.float64))
+    assert np.abs(Mp - g["trk_kf_Mpred"]).max() <= TOL
+    assert np.abs(Pp - g["trk_kf_Ppred"]).max() <= TOL
+    H = np.zeros((3, 6))
+    H[:, :3] = np.eye(3)
+    Mu, Pu, LH = T.kf_update6(Mp, Pp, np.array([0.25, 0.1, 0.45]), H,
+                              0.04 * np.eye(3))
+    assert np.abs(Mu - g["trk_kf_Mupd"]).max() <= TOL
+    assert np.abs(Pu - g["trk_kf_Pupd"]).max() <= TOL
+    assert abs(LH - float(g["trk_kf_LH"])) <= TOL
+    for x, ref in zip(g["trk_gamma_x"], g["trk_gamma_cdf"]):
+        assert abs(T.gamma_cdf(float(x), 2.0, 0.8) - ref) <= 1e-6
+
+
+def test_tracker3d_end_to_end(g):
+    """The clean single-target trajectory; step 4 (a short-lived second
+    hypothesis of the C's own draws) is excluded, as in the JAX test."""
+    from spatial_audio_framework_tpu_torch.modules import tracker as T
+
+    cfg = T.Tracker3DConfig(
+        n_particles=20, dt=0.05, max_n_active_targets=4,
+        noise_likelihood=0.005, measure_noise_sd=0.15, noise_spec_den=0.001,
+        allow_multi_death=True, init_birth=0.5, alpha_death=200.0,
+        beta_death=1.0, force_kill_targets=False, force_kill_distance=0.2,
+        are_unit_vectors=True, M0=np.zeros(6), P0=np.eye(6),
+        cd=1.0 / (4 * np.pi), w_avg_coeff=0.5)
+    trk = T.Tracker3D(cfg, seed=7)
+    obs = np.asarray(g["trk_e2e_obs"], np.float64)
+    ref_pos, ref_n = np.asarray(g["trk_e2e_pos"]), np.asarray(g["trk_e2e_n"])
+    for i in range(obs.shape[0]):
+        pos, _, _ = trk.step(obs[i][None])
+        if i == 4:
+            continue
+        assert len(pos) == int(ref_n[i]), i
+        assert np.abs(pos[0] - ref_pos[i]).max() <= 1e-5, i
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_fuma_conversions(g, as_tensor):
+    """convertHOAChannelConvention both directions on an order-2 signal
+    (channels >= 4 zeroed), exactly; convertHOANormConvention's maxN (FuMa)
+    gains both directions; on numpy and on tensors."""
+    sig = np.asarray(g["fuma_sig"], np.float32)
+    x = torch.from_numpy(sig) if as_tensor else sig
+    back = (lambda t: t.numpy()) if as_tensor else np.asarray
+    to_acn = hoa.convert_hoa_channel_convention(
+        x, 2, hoa.HOA_CH_ORDER_FUMA, hoa.HOA_CH_ORDER_ACN)
+    assert np.abs(back(to_acn) - g["fuma_to_acn"]).max() == 0.0
+    to_fuma = hoa.convert_hoa_channel_convention(
+        x, 2, hoa.HOA_CH_ORDER_ACN, hoa.HOA_CH_ORDER_FUMA)
+    assert np.abs(back(to_fuma) - g["acn_to_fuma"]).max() == 0.0
+    ones = np.ones((4, 4), np.float32)
+    o = torch.from_numpy(ones) if as_tensor else ones
+    f2n = hoa.convert_hoa_norm_convention(o, 1, hoa.HOA_NORM_FUMA,
+                                          hoa.HOA_NORM_N3D)
+    assert np.abs(back(f2n) - g["fuma_norm_to_n3d"]).max() <= TOL
+    n2f = hoa.convert_hoa_norm_convention(o, 1, hoa.HOA_NORM_N3D,
+                                          hoa.HOA_NORM_FUMA)
+    assert np.abs(back(n2f) - g["n3d_norm_to_fuma"]).max() <= TOL

@@ -6,6 +6,8 @@ neither jax nor the JAX package, so they also run on a machine without jax:
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
 (tests/conftest.py configures jax).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1317,3 +1319,182 @@ def test_conv_hades_spreader_chunks_never_wait(cuda, monkeypatch, name):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the real-time runtime, render_signal, the device grid, the pitch shifter,
+# QMF and STFT on the card
+# ---------------------------------------------------------------------------
+
+def _ambi_bin_frame(cuda, S, order, seed=0):
+    cfg = ambi_bin.AmbiBinConfig(order=order)
+    rng = np.random.default_rng(seed)
+    M = (0.3 * rng.standard_normal((2, 133, 2, cfg.nsh))).astype(np.float32)
+    return cfg, ambi_bin.weights_from_numpy(M[0], M[1], cuda)
+
+
+@pytest.mark.parametrize("order,frame_size", [(1, 128), (3, 1024)])
+def test_stream_runner_launches_render_full_ri_once_per_frame(cuda, order,
+                                                              frame_size):
+    """StreamRunner on the native ring buffers over the batched render:
+    one render_full_ri launch per frame, the output equal to a direct loop
+    of the same frames delayed by one frame."""
+    from spatial_audio_framework_tpu_torch.runtime import (StreamRunner,
+                                                           native_available,
+                                                           torch_frame_fn)
+
+    assert native_available()
+    S = 4
+    cfg, w = _ambi_bin_frame(cuda, S, order)
+    nsh = cfg.nsh
+
+    def make():
+        box = [ambi_bin.init_state_batched(cfg, S, device=cuda)]
+
+        def fn(f):
+            y, box[0] = ambi_bin.process_ri_batched(cfg, w, box[0],
+                                                    f.reshape(S, nsh, -1))
+            return y.reshape(S * 2, -1)
+        return fn
+
+    n_frames = 6
+    x = np.random.default_rng(1).uniform(
+        -1, 1, (S * nsh, n_frames * frame_size)).astype(np.float32)
+    runner = StreamRunner(torch_frame_fn(make(), S * nsh, frame_size, cuda),
+                          S * nsh, S * 2, frame_size)
+    tak.render_full_ri.launches = 0
+    y = np.concatenate([runner.process_block(x[:, s:s + 480])
+                        for s in range(0, x.shape[1], 480)], axis=1)
+    done = x.shape[1] // frame_size
+    assert tak.render_full_ri.launches == done == runner.clock.frames
+    assert runner.read_s > 0.0
+    direct = make()
+    ref = np.concatenate([direct(torch.from_numpy(
+        x[:, k * frame_size:(k + 1) * frame_size]).to(cuda)).cpu().numpy()
+        for k in range(done)], axis=1)
+    valid = min(y.shape[1], done * frame_size)
+    assert np.abs(y[:, frame_size:valid]
+                  - ref[:, :valid - frame_size]).max() <= 1e-6
+
+
+def test_render_signal_never_waits_and_equals_a_hand_loop(cuda):
+    from spatial_audio_framework_tpu_torch.parallel.streaming import (
+        render_signal)
+
+    S = 8
+    cfg, w = _ambi_bin_frame(cuda, S, 3)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (S, 16, 4 * 1024)).astype(np.float32)).to(cuda)
+
+    def proc(st, b):
+        return ambi_bin.process_ri_batched(cfg, w, st, b)
+
+    render_signal(proc, ambi_bin.init_state_batched(cfg, S, device=cuda),
+                  x[..., :2048], 1024)                       # warm
+    st0 = ambi_bin.init_state_batched(cfg, S, device=cuda)
+    tak.render_full_ri.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = render_signal(proc, st0, x, 1024)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tak.render_full_ri.launches == 4
+    st, outs = ambi_bin.init_state_batched(cfg, S, device=cuda), []
+    for b in range(4):
+        o, st = proc(st, x[..., b * 1024:(b + 1) * 1024])
+        outs.append(o)
+    assert torch.equal(y, torch.cat(outs, dim=-1))
+
+
+def test_run_sharded_on_the_cards_grid(cuda):
+    from spatial_audio_framework_tpu_torch.parallel import mesh
+
+    S = 8
+    cfg, w = _ambi_bin_frame(cuda, S, 3)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (S, 16, 1024)).astype(np.float32)).to(cuda)
+    grid = mesh.make_mesh(1)
+    assert grid.devices[0, 0].type == "cuda"
+
+    def proc(w_, st, b):
+        return ambi_bin.process_ri_batched(cfg, w_, st, b)
+
+    y, st = mesh.run_sharded(proc, w, ambi_bin.init_state_batched(
+        cfg, S, device=cuda), x, grid)
+    ref, rst = proc(w, ambi_bin.init_state_batched(cfg, S, device=cuda), x)
+    assert torch.equal(y, ref)
+    assert torch.equal(st.gather().ola_tail, rst.ola_tail)
+
+
+def test_pitch_shifter_on_the_card_never_waits(cuda):
+    from spatial_audio_framework_tpu_torch.models import pitch_shifter as ps
+
+    cfg = ps.PitchShifterConfig(n_ch=4, fft_size=1024, osamp=8)
+    t = np.arange(4 * 1024) / 48000.0
+    x = (0.4 * np.sin(2 * np.pi * np.outer([220, 330, 440, 1000], t))
+         ).astype(np.float32)
+    shifts = (1.25, 0.75, 1.9, 0.55)
+
+    def run(device, guard):
+        st = ps.init_state(cfg, device=device)
+        mats = ps.design(cfg, device=device)
+        xd = torch.from_numpy(x).to(device)
+        fs = torch.tensor(shifts, device=device)
+        outs = []
+        for i in range(4):
+            ctx = guard() if i else _nullctx()
+            with ctx:
+                y, st = ps.process(cfg, st, xd[:, i * 1024:(i + 1) * 1024],
+                                   fs[i], mats)
+            outs.append(y)
+        return torch.cat(outs, -1).cpu()
+
+    got = run(cuda, _sync_error)
+    ref = run("cpu", _nullctx)
+    assert (got - ref).abs().max().item() <= 1e-3
+
+
+def test_qmf_and_stft_on_the_card_match_the_cpu(cuda):
+    from spatial_audio_framework_tpu_torch.ops import qmf, stft
+
+    x = np.random.default_rng(4).uniform(-1, 1, (8, 4096)).astype(np.float32)
+    for bank in (qmf.QMF(128, True), qmf.QMF(128, False)):
+        outs = {}
+        for dev in (cuda, "cpu"):
+            st = bank.init_state(8, 8, device=dev)
+            spec, st = bank.analysis(st, torch.from_numpy(x).to(dev))
+            y, _ = bank.synthesis(st, spec)
+            outs[str(dev)] = (spec.cpu(), y.cpu())
+        (sc, yc), (sp, yp) = outs.values()
+        assert (sc - sp).abs().max().item() <= 1e-4
+        assert (yc - yp).abs().max().item() <= 1e-5
+    st_ = stft.STFT(256, 128, 8, 8)
+    outs = []
+    for dev in (cuda, "cpu"):
+        s = st_.init_state(device=dev)
+        spec, s = st_.forward(s, torch.from_numpy(x).to(dev))
+        y, _ = st_.backward(s, spec)
+        outs.append(y.cpu())
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-5
+
+
+def test_probe_device_fences_the_card(cuda):
+    from spatial_audio_framework_tpu_torch.runtime import probe_device
+
+    assert 0.0 < probe_device(timeout_s=120.0, reps=3) < 10.0
+
+
+@contextlib.contextmanager
+def _nullctx():
+    yield
+
+
+@contextlib.contextmanager
+def _sync_error():
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -384,6 +384,51 @@ NEW_ENTRY_POINTS.update({
 })
 
 
+# the real-time runtime, the device grid, STFT, QMF, the pitch shifter and
+# the facade's handles
+def _last_slice():
+    from spatial_audio_framework_tpu_torch import compat
+    from spatial_audio_framework_tpu_torch.models import pitch_shifter
+    from spatial_audio_framework_tpu_torch.ops import pitch, qmf, stft
+    from spatial_audio_framework_tpu_torch.parallel import mesh
+    from spatial_audio_framework_tpu_torch.runtime import (probe_device,
+                                                           torch_frame_fn)
+
+    pcfg = pitch_shifter.PitchShifterConfig(fft_size=512, osamp=4)
+    st = stft.STFT(winsize=128, hopsize=64)
+    return {
+        "runtime.torch_frame_fn": lambda **kw: torch_frame_fn(
+            lambda f: f * 2.0, 2, 8, **kw)(np.ones((2, 8), np.float32)),
+        "runtime.probe_device": lambda **kw: torch.tensor(
+            probe_device(timeout_s=60.0, reps=1, **kw)),
+        "parallel.mesh.run_sharded": lambda **kw: mesh.run_sharded(
+            lambda w, s, x: (x * w, s), torch.ones(1), (), torch.ones(2, 1, 4),
+            mesh.make_mesh(devices=[torch.device(kw["device"])]
+                           if kw else None))[0],
+        "stft.STFT.init_state": lambda **kw: st.init_state(**kw),
+        "stft.STFT.state_from_numpy": lambda **kw: st.state_from_numpy(
+            np.zeros((1, 64)), np.zeros((1, 192)), **kw),
+        "qmf.QMF.init_state": lambda **kw: qmf.QMF().init_state(1, 1, **kw),
+        "qmf.QMF.state_from_numpy": lambda **kw: qmf.QMF().state_from_numpy(
+            [np.zeros((1, 2))] * 4, **kw),
+        "pitch.SmbPitchShift.design": lambda **kw: tuple(
+            pitch.SmbPitchShift(fft_size=512).design(**kw).values()),
+        "pitch_shifter.init_state": lambda **kw: pitch_shifter.init_state(
+            pcfg, **kw),
+        "pitch_shifter.state_from_numpy": lambda **kw: (
+            pitch_shifter.state_from_numpy(pcfg, [np.zeros(3)] * 5, **kw)),
+        "pitch_shifter.design": lambda **kw: tuple(pitch_shifter.design(
+            pcfg, **kw).values()),
+        "compat.afSTFT": lambda **kw: compat.afSTFT(1, 1, **kw)._st,
+        "compat.qmf": lambda **kw: compat.qmf(1, 1, **kw)._st,
+        "compat.latticeDecorrelator": lambda **kw: compat.latticeDecorrelator(
+            48000.0, 128, np.linspace(0, 24000, 133), 1, **kw)._st,
+    }
+
+
+NEW_ENTRY_POINTS.update(_last_slice())
+
+
 def _hrirs():
     from spatial_audio_framework_tpu_torch.modules import hrir
 

@@ -236,3 +236,43 @@ def test_new_models_build_nothing_from_host_data_per_chunk(no_host_tensors,
     for fused, ref in zip((True, False), warm):
         y = run(fused)
         assert torch.equal(y, ref) and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("order", [1, 3, 4])
+def test_kernel_routes_get_dense_rows_from_a_block_view(monkeypatch, order):
+    """A block that is a view of a longer signal (render_signal's blocks, a
+    frame of a larger buffer) has strides the CUDA kernels refuse
+    ("contiguous and 16-byte aligned"); the render routes must hand each
+    kernel dense rows, as the JAX package accepts any layout.  On the CPU
+    the wrappers take their plain versions, so the check wraps them."""
+    from spatial_audio_framework_tpu_torch.ops import afstft_ri
+
+    seen = []
+
+    def dense(fn):
+        def wrapped(*args, **kw):
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    seen.append(a.is_contiguous())
+            return fn(*args, **kw)
+        return wrapped
+
+    # the kernels that read the caller's block: the one-pass render and the
+    # fronts of the two-kernel route
+    for name in ("render_full_ri", "analysis_front_ri",
+                 "analysis_front_dg_ri"):
+        monkeypatch.setattr(afstft_ri, name, dense(getattr(afstft_ri, name)))
+    cfg = tab.AmbiBinConfig(order=order)
+    rng = np.random.default_rng(order)
+    M = rng.standard_normal((2, 133, 2, cfg.nsh)).astype(np.float32)
+    w = tab.weights_from_numpy(M[0], M[1], "cpu")
+    sig = torch.from_numpy(rng.uniform(-1, 1, (2, cfg.nsh, 4 * 256)).astype(
+        np.float32))
+    block = sig[..., 256:512]
+    assert not block.is_contiguous()
+    y, _ = tab.process_ri_batched(cfg, w, tab.init_state_batched(
+        cfg, 2, device="cpu"), block)
+    ref, _ = tab.process_ri_batched(cfg, w, tab.init_state_batched(
+        cfg, 2, device="cpu"), block.contiguous())
+    assert seen and all(seen)
+    assert torch.equal(y, ref)

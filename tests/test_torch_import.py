@@ -468,6 +468,69 @@ assert not leaked, leaked
 assert "jax" not in sys.modules
 print("ok")
 """
+# the last modules: the runtime over the batched render, render_signal, the
+# device grid, STFT, veclib, QMF, the pitch shifter, the tracker, profiling
+# and the SAF-named facade
+_SCRIPT_RUNTIME_FACADE = _SCRIPT_SINGLE_STREAM.split("import numpy as np")[0] + """
+import numpy as np
+import torch
+from spatial_audio_framework_tpu_torch import compat
+from spatial_audio_framework_tpu_torch.models import ambi_bin, pitch_shifter
+from spatial_audio_framework_tpu_torch.modules import tracker
+from spatial_audio_framework_tpu_torch.ops import qmf, stft, veclib
+from spatial_audio_framework_tpu_torch.parallel import mesh
+from spatial_audio_framework_tpu_torch.parallel.streaming import render_signal
+from spatial_audio_framework_tpu_torch.runtime import (StreamRunner,
+                                                       native_available,
+                                                       torch_frame_fn)
+from spatial_audio_framework_tpu_torch.utils import profiling
+
+rng = np.random.default_rng(0)
+cfg = ambi_bin.AmbiBinConfig(order=1)
+w = ambi_bin.weights_from_numpy(rng.standard_normal((133, 2, 4)),
+                                rng.standard_normal((133, 2, 4)), "cpu")
+box = [ambi_bin.init_state_batched(cfg, 2, device="cpu")]
+
+def frame(f):
+    y, box[0] = ambi_bin.process_ri_batched(cfg, w, box[0], f.reshape(2, 4, -1))
+    return y.reshape(4, -1)
+
+assert native_available()
+runner = StreamRunner(torch_frame_fn(frame, 8, 128, device="cpu"), 8, 4, 128)
+y = runner.process_block(rng.uniform(-1, 1, (8, 300)).astype(np.float32))
+assert y.shape == (4, 300) and np.isfinite(y).all() and runner.clock.frames == 2
+x = torch.from_numpy(rng.uniform(-1, 1, (2, 4, 512)).astype(np.float32))
+proc = lambda st, b: ambi_bin.process_ri_batched(cfg, w, st, b)
+with profiling.trace_annotation("render"):
+    y, _ = render_signal(proc, ambi_bin.init_state_batched(cfg, 2, device="cpu"),
+                         x, 256)
+assert tuple(y.shape) == (2, 2, 512)
+grid = mesh.make_mesh(devices=["cpu", "cpu"])
+y2, _ = mesh.run_sharded(lambda w_, s, b: ambi_bin.process_ri_batched(cfg, w_, s, b),
+                         w, ambi_bin.init_state_batched(cfg, 2, device="cpu"),
+                         x, grid)
+assert tuple(y2.shape) == (2, 2, 512)
+st = stft.STFT(128, 64)
+spec, _ = st.forward(st.init_state(device="cpu"), x[0, :1])
+q = qmf.QMF()
+qs, _ = q.analysis(q.init_state(1, 1, device="cpu"), x[0, :1])
+pcfg = pitch_shifter.PitchShifterConfig(fft_size=512, osamp=4)
+yp, _ = pitch_shifter.process(pcfg, pitch_shifter.init_state(pcfg, device="cpu"),
+                              x[0, :1], torch.tensor(1.5))
+assert bool(torch.isfinite(yp).all())
+assert veclib.seig(torch.eye(3))[1].shape == (3,)
+trk = tracker.Tracker3D(tracker.Tracker3DConfig(), seed=0)
+trk.step(np.array([[1.0, 0.0, 0.0]]))
+h = compat.afSTFT(1, 1, device="cpu")
+assert compat.utility_sinv(np.eye(2)).dtype == np.float32
+leaked = [m for m in sys.modules
+          if m == "spatial_audio_framework_tpu"
+          or m.startswith("spatial_audio_framework_tpu.")]
+assert not leaked, leaked
+assert "jax" not in sys.modules
+print("ok")
+"""
+
 
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -507,3 +570,10 @@ def test_convolution_room_hades_spreader_run_without_jax():
     half of herm_ri, cdf4sap, HADES (batched) and the spreader (instances)
     with utils/misc and utils/sort."""
     _run(_SCRIPT_CONV_HADES)
+
+
+def test_runtime_parallel_and_facade_run_without_jax():
+    """The runtime (native ring buffers, StreamRunner over the batched
+    render), render_signal under a trace annotation, the device grid,
+    STFT, QMF, veclib, the pitch shifter, the tracker and compat."""
+    _run(_SCRIPT_RUNTIME_FACADE)

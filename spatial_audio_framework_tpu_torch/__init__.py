@@ -7,8 +7,8 @@ PyTorch; the TPU's Pallas kernels become hand-written CUDA kernels under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
 
 This package imports ``torch``, numpy and scipy, never ``jax`` and never the
-JAX package: importing ``spatial_audio_framework_tpu`` pulls in jax, so the
-shared data files are read by path (:func:`data_path`).
+JAX package.  The real-time runtime builds from the port's own C++ source
+(``csrc/saf_runtime.cpp``, ``runtime/native.py``).
 """
 from __future__ import annotations
 

@@ -1,12 +1,11 @@
 """ctypes bindings for the native streaming runtime (counterpart of
 ``spatial_audio_framework_tpu/runtime/native.py``).
 
-The C++ source is the JAX package's ``native/saf_runtime.cpp``, read by
-path (the port never imports that package).  It is compiled with ``g++``
-at first use into the port's git-ignored ``_build/`` directory, under a
-name that carries a hash of the source and the flags; the compiler writes
-a temporary file that is renamed into place, so a process never loads a
-half-written library while another is building it.  When no C++ toolchain
+The C++ source is the port's own ``csrc/saf_runtime.cpp``.  It is
+compiled with ``g++`` at first use into the port's git-ignored ``_build/``
+directory, under a name that carries a hash of the source and the flags;
+the compiler writes a temporary file that is renamed into place, so a
+process never loads a half-written library while another is building it.  When no C++ toolchain
 is available the same API is served by pure-Python fallbacks.  All classes
 here are host-side real-time plumbing; the DSP runs in torch
 (``runtime/stream.py``).
@@ -33,7 +32,7 @@ PROC_STATUS_ONGOING = 0
 PROC_STATUS_NOT_ONGOING = 1
 
 _PKG = Path(__file__).resolve().parent.parent
-SRC = _PKG.parent / "native" / "saf_runtime.cpp"
+SRC = _PKG / "csrc" / "saf_runtime.cpp"
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 

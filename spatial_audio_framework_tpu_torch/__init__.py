@@ -7,8 +7,9 @@ PyTorch; the TPU's Pallas kernels become hand-written CUDA kernels under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
 
 This package imports ``torch``, numpy and scipy, never ``jax`` and never the
-JAX package.  The real-time runtime builds from the port's own C++ source
-(``csrc/saf_runtime.cpp``, ``runtime/native.py``).
+JAX package.  It reads its own data files (``data/``, :func:`data_path`),
+copies of the JAX package's, and the real-time runtime builds from its own
+C++ source (``csrc/saf_runtime.cpp``, ``runtime/native.py``).
 """
 from __future__ import annotations
 
@@ -17,18 +18,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_DATA_DIR = (Path(__file__).resolve().parent.parent
-             / "spatial_audio_framework_tpu" / "data")
+_DATA_DIR = Path(__file__).resolve().parent / "data"
 
 
 def data_path(name: str) -> Path:
-    """Path of a data file shared with the JAX package (read, never
-    imported: see the module docstring)."""
+    """Path of one of the port's data files (``data/``: tables, prototype
+    filters, the default HRIRs and presets)."""
     path = _DATA_DIR / name
     if not path.is_file():
-        raise FileNotFoundError(
-            f"{path}: the port reads its data files from the JAX package's "
-            "data directory beside it; run from a full checkout")
+        raise FileNotFoundError(f"{path}: no such data file in the port")
     return path
 
 

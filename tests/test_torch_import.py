@@ -1,10 +1,20 @@
 """The PyTorch port imports, designs (from a SOFA file too) and renders with
-jax unavailable."""
+jax unavailable, and stands alone: it reads no file of the JAX package or
+of ``native/`` (its data files and its runtime's C++ source are its own
+copies), and its packaging lists every subpackage and file it needs."""
+import ast
+import hashlib
 import os
+import re
 import subprocess
 import sys
+import tomllib
+from pathlib import Path
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = Path(ROOT) / "spatial_audio_framework_tpu_torch"
 
 _SCRIPT = """
 import sys
@@ -532,10 +542,40 @@ print("ok")
 """
 
 
+# every script runs under an audit hook that records each file opened,
+# library loaded or command run from the JAX package's directory or
+# native/ (the files the port once read by path), and fails at its end if
+# there was one
+_GUARD = """
+import os, sys
+_foreign = tuple(os.path.join(os.path.realpath(%r), d) + os.sep
+                 for d in ("spatial_audio_framework_tpu", "native"))
+_reads = []
+def _audit(event, args):
+    if event in ("open", "ctypes.dlopen"):
+        paths = args[:1]
+    elif event == "subprocess.Popen":
+        paths = list(args[1] or ())
+    else:
+        return
+    for p in paths:
+        if isinstance(p, (str, bytes, os.PathLike)):
+            p = os.path.realpath(os.fsdecode(p))
+            if p.startswith(_foreign):
+                _reads.append((event, p))
+sys.addaudithook(_audit)
+""" % ROOT
+_GUARD_END = """
+assert not _reads, _reads
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", _GUARD + script + _GUARD_END],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
 
@@ -577,3 +617,106 @@ def test_runtime_parallel_and_facade_run_without_jax():
     render), render_signal under a trace annotation, the device grid,
     STFT, QMF, veclib, the pitch shifter, the tracker and compat."""
     _run(_SCRIPT_RUNTIME_FACADE)
+
+
+# ---------------------------------------------------------------------------
+# the port stands alone: its own data files and C++ source, no path into the
+# JAX package, packaging that ships what it reads
+# ---------------------------------------------------------------------------
+
+_JAX_DATA = Path(ROOT) / "spatial_audio_framework_tpu" / "data"
+_DATA_FILES = ("afstft_proto.npz", "default_hrirs.npz", "fabian_ctf.npz",
+               "lattice_coeffs.npz", "presets.npz", "qmf_proto.npz")
+
+
+def _sha256(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def test_port_has_the_jax_packages_data_files():
+    assert sorted(p.name for p in (PORT / "data").iterdir()) == sorted(
+        p.name for p in _JAX_DATA.iterdir()) == list(_DATA_FILES)
+
+
+@pytest.mark.parametrize("name", _DATA_FILES)
+def test_data_file_is_a_copy_of_the_jax_packages(name):
+    """The port's copy cannot drift from the JAX package's file."""
+    assert _sha256(PORT / "data" / name) == _sha256(_JAX_DATA / name)
+
+
+def test_runtime_source_is_the_ports_own():
+    from spatial_audio_framework_tpu_torch.runtime import native
+    assert native.SRC == PORT / "csrc" / "saf_runtime.cpp"
+    assert native.SRC.is_file()
+
+
+# a path component naming the JAX package's directory or native/
+_FOREIGN = re.compile(r"(^|/)(spatial_audio_framework_tpu|native)(/|$)")
+# calls that take a path
+_PATH_CALLS = {"join", "Path", "PurePath", "open", "load", "read_text",
+               "read_bytes", "CDLL", "run", "Popen", "glob"}
+
+
+def _path_strings(tree):
+    """The strings that go into paths in a module: operands of ``/`` and
+    arguments of the calls above (a file:line label in a message or a
+    record is not a path)."""
+    def strings(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+        elif isinstance(node, ast.JoinedStr):
+            for v in node.values:
+                yield from strings(v)
+        elif isinstance(node, (ast.List, ast.Tuple)):
+            for v in node.elts:
+                yield from strings(v)
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            yield from strings(node.left)
+            yield from strings(node.right)
+        elif isinstance(node, ast.Call):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(
+                f, "id", None)
+            if name in _PATH_CALLS:
+                for a in node.args + [k.value for k in node.keywords]:
+                    yield from strings(a)
+
+
+def test_no_module_of_the_port_builds_a_path_into_the_jax_package():
+    """Neither a module of the port nor chip_smoke.py (which runs in a
+    checkout of the port on the card) names the JAX package's directory
+    or native/ in a path."""
+    files = sorted(PORT.rglob("*.py")) + [Path(ROOT) / "chip_smoke.py"]
+    found = [(str(f.relative_to(ROOT)), s) for f in files
+             for s in _path_strings(ast.parse(f.read_text()))
+             if _FOREIGN.search(s)]
+    assert not found, found
+
+
+def test_path_check_sees_a_path_into_the_jax_package():
+    tree = ast.parse('ROOT / "spatial_audio_framework_tpu" / "data"\n'
+                     'os.path.join(ROOT, "native", "saf_runtime.cpp")\n'
+                     'np.load(f"{ROOT}/spatial_audio_framework_tpu/x.npz")\n'
+                     'label = f"spatial_audio_framework_tpu/ops/a.py:{n}"')
+    assert sorted(s for s in _path_strings(tree) if _FOREIGN.search(s)) == [
+        "/spatial_audio_framework_tpu/x.npz", "native",
+        "spatial_audio_framework_tpu"]
+
+
+def test_packaging_lists_the_ports_subpackages_and_files():
+    """Every subpackage of the port (a directory with an ``__init__.py``)
+    is in pyproject.toml's packages, and every file of ``csrc/`` and
+    ``data/`` matches its package-data."""
+    with open(Path(ROOT) / "pyproject.toml", "rb") as f:
+        cfg = tomllib.load(f)["tool"]["setuptools"]
+    subpackages = {".".join(p.parent.relative_to(ROOT).parts)
+                   for p in PORT.rglob("__init__.py")}
+    assert "spatial_audio_framework_tpu_torch.runtime" in subpackages
+    assert not subpackages - set(cfg["packages"])
+    globs = cfg["package-data"]["spatial_audio_framework_tpu_torch"]
+    files = [p.relative_to(PORT) for d in ("csrc", "data")
+             for p in (PORT / d).iterdir()]
+    assert {p.suffix for p in files} == {".cu", ".cuh", ".cpp", ".npz"}
+    assert not [p for p in files if not any(p.match(g) for g in globs)]

@@ -196,14 +196,17 @@ Phases:
     ``spr_*`` in all three modes.  Phase 2 times both kernels at the
     HADES and spreader rows too;
 36. the real-time runtime over the flagship: ``StreamRunner`` on the
-    native ring buffers (``runtime/native.py`` over ``saf_runtime.cpp``,
-    built with g++), 64 streams x 16 SH channels in, 64 x 2 ears out,
+    native FIFO framer and ring buffers (``runtime/native.py`` over the
+    port's ``csrc/saf_runtime.cpp``, built with g++), 64 streams x 16 SH
+    channels in, 64 x 2 ears out,
     frames of 1024 samples (H = 8 hops: ``render_full_ri`` once a frame),
     the host feeding blocks of 480 samples (10 ms), 2 s of audio,
     synchronously (``process_block``) and through the render thread
     (``push`` / ``pull``): the launches, the output against a direct loop
     of ``process_ri_batched`` delayed by one frame, wall ms per frame, the
     frame clock's real-time factor and the device-to-host read's share;
+    the host pieces (the framer's push of a block, the rings' copies, the
+    frame's staging into pinned memory in either layout);
     ``render_full_ri`` timed at (64, 16, 2, 8) too;
 37. ``render_signal`` over the flagship: 64 streams, 8 blocks of 8192,
     bit-equal to a hand loop, ``render_full_ri`` 8 launches, the blocks
@@ -219,7 +222,13 @@ Phases:
     channels, as phase 39, the card against the CPU held at KERNEL_TOL;
 41. parity with the C on the card: ``pitch_out_1p5`` / ``_0p5`` /
     ``_2p0`` (1e-3), ``qmf_spec`` (1e-3) and ``qmf_out``, the FuMa / ACN
-    conversions on card tensors (``fuma_*``, ``acn_*``).
+    conversions on card tensors (``fuma_*``, ``acn_*``);
+42. the flagship at 256 streams (the JAX benchmark's 256-stream cell,
+    bench.py:786-804): one chunk of 8192 samples, ~170 MB of input with the
+    carried tails, through ``process_ri_batched``: one ``render_full_ri``
+    launch for all 256 streams (no group split), the kernel path against
+    the plain path at KERNEL_TOL, device and host enqueue ms a chunk;
+    ``render_full_ri`` timed at (256, 16, 2, 64).
 
 Every phase checks its results and any failure exits non-zero.  The
 second-to-last line is a JSON object describing each kernel; the last line is
@@ -250,6 +259,8 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-5   # kernel vs plain, both fp32: only the order of sums differs
 C_TOL = 1e-4        # vs the compiled C reference (tests/test_c_goldens.py)
 N_STREAMS, HOPS, N_CHUNKS = 64, 64, 8
+# the flagship's widest cell (bench.py:786-804)
+WIDE_STREAMS = 256
 # HADES and the spreader many instances a call, as the JAX benchmark runs
 # them (bench.py:920, :1330): 32 instances of 32 hops a call (HADES 4 blocks
 # of 1024, the spreader 8 frames of 512)
@@ -2842,14 +2853,21 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
         out[mode] = {"launches": launches["render_full_ri"], "ms": ms,
                      "rtf": runner.clock.rtf,
                      "read_share": runner.read_s / wall}
-    # the host's share, piece by piece: the FIFO framer's push of one block
-    # (the native per-sample loop), the rings' interleaved write of one
-    # block and read of one frame, the transposed frame staged into pinned
-    # memory (median ms of 20, host clock)
-    blk = np.ascontiguousarray(x[:, :RT_BLOCK])
-    framer, ring = native.FifoFramer(n_in, F), native.RingBuffer(4 * n_in * F)
+    # the host's share, piece by piece (median ms of 20, host clock): the
+    # FIFO framer's push of one block read in place (a run a channel), the
+    # input ring's planar write of one block and the read of one frame, the
+    # output ring's planar write of one frame's output and its read, and a
+    # frame staged into pinned memory as process_block hands it on ((n_in,
+    # F)) and as the render thread does (as it lies in the ring, (F, n_in))
+    blk = x[:, :RT_BLOCK]
+    framer = native.FifoFramer(n_in, F, n_out)
+    ring, out_ring = (native.RingBuffer(4 * n_in * F),
+                      native.RingBuffer(4 * n_out * F))
     pinned = torch.empty((n_in, F), dtype=torch.float32, pin_memory=True)
-    frame_t = np.ascontiguousarray(x[:, :F].T).T
+    pinned_t = torch.empty((F, n_in), dtype=torch.float32, pin_memory=True)
+    frame = np.ascontiguousarray(x[:, :F])
+    frame_t = np.ascontiguousarray(frame.T)
+    y_frame = np.ascontiguousarray(x[:n_out, :F])
 
     def host_ms(fn):
         ts = []
@@ -2859,16 +2877,18 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
             ts.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(ts))
 
-    def stage():
-        pinned.numpy()[...] = frame_t
+    def stage(host, f):
+        host.numpy()[...] = f
 
     pieces = {
         "framer push (block)": lambda: framer.push(blk),
-        "ring write x.T + read (block)": lambda: (
-            ring.write(blk.T), ring.read(n_in * RT_BLOCK)),
-        "ring write + read (frame)": lambda: (
-            ring.write(frame_t.T), ring.read(n_in * F)),
-        "pinned staging of a transposed frame": stage}
+        "in ring planar write + read (block)": lambda: (
+            ring.write_planar(blk), ring.read(n_in * RT_BLOCK)),
+        "out ring planar write + read (frame)": lambda: (
+            out_ring.write_planar(y_frame), out_ring.read(n_out * F)),
+        "pinned staging (n_in, F)": lambda: stage(pinned, frame),
+        "pinned staging as in the ring (F, n_in)": lambda: stage(
+            pinned_t, frame_t)}
     print(f"phase 36: host pieces [{card}] (median ms, host clock): "
           + ", ".join(f"{k} {host_ms(v):.3f}" for k, v in pieces.items())
           + f"; a frame is {F / RT_BLOCK:.2f} blocks")
@@ -3120,6 +3140,44 @@ def phase_last_c_parity(ak, dev, card) -> None:
                                             hoa.HOA_NORM_FUMA))):
         c_parity(41, key, hoa.convert_hoa_norm_convention(
             ones, 1, *conv).cpu().numpy(), np.asarray(g[key]), card)
+
+
+def phase_wide(bcfg, bw, ak, dev, rng, card) -> dict:
+    """Phase 42: the flagship at 256 streams, one chunk of 8192 samples,
+    through ``process_ri_batched``: one ``render_full_ri`` launch for all
+    the streams (the JAX package split them into groups there,
+    bench.py:786-788), held against the plain path; then the kernel timed
+    at the chunk's shape.  Returns the launches, times and bound."""
+    from spatial_audio_framework_tpu_torch.models import ambi_bin
+
+    S, nsh = WIDE_STREAMS, bcfg.nsh
+    in_mb = S * (nsh * (15 + HOPS) + 2 * 9) * 128 * 4 / 1e6
+    print(f"phase 42: the flagship at {S} streams: {in_mb:.1f} MB of input "
+          f"a chunk with the carried tails")
+    launches = phase_slice(
+        f"ambi_bin flagship x {S}", 42,
+        lambda st, x, fused: ambi_bin.process_ri_batched(bcfg, bw, st, x,
+                                                         fused=fused),
+        lambda: ambi_bin.init_state_batched(bcfg, S, dev), nsh, 2, ak, dev,
+        rng, card, {"render_full_ri": 1}, n_chunks=1, n_streams=S)
+    taps = random_taps(ak, rng, S, nsh, 2, False, True, dev)
+    in_tail = uniform(rng, (S, nsh, 15 * 128), dev)
+    ola = uniform(rng, (S, 2, 9, 128), dev)
+    xk = uniform(rng, (S, nsh, HOPS * 128), dev)
+    ky, kt = ak.render_full_ri(in_tail, xk, ola, taps)
+    py, pt = ak.render_full_ri_reference(in_tail, xk, ola, taps)
+    err = max((ky - py).abs().max().item(), (kt - pt).abs().max().item())
+    check(err <= KERNEL_TOL, f"render_full_ri at {S} streams: {err}")
+    t = ab_times({
+        "kernel": lambda: ak.render_full_ri(in_tail, xk, ola, taps),
+        "plain": lambda: ak.render_full_ri_reference(in_tail, xk, ola,
+                                                     taps)}, 10, queued=True)
+    b = render_full_bound(S, nsh, 2, HOPS)
+    report_times("render_full_ri", t, card,
+                 f"{(S, nsh, 2, HOPS)}, the flagship at {S} streams (max "
+                 f"|err| vs plain {err:.3e}; bound {b['bound_ms']:.4f} ms by "
+                 f"{b['bound_by']})")
+    return {"launches": launches["render_full_ri"], "times": t, "bound": b}
 
 
 def bound(in_floats: float, out_floats: float, flop: float) -> dict:
@@ -3567,6 +3625,9 @@ def main() -> int:
     phase_pitch_qmf_stft(ak, dev, rng, card)
     phase_last_c_parity(ak, dev, card)
     print(f"phases 39-41 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide256 = phase_wide(bcfg, bw, ak, dev, rng, card)
+    print(f"phase 42 took {time.perf_counter() - t0:.1f} s")
 
     bounds = kernel_bounds()
     # (kernel, rows, hops, path, its launches in that path's main run)
@@ -3630,6 +3691,10 @@ def main() -> int:
             h8, f"StreamRunner ({mode}) over the flagship, frames of "
             f"{RT_FRAME}, {RT_SECONDS:g} s", rt[mode]["launches"],
             rt["times_h8"], rt["bound_h8"]))
+    other["render_full_ri"].append(shape_entry(
+        f"({WIDE_STREAMS}, 16, 2, {HOPS})",
+        f"the flagship at {WIDE_STREAMS} streams, one chunk",
+        wide256["launches"], wide256["times"], wide256["bound"]))
     for path, n in (("render_signal over the flagship, 8 blocks",
                      rs_launches),
                     ("run_sharded on the card's grid, flagship, 2 chunks",

@@ -1,4 +1,4 @@
-// saf_runtime — native real-time streaming runtime for the TPU framework.
+// saf_runtime — native real-time streaming runtime of the PyTorch port.
 //
 // The reference library's compute sits inside a plugin-style audio callback:
 // every example FIFO-frames arbitrary host block sizes into fixed 128-sample
@@ -7,18 +7,25 @@
 // thread through a CODEC_STATUS / PROC_STATUS flag handshake
 // (examples/include/_common.h:199-224; spin-wait ambi_bin.c:180-186).
 //
-// Here the per-frame compute is a jitted XLA executable driven from Python;
-// this C++ layer provides the real-time plumbing around it:
+// Here the per-frame compute is a torch function driven from Python (on the
+// card, one kernel launch a frame); this C++ layer provides the real-time
+// plumbing around it, and copies whole runs of samples (memcpy), never a
+// sample at a time:
 //   * a lock-free single-producer/single-consumer ring buffer of interleaved
-//     float frames (the audio-callback <-> render-thread transport),
+//     float frames (the audio-callback <-> render-thread transport), written
+//     and read in at most two copies around the wrap, and written from a
+//     planar block by a cache-blocked interleave,
 //   * a FIFO framer regrouping arbitrary host block sizes into fixed frames,
+//     a run of samples up to the next frame boundary at a time, with its
+//     input and output widths apart,
 //   * an atomic codec/processing status handshake (never blocks the audio
 //     thread; init threads can wait on a futex-free spin with sleep),
 //   * a monotonic frame clock for real-time-factor / latency accounting.
 //
 // Built as a plain C ABI shared library, bound from Python with ctypes
-// (spatial_audio_framework_tpu/runtime/native.py).
+// (spatial_audio_framework_tpu_torch/runtime/native.py).
 
+#include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <cstdint>
@@ -54,15 +61,53 @@ size_t next_pow2(size_t v) {
     return p;
 }
 
+// n floats into the ring from logical position pos: two copies at most, the
+// second from the ring's start after the wrap.
+void ring_put(RingBuffer* rb, uint64_t pos, const float* src, uint64_t n) {
+    size_t at = pos & rb->mask;
+    size_t first = std::min<uint64_t>(n, rb->capacity - at);
+    std::memcpy(rb->data + at, src, first * sizeof(float));
+    std::memcpy(rb->data, src + first, (n - first) * sizeof(float));
+}
+
+void ring_get(const RingBuffer* rb, uint64_t pos, float* dst, uint64_t n) {
+    size_t at = pos & rb->mask;
+    size_t first = std::min<uint64_t>(n, rb->capacity - at);
+    std::memcpy(dst, rb->data + at, first * sizeof(float));
+    std::memcpy(dst + first, rb->data, (n - first) * sizeof(float));
+}
+
+// dst[(s - s0) * n_ch + c] = src[c * ld + s] for s in [s0, s1): samples of a
+// planar block (rows of ld floats) interleaved by sample, in tiles of
+// kTileCh channels x kTileS samples, so that the cache lines a tile reads
+// and writes stay in cache until they are used whole.
+constexpr int64_t kTileCh = 64;
+constexpr int64_t kTileS = 16;
+
+void interleave(float* dst, const float* src, int64_t n_ch, int64_t ld,
+                int64_t s0, int64_t s1) {
+    for (int64_t c0 = 0; c0 < n_ch; c0 += kTileCh) {
+        const int64_t c1 = std::min(c0 + kTileCh, n_ch);
+        for (int64_t t0 = s0; t0 < s1; t0 += kTileS) {
+            const int64_t t1 = std::min(t0 + kTileS, s1);
+            for (int64_t s = t0; s < t1; ++s) {
+                float* d = dst + (s - s0) * n_ch;
+                for (int64_t c = c0; c < c1; ++c) d[c] = src[c * ld + s];
+            }
+        }
+    }
+}
+
 // ---------------------------------------------------------------------------
 // FIFO framer: arbitrary-size pushes -> fixed-size frames (matrixconv.c:117).
 // ---------------------------------------------------------------------------
 struct FifoFramer {
-    int n_ch = 0;
+    int n_in = 0;
+    int n_out = 0;
     int frame_size = 0;
     int idx = 0;          // write position within the current frame
-    float* in_fifo = nullptr;   // (n_ch, frame_size) planar
-    float* out_fifo = nullptr;  // (n_ch, frame_size) planar
+    float* in_fifo = nullptr;   // (n_in, frame_size) planar
+    float* out_fifo = nullptr;  // (n_out, frame_size) planar
     uint64_t frames_completed = 0;
 };
 
@@ -124,10 +169,43 @@ SAF_EXPORT uint64_t saf_rb_write(void* h, const float* src, uint64_t n,
         if (!partial) return 0;
         n = space;
     }
-    for (uint64_t i = 0; i < n; ++i)
-        rb->data[(head + i) & rb->mask] = src[i];
+    ring_put(rb, head, src, n);
     rb->head.store(head + n, std::memory_order_release);
     return n;
+}
+
+// Producer side, from a planar block: n samples of n_ch channels (channel c
+// at src[c * ld + s]) written interleaved by sample, as saf_rb_write of the
+// block's transpose would write them.  All or nothing: returns n_ch * n, or
+// 0 (and counts an overrun) when the ring lacks the space.  Never blocks.
+SAF_EXPORT uint64_t saf_rb_write_planar(void* h, const float* src,
+                                        int64_t n_ch, int64_t n, int64_t ld) {
+    auto* rb = static_cast<RingBuffer*>(h);
+    if (n_ch <= 0 || n <= 0) return 0;
+    const uint64_t total = (uint64_t)n_ch * n;
+    uint64_t head = rb->head.load(std::memory_order_relaxed);
+    uint64_t tail = rb->tail.load(std::memory_order_acquire);
+    if (total > rb->capacity - (head - tail)) {
+        rb->overruns.fetch_add(1, std::memory_order_relaxed);
+        return 0;
+    }
+    const size_t at = head & rb->mask;
+    const int64_t before = (int64_t)((rb->capacity - at) / n_ch);
+    if (before >= n) {
+        interleave(rb->data + at, src, n_ch, ld, 0, n);
+    } else {
+        // whole samples before the wrap, the one that straddles it (or
+        // starts at it), then the rest from the ring's start: the space
+        // check keeps them short of a second wrap
+        interleave(rb->data + at, src, n_ch, ld, 0, before);
+        const uint64_t pos = head + (uint64_t)before * n_ch;
+        for (int64_t c = 0; c < n_ch; ++c)
+            rb->data[(pos + c) & rb->mask] = src[c * ld + before];
+        interleave(rb->data + ((pos + n_ch) & rb->mask), src, n_ch, ld,
+                   before + 1, n);
+    }
+    rb->head.store(head + total, std::memory_order_release);
+    return total;
 }
 
 // Consumer side. Returns floats actually read.
@@ -141,8 +219,7 @@ SAF_EXPORT uint64_t saf_rb_read(void* h, float* dst, uint64_t n,
         if (!partial) return 0;
         n = avail;
     }
-    for (uint64_t i = 0; i < n; ++i)
-        dst[i] = rb->data[(tail + i) & rb->mask];
+    ring_get(rb, tail, dst, n);
     rb->tail.store(tail + n, std::memory_order_release);
     return n;
 }
@@ -153,13 +230,15 @@ SAF_EXPORT uint64_t saf_rb_overruns(void* h) {
 
 // ============================ FIFO framer ==================================
 
-SAF_EXPORT void* saf_framer_create(int32_t n_ch, int32_t frame_size) {
+SAF_EXPORT void* saf_framer_create(int32_t n_in, int32_t n_out,
+                                   int32_t frame_size) {
     auto* f = new (std::nothrow) FifoFramer();
     if (!f) return nullptr;
-    f->n_ch = n_ch;
+    f->n_in = n_in;
+    f->n_out = n_out;
     f->frame_size = frame_size;
-    f->in_fifo = new (std::nothrow) float[(size_t)n_ch * frame_size]();
-    f->out_fifo = new (std::nothrow) float[(size_t)n_ch * frame_size]();
+    f->in_fifo = new (std::nothrow) float[(size_t)n_in * frame_size]();
+    f->out_fifo = new (std::nothrow) float[(size_t)n_out * frame_size]();
     if (!f->in_fifo || !f->out_fifo) {
         delete[] f->in_fifo; delete[] f->out_fifo; delete f;
         return nullptr;
@@ -172,29 +251,35 @@ SAF_EXPORT void saf_framer_destroy(void* h) {
     if (f) { delete[] f->in_fifo; delete[] f->out_fifo; delete f; }
 }
 
-// Push nSamples of planar input (in[ch][s]) while pulling the previous
-// output; whenever the FIFO fills, `full_in` receives the completed frame
-// and the frame counter advances — the caller then runs the jitted process
-// and stores its result with saf_framer_set_output(). Mirrors the
+// Push nSamples of planar input (n_in rows: in[ch * in_ld + s]) while
+// pulling the previous output (n_out rows: out[ch * out_ld + s]); whenever
+// the FIFO fills, `full_in` receives the completed (n_in, frame_size) frame
+// and the frame counter advances — the caller then runs the process and
+// stores its result with saf_framer_set_output(). Mirrors the
 // inFIFO/outFIFO loop of matrixconv.c:117-151 (output lags one frame; total
-// latency = frame_size like the reference). Returns the number of completed
-// frames during this call (0 or more).
-SAF_EXPORT int32_t saf_framer_push(void* h, const float* in, float* out,
+// latency = frame_size like the reference), a run of samples up to the next
+// frame boundary at a time: one copy a channel a run, in and out. Returns
+// the number of completed frames during this call (0 or more).
+SAF_EXPORT int32_t saf_framer_push(void* h, const float* in, int64_t in_ld,
+                                   float* out, int64_t out_ld,
                                    int32_t n_samples, float* full_in) {
     auto* f = static_cast<FifoFramer*>(h);
+    const size_t F = f->frame_size;
     int completed = 0;
-    for (int s = 0; s < n_samples; ++s) {
-        for (int ch = 0; ch < f->n_ch; ++ch) {
-            f->in_fifo[(size_t)ch * f->frame_size + f->idx] =
-                in[(size_t)ch * n_samples + s];
-            out[(size_t)ch * n_samples + s] =
-                f->out_fifo[(size_t)ch * f->frame_size + f->idx];
-        }
-        if (++f->idx >= f->frame_size) {
+    for (int s = 0; s < n_samples;) {
+        const int take = std::min(f->frame_size - f->idx, n_samples - s);
+        for (int ch = 0; ch < f->n_in; ++ch)
+            std::memcpy(f->in_fifo + ch * F + f->idx, in + ch * in_ld + s,
+                        take * sizeof(float));
+        for (int ch = 0; ch < f->n_out; ++ch)
+            std::memcpy(out + ch * out_ld + s, f->out_fifo + ch * F + f->idx,
+                        take * sizeof(float));
+        s += take;
+        f->idx += take;
+        if (f->idx == f->frame_size) {
             f->idx = 0;
-            std::memcpy(full_in + (size_t)completed * f->n_ch * f->frame_size,
-                        f->in_fifo,
-                        (size_t)f->n_ch * f->frame_size * sizeof(float));
+            std::memcpy(full_in + (size_t)completed * f->n_in * F, f->in_fifo,
+                        f->n_in * F * sizeof(float));
             ++completed;
             ++f->frames_completed;
         }
@@ -205,7 +290,7 @@ SAF_EXPORT int32_t saf_framer_push(void* h, const float* in, float* out,
 SAF_EXPORT void saf_framer_set_output(void* h, const float* frame) {
     auto* f = static_cast<FifoFramer*>(h);
     std::memcpy(f->out_fifo, frame,
-                (size_t)f->n_ch * f->frame_size * sizeof(float));
+                (size_t)f->n_out * f->frame_size * sizeof(float));
 }
 
 SAF_EXPORT uint64_t saf_framer_frames_completed(void* h) {
@@ -321,4 +406,4 @@ SAF_EXPORT uint64_t saf_clock_frames(void* h) {
     return static_cast<FrameClock*>(h)->frames.load(std::memory_order_relaxed);
 }
 
-SAF_EXPORT int32_t saf_runtime_abi_version() { return 1; }
+SAF_EXPORT int32_t saf_runtime_abi_version() { return 2; }

@@ -82,20 +82,22 @@ def _load() -> Optional[ct.CDLL]:
         except OSError:
             _lib_failed = True
             return None
-        u64, i32, f32p, dbl, voidp = (ct.c_uint64, ct.c_int32,
-                                      ct.POINTER(ct.c_float), ct.c_double,
-                                      ct.c_void_p)
+        u64, i64, i32, f32p, dbl, voidp = (
+            ct.c_uint64, ct.c_int64, ct.c_int32, ct.POINTER(ct.c_float),
+            ct.c_double, ct.c_void_p)
         sigs = {
             "saf_rb_create": (voidp, [u64]),
             "saf_rb_destroy": (None, [voidp]),
             "saf_rb_readable": (u64, [voidp]),
             "saf_rb_writable": (u64, [voidp]),
             "saf_rb_write": (u64, [voidp, f32p, u64, i32]),
+            "saf_rb_write_planar": (u64, [voidp, f32p, i64, i64, i64]),
             "saf_rb_read": (u64, [voidp, f32p, u64, i32]),
             "saf_rb_overruns": (u64, [voidp]),
-            "saf_framer_create": (voidp, [i32, i32]),
+            "saf_framer_create": (voidp, [i32, i32, i32]),
             "saf_framer_destroy": (None, [voidp]),
-            "saf_framer_push": (i32, [voidp, f32p, f32p, i32, f32p]),
+            "saf_framer_push": (i32, [voidp, f32p, i64, f32p, i64, i32,
+                                      f32p]),
             "saf_framer_set_output": (None, [voidp, f32p]),
             "saf_framer_frames_completed": (u64, [voidp]),
             "saf_framer_fifo_idx": (i32, [voidp]),
@@ -137,6 +139,28 @@ def native_available() -> bool:
 
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(ct.POINTER(ct.c_float))
+
+
+def _rows(x, n_rows: int, what: str) -> np.ndarray:
+    """``x`` as (n_rows, n) float32 rows whose samples lie next to each
+    other (a column slice of a wider block stays a view; anything else is
+    copied), so the native code can copy a row's run with one memcpy."""
+    x = np.asarray(x, np.float32)
+    if x.ndim != 2 or x.shape[0] != n_rows:
+        # validate BEFORE the native call: it reads and writes whole rows
+        # unconditionally — a mismatched channel count is heap corruption,
+        # not an exception
+        raise ValueError(f"{what} expects ({n_rows}, n) input, got "
+                         f"{x.shape}")
+    if (x.shape[1] > 1 and x.strides[1] != 4
+            or x.strides[0] < 4 * x.shape[1] or x.strides[0] % 4):
+        x = np.ascontiguousarray(x)
+    return x
+
+
+def _ld(x: np.ndarray) -> int:
+    """The row stride of ``_rows``' result, in floats."""
+    return x.strides[0] // 4
 
 
 class RingBuffer:
@@ -205,6 +229,20 @@ class RingBuffer:
             self._head += n
             return n
 
+    def write_planar(self, x: np.ndarray) -> int:
+        """Write a planar block ``x`` (n_ch, n) interleaved by sample, as
+        ``write(x.T)`` does, without building ``x.T``: all or nothing.
+        Returns the floats written (n_ch · n, or 0 and an overrun)."""
+        x = np.asarray(x, np.float32)
+        if x.ndim != 2:
+            raise ValueError(f"write_planar expects (n_ch, n), got {x.shape}")
+        if not self._lib:
+            return self.write(x.T)
+        x = _rows(x, x.shape[0], "write_planar")
+        return int(self._lib.saf_rb_write_planar(self._h, _fptr(x),
+                                                 x.shape[0], x.shape[1],
+                                                 _ld(x)))
+
     def read(self, n: int, partial: bool = False) -> np.ndarray:
         out = np.empty(n, np.float32)
         if self._lib:
@@ -225,19 +263,25 @@ class RingBuffer:
 
 class FifoFramer:
     """Regroup arbitrary host block sizes into fixed frames with one frame of
-    latency (the reference's inFIFO/outFIFO loop, matrixconv.c:117-151)."""
+    latency (the reference's inFIFO/outFIFO loop, matrixconv.c:117-151).
 
-    def __init__(self, n_ch: int, frame_size: int):
+    ``n_ch`` channels go in and ``n_ch_out`` (default ``n_ch``) come out:
+    the output FIFO holds only the rows a process returns.  Samples move a
+    run at a time, up to the next frame boundary, one copy a channel."""
+
+    def __init__(self, n_ch: int, frame_size: int,
+                 n_ch_out: Optional[int] = None):
         lib = _load()
         self._lib = lib
         self.n_ch, self.frame_size = n_ch, frame_size
+        self.n_ch_out = n_ch if n_ch_out is None else n_ch_out
         if lib is not None:
-            self._h = lib.saf_framer_create(n_ch, frame_size)
+            self._h = lib.saf_framer_create(n_ch, self.n_ch_out, frame_size)
             if not self._h:
                 raise MemoryError("saf_framer_create failed")
         else:
             self._in = np.zeros((n_ch, frame_size), np.float32)
-            self._out = np.zeros((n_ch, frame_size), np.float32)
+            self._out = np.zeros((self.n_ch_out, frame_size), np.float32)
             self._idx = 0
             self._done = 0
 
@@ -246,60 +290,67 @@ class FifoFramer:
             self._lib.saf_framer_destroy(self._h)
             self._h = 0
 
-    def push(self, x: np.ndarray):
-        """x: (n_ch, nSamples) → (out (n_ch, nSamples), frames (k, n_ch, F))."""
-        x = np.ascontiguousarray(x, np.float32)
-        if x.ndim != 2 or x.shape[0] != self.n_ch:
-            # validate BEFORE the native call: saf_framer_push writes
-            # n_ch*nSamples floats into `out` and reads the same from `x`
-            # unconditionally — a mismatched channel count is heap
-            # corruption, not an exception
-            raise ValueError(f"push expects ({self.n_ch}, n) input, got "
-                             f"{x.shape}")
+    def _push(self, x: np.ndarray, out: np.ndarray, full: np.ndarray) -> int:
+        """Push ``x`` (``_rows``) and pull as many samples into ``out`` (the
+        same layout); completed frames go to ``full[0], full[1], ...``.
+        Returns their count."""
         n = x.shape[1]
-        out = np.empty_like(x)
-        max_frames = n // self.frame_size + 1
         if self._lib:
-            full = np.empty((max_frames, self.n_ch, self.frame_size),
-                            np.float32)
-            k = int(self._lib.saf_framer_push(self._h, _fptr(x), _fptr(out),
-                                              n, _fptr(full)))
-            return out, full[:k]
-        frames = []
-        for s in range(n):
-            self._in[:, self._idx] = x[:, s]
-            out[:, s] = self._out[:, self._idx]
-            self._idx += 1
-            if self._idx >= self.frame_size:
+            return int(self._lib.saf_framer_push(
+                self._h, _fptr(x), _ld(x), _fptr(out), _ld(out), n,
+                _fptr(full)))
+        F, k, s = self.frame_size, 0, 0
+        while s < n:
+            i = self._idx
+            take = min(F - i, n - s)
+            self._in[:, i:i + take] = x[:, s:s + take]
+            out[:, s:s + take] = self._out[:, i:i + take]
+            s += take
+            self._idx = i + take
+            if self._idx == F:
                 self._idx = 0
                 self._done += 1
-                frames.append(self._in.copy())
-        return out, (np.stack(frames) if frames else
-                     np.empty((0, self.n_ch, self.frame_size), np.float32))
+                full[k] = self._in
+                k += 1
+        return k
+
+    def push(self, x: np.ndarray):
+        """x: (n_ch, nSamples) → (out (n_ch_out, nSamples), frames (k, n_ch,
+        F))."""
+        x = _rows(x, self.n_ch, "push")
+        n = x.shape[1]
+        out = np.empty((self.n_ch_out, n), np.float32)
+        full = np.empty((n // self.frame_size + 1, self.n_ch,
+                         self.frame_size), np.float32)
+        return out, full[:self._push(x, out, full)]
 
     def push_chunked(self, x: np.ndarray, process_fn):
         """Exact reference semantics (matrixconv.c:132-151): the frame is
         processed at the instant the FIFO fills, so samples later in the same
         host block already read the new output.  Implemented by splitting the
-        push at frame boundaries; process_fn((n_ch, F)) -> (n_ch, F) runs at
-        each boundary and its result is installed before the next chunk."""
-        x = np.asarray(x, np.float32)
+        push at frame boundaries; process_fn((n_ch, F)) -> (n_ch_out, F) runs
+        at each boundary and its result is installed before the next chunk.
+        ``x`` may be a column slice of a wider block: it is read in place."""
+        x = _rows(x, self.n_ch, "push_chunked")
         n = x.shape[1]
-        out = np.empty_like(x)
+        out = np.empty((self.n_ch_out, n), np.float32)
+        no_frame = np.empty((0, self.n_ch, self.frame_size), np.float32)
         s = 0
         while s < n:
             take = min(self.frame_size - self.fifo_idx, n - s)
-            o, frames = self.push(x[:, s:s + take])
-            out[:, s:s + take] = o
-            if frames.shape[0]:  # exactly 0 or 1: chunk ends on the boundary
-                self.set_output(np.asarray(process_fn(frames[0]), np.float32))
+            fills = take == self.frame_size - self.fifo_idx
+            full = (np.empty((1, self.n_ch, self.frame_size), np.float32)
+                    if fills else no_frame)
+            self._push(x[:, s:s + take], out[:, s:s + take], full)
+            if fills:
+                self.set_output(process_fn(full[0]))
             s += take
         return out
 
     def set_output(self, frame: np.ndarray):
         frame = np.ascontiguousarray(frame, np.float32)
-        if frame.shape != (self.n_ch, self.frame_size):
-            raise ValueError(f"set_output expects ({self.n_ch}, "
+        if frame.shape != (self.n_ch_out, self.frame_size):
+            raise ValueError(f"set_output expects ({self.n_ch_out}, "
                              f"{self.frame_size}), got {frame.shape}")
         if self._lib:
             self._lib.saf_framer_set_output(self._h, _fptr(frame))

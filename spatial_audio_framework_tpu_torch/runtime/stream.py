@@ -71,19 +71,31 @@ def torch_frame_fn(fn: Callable[[torch.Tensor], torch.Tensor], n_ch: int,
     """Wrap ``fn((n_ch, frame_size) tensor) -> tensor`` for
     :class:`StreamRunner`: each numpy frame is staged in a pinned host
     buffer and copied to ``device`` (default: the card) without a host
-    wait.  Reusing the one staging buffer is safe because the runner waits
-    for each frame's output before it hands over the next frame."""
+    wait.  A frame that is the transpose of a contiguous (frame_size, n_ch)
+    array (the render thread's frame, as it lies in the interleaved ring)
+    is staged as it lies and transposed on the card; ``fn`` gets the same
+    contiguous tensor either way.  Reusing the staging buffers is safe
+    because the runner waits for each frame's output before it hands over
+    the next frame."""
     device = torch.device(default_device() if device is None else device)
     if device.type != "cuda":
         return lambda f: fn(torch.from_numpy(np.ascontiguousarray(
             f, np.float32)).to(device))
-    host = torch.empty((n_ch, frame_size), dtype=torch.float32,
-                       pin_memory=True)
     dev = torch.empty((n_ch, frame_size), dtype=torch.float32, device=device)
+    pinned = {}     # a staging buffer per layout, made at first use
 
     def run(f: np.ndarray) -> torch.Tensor:
-        host.numpy()[...] = f
-        dev.copy_(host, non_blocking=True)
+        lies = not f.flags.c_contiguous and f.T.flags.c_contiguous
+        src = f.T if lies else f
+        host = pinned.get(src.shape)
+        if host is None:
+            host = pinned[src.shape] = torch.empty(
+                src.shape, dtype=torch.float32, pin_memory=True)
+        host.numpy()[...] = src
+        if lies:
+            dev.copy_(host.to(device, non_blocking=True).T)
+        else:
+            dev.copy_(host, non_blocking=True)
         return fn(dev)
 
     return run
@@ -103,7 +115,8 @@ class StreamRunner:
         self.clock = FrameClock(fs, frame_size)
         self.read_s = 0.0      # seconds spent reading frames off the device
         self._read = _PinnedReader()
-        self._framer = FifoFramer(max(n_ch_in, n_ch_out), frame_size)
+        self._silence = np.zeros((n_ch_out, frame_size), np.float32)
+        self._framer = FifoFramer(n_ch_in, frame_size, n_ch_out)
         self._in_rb = RingBuffer(ring_frames * n_ch_in * frame_size)
         self._out_rb = RingBuffer(ring_frames * n_ch_out * frame_size)
         self._render_thread: Optional[threading.Thread] = None
@@ -136,22 +149,17 @@ class StreamRunner:
     def process_block(self, x: np.ndarray) -> np.ndarray:
         """x: (n_ch_in, nSamples), any nSamples → (n_ch_out, nSamples) with
         frame_size samples of FIFO latency."""
-        x = np.asarray(x, np.float32)
-        pad = np.zeros((self._framer.n_ch, x.shape[1]), np.float32)
-        pad[:self.n_ch_in] = x
-
         def run(f):
-            y = np.zeros((self._framer.n_ch, self.frame_size), np.float32)
+            y = self._silence
             if self.status.try_begin_process():
                 try:
-                    y[:self.n_ch_out] = self._run_frame(f[:self.n_ch_in])
+                    y = self._run_frame(f)
                 finally:
                     self.status.end_process()
             self.clock.tick(1)
             return y
 
-        out = self._framer.push_chunked(pad, run)
-        return out[:self.n_ch_out]
+        return self._framer.push_chunked(x, run)
 
     # -- decoupled render-thread path ----------------------------------------
 
@@ -173,8 +181,11 @@ class StreamRunner:
     def push(self, x: np.ndarray) -> int:
         """Audio-callback producer: (n_ch_in, n) samples into the input ring.
         Returns samples accepted (never blocks)."""
-        x = np.ascontiguousarray(x, np.float32)
-        return self._in_rb.write(x.T) // self.n_ch_in  # interleaved frames
+        x = np.asarray(x, np.float32)
+        if x.ndim != 2 or x.shape[0] != self.n_ch_in:
+            raise ValueError(f"push expects ({self.n_ch_in}, n) input, got "
+                             f"{x.shape}")
+        return self._in_rb.write_planar(x) // self.n_ch_in
 
     def pull(self, n: int) -> np.ndarray:
         """Audio-callback consumer: up to n samples from the output ring →
@@ -189,13 +200,15 @@ class StreamRunner:
             if self._in_rb.readable < need:
                 self._stop.wait(0.0005)
                 continue
+            # the frame as it lies in the ring, (F, n_ch_in), handed on as
+            # its (n_ch_in, F) transpose: a view, not a copy
             frame = self._in_rb.read(need).reshape(self.frame_size,
                                                    self.n_ch_in).T
-            y = np.zeros((self.n_ch_out, self.frame_size), np.float32)
+            y = self._silence
             if self.status.try_begin_process():
                 try:
                     y = self._run_frame(frame)
                 finally:
                     self.status.end_process()
-            self._out_rb.write(np.ascontiguousarray(y.T))
+            self._out_rb.write_planar(y)
             self.clock.tick(1)

@@ -1377,6 +1377,31 @@ def test_stream_runner_launches_render_full_ri_once_per_frame(cuda, order,
                   - ref[:, :valid - frame_size]).max() <= 1e-6
 
 
+def test_torch_frame_fn_stages_either_layout_to_the_same_tensor(cuda):
+    """A frame as the render thread hands it on (the transpose of a
+    contiguous (F, n) array: staged as it lies, transposed on the card) and
+    the same frame as a contiguous (n, F) array reach the function as the
+    same tensor, without a host wait."""
+    from spatial_audio_framework_tpu_torch.runtime import torch_frame_fn
+
+    n, F = 64 * 16, 1024
+    seen = []
+    run = torch_frame_fn(lambda t: seen.append(t.clone()) or t, n, F, cuda)
+    lies = np.random.default_rng(5).uniform(-1, 1, (F, n)).astype(np.float32)
+    for f in (lies.T, np.ascontiguousarray(lies.T), lies.T):
+        run(f)
+        torch.cuda.synchronize()   # as the runner's read of each output
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(lies.T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want = torch.from_numpy(np.ascontiguousarray(lies.T)).to(cuda)
+    assert all(t.shape == (n, F) and t.is_contiguous()
+               and torch.equal(t, want) for t in seen)
+
+
 def test_render_signal_never_waits_and_equals_a_hand_loop(cuda):
     from spatial_audio_framework_tpu_torch.parallel.streaming import (
         render_signal)

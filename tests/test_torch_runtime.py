@@ -17,6 +17,7 @@ from spatial_audio_framework_tpu.models import ambi_bin as jab
 from spatial_audio_framework_tpu.parallel.streaming import (
     render_signal as jax_render_signal)
 from spatial_audio_framework_tpu.runtime import StreamRunner as JaxRunner
+from spatial_audio_framework_tpu.runtime import native as jax_native
 from spatial_audio_framework_tpu_torch.models import ambi_bin as tab
 from spatial_audio_framework_tpu_torch.parallel.streaming import render_signal
 from spatial_audio_framework_tpu_torch.runtime import (
@@ -172,6 +173,178 @@ def test_python_fallback_paths(monkeypatch):
     c = native.FrameClock(48000.0, 128)
     c.tick(2)
     assert c.frames == 2 and c.rtf > 0
+
+
+# ---------------------------------------------------------------------------
+# the framer, the rings and StreamRunner bit for bit against the JAX
+# package's (a per-sample C loop, one width for both sides), on the native
+# library and on the pure-Python fallback
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(params=["native", "python"])
+def backend(request, monkeypatch):
+    if request.param == "python":
+        monkeypatch.setattr(native, "_load", lambda: None)
+    else:
+        assert native_available()
+    return request.param
+
+
+def _blocks(rng, T, F):
+    """Random block sizes from 1 to 3F + 7 covering T samples."""
+    cuts, s = [0], 0
+    while s < T:
+        s = min(T, s + int(rng.integers(1, 3 * F + 8)))
+        cuts.append(s)
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+@pytest.mark.parametrize("n_in,n_out", [(5, 3), (2, 7)])
+def test_framer_matches_jax_framer_bit_for_bit(backend, n_in, n_out):
+    """push_chunked with random block sizes (several frames in one block
+    too), blocks read in place as column slices of the signal: the frames,
+    the output, fifo_idx and frames_completed equal the JAX package's
+    framer, which is as wide as the wider side."""
+    F, T = 16, 16 * 40
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-1, 1, (n_in, T)).astype(np.float32)
+    W = rng.uniform(-1, 1, (n_out, n_in)).astype(np.float32)
+    width = max(n_in, n_out)
+    ours, ref = FifoFramer(n_in, F, n_out), jax_native.FifoFramer(width, F)
+    assert (ours.n_ch, ours.n_ch_out) == (n_in, n_out)
+    frames, ref_frames = [], []
+
+    def process(f):
+        frames.append(f.copy())
+        return W @ f + len(frames)
+
+    def ref_process(f):
+        ref_frames.append(f[:n_in].copy())
+        y = np.zeros((width, F), np.float32)
+        y[:n_out] = W @ f[:n_in] + len(ref_frames)
+        return y
+
+    for a, b in _blocks(rng, T, F):
+        got = ours.push_chunked(x[:, a:b], process)
+        pad = np.zeros((width, b - a), np.float32)
+        pad[:n_in] = x[:, a:b]
+        want = ref.push_chunked(pad, ref_process)[:n_out]
+        assert got.shape == (n_out, b - a)
+        np.testing.assert_array_equal(got, want)
+        assert ours.fifo_idx == ref.fifo_idx
+        assert ours.frames_completed == ref.frames_completed
+    assert len(frames) == T // F
+    np.testing.assert_array_equal(np.stack(frames), np.stack(ref_frames))
+
+
+def test_framer_push_matches_jax_framer_bit_for_bit(backend):
+    """push (every completed frame of a block returned at once) and
+    set_output between pushes, with blocks up to 3F + 7."""
+    F, T, n_in, n_out = 8, 8 * 30, 3, 2
+    rng = np.random.default_rng(12)
+    x = rng.uniform(-1, 1, (n_in, T)).astype(np.float32)
+    ours, ref = FifoFramer(n_in, F, n_out), jax_native.FifoFramer(n_in, F)
+    for k, (a, b) in enumerate(_blocks(rng, T, F)):
+        out, frames = ours.push(x[:, a:b])
+        ref_out, ref_frames = ref.push(x[:, a:b])
+        np.testing.assert_array_equal(out, ref_out[:n_out])
+        np.testing.assert_array_equal(frames, ref_frames)
+        assert ours.fifo_idx == ref.fifo_idx
+        assert ours.frames_completed == ref.frames_completed
+        y = np.full((n_in, F), k, np.float32)
+        ours.set_output(y[:n_out])
+        ref.set_output(y)
+    with pytest.raises(ValueError):
+        ours.set_output(np.zeros((n_in, F), np.float32))
+
+
+@pytest.mark.parametrize("n_ch", [3, 4])
+def test_ring_planar_write_equals_interleaved_write(backend, n_ch):
+    """write_planar of a (n_ch, n) block (a column slice of a wider one)
+    puts the floats where write(x.T) does, across the wrap many times
+    (3 channels straddle the 64-float ring's end, 4 meet it); all or
+    nothing, an overrun counted as write's."""
+    rng = np.random.default_rng(13)
+    x = rng.uniform(-1, 1, (n_ch, 4000)).astype(np.float32)
+    planar, ref = RingBuffer(64), RingBuffer(64)
+    s = 0
+    while s < 3900:
+        n = int(rng.integers(0, planar.writable // n_ch + 1))
+        assert planar.write_planar(x[:, s:s + n]) == ref.write(
+            np.ascontiguousarray(x[:, s:s + n].T)) == n_ch * n
+        m = int(rng.integers(0, planar.readable + 1))
+        np.testing.assert_array_equal(planar.read(m), ref.read(m))
+        s += n
+    big = np.ones((n_ch, planar.writable // n_ch + 1), np.float32)
+    assert planar.write_planar(big) == 0 and planar.overruns == 1
+    np.testing.assert_array_equal(planar.read(planar.readable, partial=True),
+                                  ref.read(ref.readable, partial=True))
+
+
+def _numpy_frame_fn(n_in, n_out):
+    W = np.random.default_rng(14).uniform(
+        -1, 1, (n_out, n_in)).astype(np.float32)
+    return lambda f: W @ f
+
+
+def test_stream_runner_equals_jax_runner_bit_for_bit(backend):
+    """The same numpy frame function through both runners, random host
+    block sizes from 1 to 3F + 7: the outputs and the frame counts equal."""
+    F, n_in, n_out, T = 32, 6, 4, 32 * 25
+    rng = np.random.default_rng(15)
+    x = rng.uniform(-1, 1, (n_in, T)).astype(np.float32)
+    ours = StreamRunner(_numpy_frame_fn(n_in, n_out), n_in, n_out, F)
+    ref = JaxRunner(_numpy_frame_fn(n_in, n_out), n_in, n_out, F)
+    for a, b in _blocks(rng, T, F):
+        np.testing.assert_array_equal(ours.process_block(x[:, a:b]),
+                                      ref.process_block(x[:, a:b]))
+        assert ours.clock.frames == ref.clock.frames
+    assert ours.clock.frames == T // F
+
+
+def test_render_thread_equals_process_block_bit_for_bit(backend):
+    """The render thread (planar pushes into the ring, the frame handed on
+    as it lies there) gives what process_block gives, one frame earlier."""
+    F, n_in, n_out, T = 32, 6, 4, 32 * 20
+    x = np.random.default_rng(16).uniform(-1, 1, (n_in, T)).astype(
+        np.float32)
+    ref = StreamRunner(_numpy_frame_fn(n_in, n_out), n_in, n_out,
+                       F).process_block(x)
+    runner = StreamRunner(_numpy_frame_fn(n_in, n_out), n_in, n_out, F)
+    with pytest.raises(ValueError):
+        runner.push(np.zeros((n_in + 1, 8), np.float32))
+    runner.start()
+    try:
+        fed, got = 0, []
+        deadline = time.monotonic() + 30.0
+        while sum(g.shape[1] for g in got) < T:
+            if fed < T:
+                fed += runner.push(x[:, fed:fed + 50])
+            chunk = runner.pull(50)
+            if chunk.size:
+                got.append(chunk.copy())
+            if time.monotonic() > deadline:
+                pytest.fail("render thread stalled")
+            time.sleep(0.0005)
+    finally:
+        runner.stop()
+    np.testing.assert_array_equal(np.concatenate(got, axis=1)[:, :T - F],
+                                  ref[:, F:])
+
+
+def test_torch_frame_fn_takes_either_layout():
+    """A frame as the render thread hands it on (the transpose of a
+    contiguous (F, n) array) and the same frame as a contiguous (n, F)
+    array reach the function as the same tensor."""
+    n, F = 5, 16
+    seen = []
+    run = torch_frame_fn(lambda t: seen.append(t.clone()) or t, n, F,
+                         device="cpu")
+    lies = np.random.default_rng(17).uniform(-1, 1, (F, n)).astype(np.float32)
+    run(lies.T)
+    run(np.ascontiguousarray(lies.T))
+    assert seen[0].shape == (n, F) and torch.equal(seen[0], seen[1])
+    assert torch.equal(seen[0], torch.from_numpy(lies.T.copy()))
 
 
 # ---------------------------------------------------------------------------

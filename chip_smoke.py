@@ -2855,8 +2855,8 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
                      "read_share": runner.read_s / wall}
     # the host's share, piece by piece (median ms of 20, host clock): the
     # FIFO framer's push of one block read in place (a run a channel), the
-    # input ring's planar write of one block and the read of one frame, the
-    # output ring's planar write of one frame's output and its read, and a
+    # input ring's planar write of one block and its read, the output
+    # ring's planar write of one frame's output and its read, and a
     # frame staged into pinned memory as process_block hands it on ((n_in,
     # F)) and as the render thread does (as it lies in the ring, (F, n_in))
     blk = x[:, :RT_BLOCK]

@@ -644,12 +644,6 @@ def test_data_file_is_a_copy_of_the_jax_packages(name):
     assert _sha256(PORT / "data" / name) == _sha256(_JAX_DATA / name)
 
 
-def test_runtime_source_is_the_ports_own():
-    from spatial_audio_framework_tpu_torch.runtime import native
-    assert native.SRC == PORT / "csrc" / "saf_runtime.cpp"
-    assert native.SRC.is_file()
-
-
 # a path component naming the JAX package's directory or native/
 _FOREIGN = re.compile(r"(^|/)(spatial_audio_framework_tpu|native)(/|$)")
 # calls that take a path

@@ -34,7 +34,9 @@ def test_native_library_builds_into_the_ports_build_dir():
     assert lib.is_file() and lib.parent == native.BUILD_DIR
     assert native.BUILD_DIR.name == "_build"
     assert native.BUILD_DIR.parent.name == "spatial_audio_framework_tpu_torch"
-    assert native.SRC.name == "saf_runtime.cpp" and native.SRC.is_file()
+    # the port's own copy of the runtime's C++, beside its CUDA sources
+    assert native.SRC == native.BUILD_DIR.parent / "csrc" / "saf_runtime.cpp"
+    assert native.SRC.is_file()
 
 
 def test_native_build_is_atomic(tmp_path, monkeypatch):

@@ -42,6 +42,7 @@ from spatial_audio_framework_tpu_torch.ops import afstft, afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
+from spatial_audio_framework_tpu_torch.utils.profiling import spanned
 
 # HRIR_PREPROC_OPTIONS (ambi_bin.h)
 PREPROC_OFF = "off"
@@ -286,6 +287,7 @@ def init_state_batched(cfg: AmbiBinConfig, n_streams: int,
                                  device=device)
 
 
+@spanned("models.ambi_bin.process_ri_batched")
 def process_ri_batched(cfg: AmbiBinConfig, w_ri, state: ri.AfSTFTStateBatched,
                        x: torch.Tensor, fused: bool = True):
     """Stream-batched render: x (S, nSH, T) → ((S, 2, T), state).

@@ -43,6 +43,7 @@ from spatial_audio_framework_tpu_torch.ops import afstft, afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
+from spatial_audio_framework_tpu_torch.utils.profiling import spanned
 
 INTERP_TRI = "tri"
 INTERP_TRI_PS = "tri_ps"
@@ -202,6 +203,7 @@ def _gather(table: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
     return table[:, :, i3].movedim((0, 1), (-4, -3))
 
 
+@spanned("ops.interp_hrtfs")
 def interp_hrtfs_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
                     dirs_deg: torch.Tensor):
     """Per-source HRTF interpolation (binauraliser_interpHRTFs) in split
@@ -248,6 +250,7 @@ def interp_hrtfs(cfg: BinauraliserConfig, w: BinauraliserWeights,
     return torch.complex(*interp_hrtfs_ri(cfg, w.as_ri(), dirs_deg))
 
 
+@spanned("ops.rotate_dirs")
 def rotate_dirs(src_dirs_deg: torch.Tensor, ypr: torch.Tensor) -> torch.Tensor:
     """Source directions (..., nSrc, 2) degrees after the listener's head
     rotation ypr (..., 3) [yaw, pitch, roll] radians (one per stream on the
@@ -289,6 +292,7 @@ def process(cfg: BinauraliserConfig, w: BinauraliserWeights,
                        1.0 / math.sqrt(cfg.n_sources))
 
 
+@spanned("models.binauraliser.process_ri_batched")
 def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
                        state: ri.AfSTFTStateBatched, x: torch.Tensor,
                        src_dirs_deg: torch.Tensor,

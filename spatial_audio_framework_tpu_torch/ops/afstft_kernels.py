@@ -63,6 +63,7 @@ from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
 from spatial_audio_framework_tpu_torch.ops.fft import (_fft256_twiddles,
                                                        _rdft_mats)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
+from spatial_audio_framework_tpu_torch.utils.profiling import spanned
 
 _G_BANDS = 16   # lanes carried for the hybrid-FIR context g (the B taps are
                 # nonzero only in uniform bands 1..4)
@@ -70,6 +71,11 @@ _NT = _TOTAL_HOPS - 1   # overlap-add tail hops
 _TAIL_HOPS = _NT + 6    # the renderers' input tail: 9 framing + 6 hybrid hops
 _KERNEL_HOP = 128       # the kernel's fixed hop
 _KERNEL_MAX_CH_PRODUCT = 128
+# the entry points that launch a CUDA kernel, each counted in
+# ``<entry>.launches`` and spanned as ``kernels.<entry>``
+KERNELS = ("render_full_ri", "analysis_front_dg_ri",
+           "render_decode_synthesis_dg_ri", "analysis_front_ri",
+           "render_decode_synthesis_ri", "synthesis_back_ri")
 
 
 def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
@@ -223,6 +229,7 @@ def _check_rows(what: str, tail: torch.Tensor, x: torch.Tensor, hop: int,
     return B, t_hops, x_hops
 
 
+@spanned("kernels.analysis_front_ri")
 def analysis_front_ri(tail: torch.Tensor, x: torch.Tensor,
                       low_delay: bool = False, hop: int = _KERNEL_HOP):
     """Fused framing + window + fold + rDFT.
@@ -289,6 +296,7 @@ def _d_g(sre: torch.Tensor, sim: torch.Tensor, hybrid: bool):
     return sre[..., 3:3 + H, :], sim[..., 3:3 + H, :], g(sre), g(sim)
 
 
+@spanned("kernels.analysis_front_dg_ri")
 def analysis_front_dg_ri(tail: torch.Tensor, x: torch.Tensor,
                          low_delay: bool = False, hop: int = _KERNEL_HOP):
     """Fused framing + window + fold + rDFT emitting the renderer's (d, g)
@@ -375,6 +383,7 @@ def _syn_consts(hop: int, low_delay: bool, hybrid: bool,
     return {"AB": f32_tensor(AB, device), "w_syn": f32_tensor(w_syn, device)}
 
 
+@spanned("kernels.synthesis_back_ri")
 def synthesis_back_ri(spec: torch.Tensor, tail: torch.Tensor,
                       low_delay: bool = False, hybrid: bool = True):
     """Fused hybrid inverse + irDFT + window + overlap-add.
@@ -465,6 +474,7 @@ def _launch_decode_synthesis(what: str, fn: str, inputs: dict,
     return y, new_tail
 
 
+@spanned("kernels.render_decode_synthesis_ri")
 def render_decode_synthesis_ri(sre: torch.Tensor, sim: torch.Tensor,
                                tail: torch.Tensor, taps: torch.Tensor,
                                low_delay: bool = False, hybrid: bool = True,
@@ -522,6 +532,7 @@ def render_decode_synthesis_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
         per_stream=per_stream)
 
 
+@spanned("kernels.render_decode_synthesis_dg_ri")
 def render_decode_synthesis_dg_ri(dre: torch.Tensor, dim_: torch.Tensor,
                                   gre: torch.Tensor, gim: torch.Tensor,
                                   tail: torch.Tensor, taps: torch.Tensor,
@@ -606,6 +617,7 @@ def render_decode_synthesis_dg_ri_reference(dre: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@spanned("kernels.render_full_ri")
 def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
                    ola_tail: torch.Tensor, taps: torch.Tensor,
                    low_delay: bool = False, hybrid: bool = True,

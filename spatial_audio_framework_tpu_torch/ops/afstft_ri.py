@@ -50,6 +50,7 @@ from spatial_audio_framework_tpu_torch.ops.afstft_kernels import (
     analysis_front_ri, decode_taps, render_decode_synthesis_dg_ri,
     render_decode_synthesis_ri, render_full_ri, synthesis_back_ri)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
+from spatial_audio_framework_tpu_torch.utils.profiling import count, spanned
 
 
 class AfSTFTStateBatched(NamedTuple):
@@ -117,15 +118,24 @@ def state_ri_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
         in_tail, hyb_tail_re, hyb_tail_im, ola_tail)))
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous; a copy it takes counts in ``ops.state_bytes``."""
+    if t.is_contiguous():
+        return t
+    count("ops.state_bytes", t.numel() * t.element_size())
+    return t.contiguous()
+
+
+@spanned("ops.next_in_tail")
 def _next_in_tail(in_tail: torch.Tensor, x: torch.Tensor, H: int,
                   hop: int) -> torch.Tensor:
     """The 15-hop input tail after block x of H hops (afstft_ri.py:428-432
     of the JAX package): the last 15 hops of [in_tail | x]."""
     if H >= _TAIL_HOPS:
-        new_in_tail = x[..., (H - _TAIL_HOPS) * hop:]
-    else:
-        new_in_tail = torch.cat([in_tail[..., H * hop:], x], dim=-1)
-    return new_in_tail.contiguous()
+        return _dense(x[..., (H - _TAIL_HOPS) * hop:])
+    new_in_tail = torch.cat([in_tail[..., H * hop:], x], dim=-1)
+    count("ops.state_bytes", new_in_tail.numel() * new_in_tail.element_size())
+    return new_in_tail
 
 
 def _fold_hops_ri(hops: torch.Tensor, n_frames: int, hop: int,
@@ -360,16 +370,18 @@ def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
     return route(bank, state, x, Mre, Mim)
 
 
+@spanned("ops.decode_taps")
 def _decode_inputs(bank: AfSTFT, state: AfSTFTStateBatched,
                    Mre: torch.Tensor, Mim: Optional[torch.Tensor]):
     """→ (taps, OLA tail (S, cout, 9, hop)) for the decode kernels."""
     if Mim is None:
         Mim = torch.zeros_like(Mre)
-    taps = decode_taps(Mre, Mim, hybrid=bank.hybrid).contiguous()
+    taps = _dense(decode_taps(Mre, Mim, hybrid=bank.hybrid))
     S, cout = state.ola_tail.shape[:2]
     return taps, state.ola_tail.reshape(S, cout, _TOTAL_HOPS - 1, bank.hop)
 
 
+@spanned("ops.render_one_pass")
 def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
                      x: torch.Tensor, Mre: torch.Tensor,
                      Mim: Optional[torch.Tensor] = None):
@@ -380,7 +392,7 @@ def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
     # the kernel reads its rows densely: a block that is a view of a longer
     # signal (render_signal's, a frame of a larger buffer) is copied first
     y, new_tail = render_full_ri(
-        state.in_tail.contiguous(), x.contiguous(), tail, taps,
+        _dense(state.in_tail), _dense(x), tail, taps,
         low_delay=bank.low_delay, hybrid=bank.hybrid,
         per_stream=Mre.ndim == 4)
     return y, AfSTFTStateBatched(
@@ -388,6 +400,7 @@ def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
         ola_tail=new_tail.reshape(state.ola_tail.shape))
 
 
+@spanned("ops.render_two_pass")
 def _render_two_pass(bank: AfSTFT, state: AfSTFTStateBatched,
                      x: torch.Tensor, Mre: torch.Tensor,
                      Mim: Optional[torch.Tensor] = None):
@@ -399,8 +412,8 @@ def _render_two_pass(bank: AfSTFT, state: AfSTFTStateBatched,
     S, cin = x.shape[:2]
     H = x.shape[2] // hop
     taps, tail = _decode_inputs(bank, state, Mre, Mim)
-    rows = (state.in_tail.reshape(S * cin, -1).contiguous(),
-            x.reshape(S * cin, -1).contiguous())
+    rows = (_dense(state.in_tail).reshape(S * cin, -1),
+            _dense(x).reshape(S * cin, -1))
     kw = dict(low_delay=bank.low_delay, per_stream=Mre.ndim == 4)
     if bank.hybrid:
         dg = analysis_front_dg_ri(*rows, low_delay=bank.low_delay, hop=hop)

@@ -235,6 +235,12 @@ second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 
+Phase 2 begins with ``hrtf_taps_ri`` (the binauraliser's per-block taps
+from its directions and poses) against its plain version, the torch chain
+it replaced, run on the card, at small shapes and at 1024 streams x 64
+sources in both interpolation modes, then timed there against its byte
+bound; ``--hrtf-taps`` builds the kernels and runs that alone.
+
 Usage (from the repository root): ``python chip_smoke.py [--seed N]``;
 ``--profile`` instead profiles the ambi_bin order-3 and order-7, ambi_dec
 22.x, non-hybrid 64 -> 2 and 64-source binauraliser main paths with
@@ -301,7 +307,10 @@ FS = 48000.0
 ANA_AMP = 0.5
 KERNELS = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri",
            "analysis_front_dg_ri", "render_decode_synthesis_ri",
-           "render_decode_synthesis_dg_ri")
+           "render_decode_synthesis_dg_ri", "hrtf_taps_ri")
+# hrtf_taps_ri's main path: the benchmark's binauraliser_64src.track1024
+# block, 1024 listeners x 64 head-tracked sources
+TAPS_STREAMS, TAPS_SOURCES = 1024, 64
 # a spin kernel of this many cycles (~0.2 s on an H100) holds the stream
 # while a timed loop is enqueued, so the loop then runs back to back
 SPIN_CYCLES = 400_000_000
@@ -1014,6 +1023,70 @@ def design_binauraliser_from_sofa(binauraliser, hrir, sofa, cfg, dev):
                                   device=dev), c
 
 
+def phase_hrtf_taps(binauraliser, w, ak, dev, rng, card) -> dict:
+    """hrtf_taps_ri vs its plain version (the torch chain it replaced, on
+    the card) at small shapes and at its main path's (TAPS_STREAMS x
+    TAPS_SOURCES, rotation), both interpolation modes, on the default
+    HRIR set's weights ``w``; then timed there (kernel behind a spin,
+    plain as it comes) against its byte bound.  A source whose rotated
+    direction lies on a table step's rounding boundary may round to the
+    next row on one side: such sources are counted (at most 2, or 0.05 %
+    of a shape's), the rest held to 1e-6 of the largest tap."""
+    err, flips = 0.0, 0
+    for S, n, mode, rot in ((1, 1, "tri", False), (5, 17, "tri_ps", True),
+                            (TAPS_STREAMS, TAPS_SOURCES, "tri", True),
+                            (TAPS_STREAMS, TAPS_SOURCES, "tri_ps", True)):
+        cfg = binauraliser.BinauraliserConfig(n_sources=n, interp_mode=mode,
+                                              enable_rotation=rot)
+        dirs = uniform(rng, (S, n, 2), dev) * torch.tensor([180.0, 90.0],
+                                                           device=dev)
+        ypr = uniform(rng, (S, 3), dev, amp=np.pi)
+        k = ak.hrtf_taps_ri(cfg, w, dirs, ypr)
+        p = ak.hrtf_taps_ri_reference(cfg, w, dirs, ypr)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k).all()), "hrtf_taps_ri: taps not finite")
+        scale = p.abs().max().item()
+        pair = (k - p).abs().amax(dim=(2, 3, 4))
+        off = pair > 1e-6 * scale
+        n_off = int(off.sum().item())
+        flips += n_off
+        check(n_off <= max(2, 5e-4 * S * n),
+              f"hrtf_taps_ri ({S}, {n}, {mode}): {n_off} sources off the "
+              "plain version")
+        e = pair[~off].max().item()
+        err = max(err, e / scale)
+        print(f"phase 2: hrtf_taps_ri ({S} streams, {n} sources, {mode}, "
+              f"rotation {rot}) vs plain on the card: max |err| = {e:.3e} "
+              f"({e / scale:.2e} of the largest tap), {n_off} sources on a "
+              "row boundary")
+    cfg = binauraliser.BinauraliserConfig(n_sources=TAPS_SOURCES,
+                                          enable_rotation=True)
+    dirs = uniform(rng, (TAPS_STREAMS, TAPS_SOURCES, 2), dev) * 90.0
+    ypr = uniform(rng, (TAPS_STREAMS, 3), dev)
+    t = ab_times({"kernel": lambda: ak.hrtf_taps_ri(cfg, w, dirs, ypr),
+                  "plain": lambda: ak.hrtf_taps_ri_reference(cfg, w, dirs,
+                                                             ypr)},
+                 20, queued=True)
+    pairs, n_dirs = TAPS_STREAMS * TAPS_SOURCES, w.hrtf_mag_by_dir.shape[0]
+    # the controls and the (re, im) table read once, the taps written once
+    b = bound(pairs * 2 + TAPS_STREAMS * 3 + 2 * n_dirs * 2 * 133,
+              pairs * 2 * 4 * 129, 0.0)
+    shape = f"({TAPS_STREAMS}, {TAPS_SOURCES}), tri, rotation"
+    report_times("hrtf_taps_ri", t, card, shape)
+    print(f"phase 2: hrtf_taps_ri at {shape} [{card}]: kernel "
+          f"{t['kernel'][0]:.4f} ms, bound {b['bound_ms']:.4f} ms (bytes; "
+          f"{100 * b['bound_ms'] / t['kernel'][0]:.1f} % of the kernel's "
+          f"time), plain {t['plain'][0]:.4f} ms")
+    return {"name": "hrtf_taps_ri", "route": "cuda",
+            "source": "spatial_audio_framework_tpu_torch/csrc/"
+                      "hrtf_taps_ri.cu",
+            "replaces": "the torch chain rotate_dirs -> interp_hrtfs_ri -> "
+                        "decode_taps (no TPU kernel)",
+            "shape": shape, "max_rel_err": err,
+            "sources_on_a_row_boundary": flips, "ms": t["kernel"][0],
+            "plain_ms": t["plain"][0], **b, "library_ms": None}
+
+
 def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
     """binaur (2 sources, 128-sample blocks) and brot (the same with the
     head rotated by yaw 40°, pitch −15°, roll 10°) on the default HRIR
@@ -1045,8 +1118,8 @@ def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
               f"{ypr is not None}, {n_blocks} blocks of {fsz}) vs the C "
               f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
               f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
-        check(ran == {k: n_blocks if k == "render_full_ri" else 0
-                      for k in KERNELS}, f"{key}: launches {ran}")
+        check(ran == {k: n_blocks if k in ("render_full_ri", "hrtf_taps_ri")
+                      else 0 for k in KERNELS}, f"{key}: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
 
 
@@ -1632,8 +1705,10 @@ def phase_single_stream_c_parity(rotator, beamformer, binauraliser,
                      32)
         c_parity(24, f"{key[:-4]} ({btype})", out, g[key], card)
 
+    fields = binauraliser.BinauraliserWeights._fields[1:]
     bw = binauraliser.BinauraliserWeights(
-        torch.complex(binw.hrtf_re, binw.hrtf_im), *binw[2:])
+        torch.complex(binw.hrtf_re, binw.hrtf_im),
+        *(getattr(binw, f) for f in fields))
     for key in ("binaur", "brot", "btp"):
         cfg = binauraliser.BinauraliserConfig(
             n_sources=2, enable_rotation=key == "brot",
@@ -3361,6 +3436,9 @@ def profile(dev, rng, card) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hrtf-taps", action="store_true",
+                    help="only build and run hrtf_taps_ri's phase (its "
+                         "checks and its time against its byte bound)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile the ambi_bin order-3 and order-7, "
                          "ambi_dec 22.x, non-hybrid 64 -> 2 and 64-source "
@@ -3407,6 +3485,12 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     if args.profile:
         profile(dev, rng, card)
+        return 0
+    taps_entry = phase_hrtf_taps(
+        binauraliser, binauraliser.design_ri(binauraliser.BinauraliserConfig(),
+                                             device=dev), ak, dev, rng, card)
+    if args.hrtf_taps:
+        print(json.dumps({"kernels": [taps_entry]}))
         return 0
     errs, times = {}, {}
     errs["render_full_ri"], times["render_full_ri"] = phase_render_full(
@@ -3510,12 +3594,12 @@ def main() -> int:
             cfg.n_sources, 2, ak, dev, rng, card, expect)
 
     binauraliser_slice("binauraliser 4 sources", 9, b4cfg,
-                       {"render_full_ri": N_CHUNKS})
+                       {"render_full_ri": N_CHUNKS, "hrtf_taps_ri": N_CHUNKS})
     binauraliser_slice(
         "binauraliser 64 sources", 10,
         binauraliser.BinauraliserConfig(n_sources=64, enable_rotation=True),
         {"analysis_front_dg_ri": N_CHUNKS,
-         "render_decode_synthesis_dg_ri": N_CHUNKS})
+         "render_decode_synthesis_dg_ri": N_CHUNKS, "hrtf_taps_ri": N_CHUNKS})
     phase_binauraliser_c_parity(binauraliser, binw, ak, dev, card)
     phase_hop64(ri, AfSTFT(hop=64, hybrid=True), ak, dev, rng)
     phase_fuma(ambi_bin, ak, dev, rng, card)
@@ -3702,7 +3786,7 @@ def main() -> int:
         other["render_full_ri"].append(shape_entry(
             f"({N_STREAMS}, 16, 2, {HOPS})", path, n,
             times["render_full_ri"], bounds["render_full_ri"]))
-    for name in KERNELS:
+    for name in times:
         lib = times[name].get("library")
         print(f"phase 2: {name} at its main path's shape [{card}]: kernel "
               f"{times[name]['kernel'][0]:.4f} ms, bound "
@@ -3734,6 +3818,7 @@ def main() -> int:
                      errs["render_decode_synthesis_dg_ri"],
                      times["render_decode_synthesis_dg_ri"], bounds,
                      source="render_decode_synthesis_ri"),
+        taps_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

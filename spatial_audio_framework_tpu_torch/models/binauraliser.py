@@ -12,10 +12,11 @@ gains, optional head-tracked rotation of the source directions (one
 rotation matrix per stream), per-source HRTF interpolation (complex 'tri'
 or magnitude/ITD phase-synthesis 'tri_ps'), then the per-stream HRTFs as
 the mixing matrices of ``ops/afstft_ri.render_tf_matrix_ri``, scaled by
-1/√nSrc (binauraliser.c:191-275).  With ``fused=True`` up to 16 sources
-run the one-pass ``render_full_ri`` kernel with per-stream taps, more the
-two-kernel ``analysis_front_dg_ri`` → ``render_decode_synthesis_dg_ri``
-pipeline.
+1/√nSrc (binauraliser.c:191-275).  With ``fused=True`` at hop 128 the
+rotation, the interpolation and the collapse to decode taps are one kernel,
+``hrtf_taps_ri``, whose taps up to 16 sources feed the one-pass
+``render_full_ri`` kernel and more the two-kernel ``analysis_front_dg_ri``
+→ ``render_decode_synthesis_dg_ri`` pipeline.
 
 ``weights_from_numpy`` / ``state_from_numpy`` take the JAX package's
 ``design_ri`` weights and batched state as numpy arrays, so both packages
@@ -41,6 +42,7 @@ from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.modules import hrir as hrir_mod, vbap
 from spatial_audio_framework_tpu_torch.ops import afstft, afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
+from spatial_audio_framework_tpu_torch.ops.afstft_kernels import hrtf_taps_ri
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
 from spatial_audio_framework_tpu_torch.utils.profiling import spanned
@@ -76,6 +78,11 @@ class BinauraliserWeightsRI(NamedTuple):
     table_w: torch.Tensor    # (nTable, 3) interpolation weights
     table_idx: torch.Tensor  # (nTable, 3) HRTF-direction indices
     freqs: torch.Tensor      # (nBands,) band centre frequencies
+    # the HRTFs direction-major, the tables ``hrtf_taps_ri`` reads (made by
+    # weights_from_numpy): (nDirs, 2, nBands, 2) (hrtf_re, hrtf_im) pairs,
+    # and (nDirs, 2, nBands) hrtf_mag
+    hrtf_ri_by_dir: Optional[torch.Tensor] = None
+    hrtf_mag_by_dir: Optional[torch.Tensor] = None
 
 
 class BinauraliserWeights(NamedTuple):
@@ -128,12 +135,16 @@ def weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w, table_idx,
     ``BinauraliserWeightsRI``) → tensors on ``device`` (default: the
     card)."""
     device = default_device() if device is None else device
+    re, im, mag = (f32_tensor(a, device) for a in (hrtf_re, hrtf_im,
+                                                   hrtf_mag))
     return BinauraliserWeightsRI(
-        hrtf_re=f32_tensor(hrtf_re, device), hrtf_im=f32_tensor(hrtf_im, device),
-        hrtf_mag=f32_tensor(hrtf_mag, device), itds=f32_tensor(itds, device),
+        hrtf_re=re, hrtf_im=im, hrtf_mag=mag, itds=f32_tensor(itds, device),
         table_w=f32_tensor(table_w, device),
         table_idx=torch.tensor(np.asarray(table_idx, np.int64), device=device),
-        freqs=f32_tensor(freqs, device))
+        freqs=f32_tensor(freqs, device),
+        hrtf_ri_by_dir=torch.stack([re, im], -1).permute(2, 1, 0, 3)
+        .contiguous(),
+        hrtf_mag_by_dir=mag.permute(2, 1, 0).contiguous())
 
 
 def weights_complex_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
@@ -144,7 +155,9 @@ def weights_complex_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
     filterbank as its (re, im) numpy parts)."""
     w = weights_from_numpy(hrtf_re, hrtf_im, hrtf_mag, itds, table_w,
                            table_idx, freqs, device)
-    return BinauraliserWeights(torch.complex(w.hrtf_re, w.hrtf_im), *w[2:])
+    return BinauraliserWeights(torch.complex(w.hrtf_re, w.hrtf_im),
+                               *(getattr(w, f) for f in
+                                 BinauraliserWeights._fields[1:]))
 
 
 state_complex_from_numpy = afstft.state_from_numpy
@@ -306,12 +319,22 @@ def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
 
     The per-stream interpolated HRTFs are the per-stream mixing matrices of
     :func:`ops.afstft_ri.render_tf_matrix_ri`: ``fused=True`` runs its
-    kernel route, ``fused=False`` its plain path."""
+    kernel route, ``fused=False`` its plain path.  On the kernel route (hop
+    128) the rotation, the interpolation and the collapse to decode taps are
+    one call, :func:`ops.afstft_kernels.hrtf_taps_ri`, whose taps go
+    straight to :func:`ops.afstft_ri.render_tf_matrix_fused`."""
     if src_gains is not None:
         x = x * src_gains[..., None]
-    if cfg.enable_rotation and ypr is not None:
-        src_dirs_deg = rotate_dirs(src_dirs_deg, ypr)
-    Hre, Him = interp_hrtfs_ri(cfg, w, src_dirs_deg)  # (S, nBands, 2, nSrc)
-    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him,
-                                      fused=fused)
+    rotate = cfg.enable_rotation and ypr is not None
+    bank = cfg.afstft
+    if fused and ri.takes_fused_route(bank, C.NUM_EARS, cfg.n_sources):
+        taps = hrtf_taps_ri(cfg, w, src_dirs_deg.contiguous(),
+                            ypr.contiguous() if rotate else None)
+        y, state = ri.render_tf_matrix_fused(bank, state, x, taps=taps)
+    else:
+        if rotate:
+            src_dirs_deg = rotate_dirs(src_dirs_deg, ypr)
+        Hre, Him = interp_hrtfs_ri(cfg, w, src_dirs_deg)  # (S, B, 2, nSrc)
+        y, state = ri.render_tf_matrix_ri(bank, state, x, Hre, Him,
+                                          fused=fused)
     return y / math.sqrt(cfg.n_sources), state

@@ -129,6 +129,9 @@ def load_library() -> ctypes.CDLL:
     lib.saf_render_decode_synthesis_dg_ri.argtypes = ([ptr] * 11 + [i32] * 6
                                                       + [ptr])
     lib.saf_render_decode_synthesis_dg_ri.restype = i32
+    lib.saf_hrtf_taps_ri.argtypes = ([ptr] * 9 + [i32] * 5
+                                     + [ctypes.c_float] * 2 + [i32, ptr])
+    lib.saf_hrtf_taps_ri.restype = i32
     lib.saf_cuda_error_string.argtypes = [i32]
     lib.saf_cuda_error_string.restype = ctypes.c_char_p
     return lib

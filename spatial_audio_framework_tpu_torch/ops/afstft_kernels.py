@@ -14,7 +14,11 @@
   (``csrc/render_full_ri.cu``), analysis ⊗ decode ⊗ synthesis in one call;
 * :func:`synthesis_back_ri` — hybrid inverse, low-delay sign and irDFT of
   [re | im] spectra, synthesis window, overlap-add and tail merge
-  (``csrc/synthesis_back_ri.cu``).
+  (``csrc/synthesis_back_ri.cu``);
+* :func:`hrtf_taps_ri` — the binauraliser's per-stream decode taps from a
+  block's source directions and head poses: rotation, HRTF-table
+  interpolation and :func:`decode_taps` in one call
+  (``csrc/hrtf_taps_ri.cu``).
 
 For a per-band mixing (decode) matrix M over the 133 HYBRID bands, the chain
 hybrid-forward → per-band M → hybrid-inverse collapses into a 7-tap FIR along
@@ -75,7 +79,7 @@ _KERNEL_MAX_CH_PRODUCT = 128
 # ``<entry>.launches`` and spanned as ``kernels.<entry>``
 KERNELS = ("render_full_ri", "analysis_front_dg_ri",
            "render_decode_synthesis_dg_ri", "analysis_front_ri",
-           "render_decode_synthesis_ri", "synthesis_back_ri")
+           "render_decode_synthesis_ri", "synthesis_back_ri", "hrtf_taps_ri")
 
 
 def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
@@ -109,6 +113,89 @@ def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
     return torch.stack([r(A_re), r(A_im), r(B_re), r(B_im)], dim=-2)
 
 
+
+@spanned("kernels.hrtf_taps_ri")
+def hrtf_taps_ri(cfg, w, dirs_deg: torch.Tensor,
+                 ypr: torch.Tensor | None = None) -> torch.Tensor:
+    """The binauraliser's per-stream decode taps of a block:
+    ``decode_taps(*interp_hrtfs_ri(cfg, w, rotate_dirs(dirs_deg, ypr)))``
+    (``models/binauraliser``), the rotation only when
+    ``cfg.enable_rotation`` and ``ypr`` is given.
+
+    cfg: a ``BinauraliserConfig`` at hop 128; w: its
+    ``BinauraliserWeightsRI``; dirs_deg (S, nSrc, 2) degrees; ypr (S, 3)
+    radians or None.  → taps (S, nSrc, 2, 4, 129), the per-stream taps of
+    :func:`render_full_ri` and :func:`render_decode_synthesis_dg_ri`.
+
+    CPU tensors take :func:`hrtf_taps_ri_reference`.  CUDA tensors launch
+    the kernel (counted in ``hrtf_taps_ri.launches``), which reads the
+    weights' direction-major tables ``w.hrtf_ri_by_dir`` and
+    ``w.hrtf_mag_by_dir``, or raise."""
+    if dirs_deg.device.type == "cpu":
+        return hrtf_taps_ri_reference(cfg, w, dirs_deg, ypr)
+    if dirs_deg.device.type != "cuda":
+        raise ValueError(f"hrtf_taps_ri: unsupported device {dirs_deg.device}")
+    what = "hrtf_taps_ri"
+    _check_hop(what, cfg.hop)
+    if w.hrtf_ri_by_dir is None or w.hrtf_mag_by_dir is None:
+        raise ValueError(f"{what}: the weights carry no direction-major "
+                         "tables; make them with binauraliser."
+                         "weights_from_numpy or design_ri")
+    if dirs_deg.ndim != 3 or dirs_deg.shape[-1] != 2:
+        raise ValueError(f"{what}: dirs_deg must be (S, nSrc, 2), got "
+                         f"{tuple(dirs_deg.shape)}")
+    S, n_src = dirs_deg.shape[:2]
+    n_dirs, n_table = w.hrtf_mag_by_dir.shape[0], w.table_w.shape[0]
+    nb = _KERNEL_HOP + 5
+    rotate = cfg.enable_rotation and ypr is not None
+    _check_inputs(what, dirs_deg, {
+        "hrtf_ri_by_dir": (w.hrtf_ri_by_dir, (n_dirs, 2, nb, 2)),
+        "hrtf_mag_by_dir": (w.hrtf_mag_by_dir, (n_dirs, 2, nb)),
+        "table_w": (w.table_w, (n_table, 3)), "itds": (w.itds, (n_dirs,)),
+        "freqs": (w.freqs, (nb,))})
+    # the controls are read a float at a time: a block's slice of a longer
+    # control buffer need not start on a 16-byte boundary
+    controls = {"dirs_deg": (dirs_deg, (S, n_src, 2))}
+    if rotate:
+        controls["ypr"] = (ypr, (S, 3))
+    _check_inputs(what, dirs_deg, controls, align=4)
+    idx = w.table_idx
+    if (idx.device != dirs_deg.device or idx.dtype != torch.int64
+            or tuple(idx.shape) != (n_table, 3) or not idx.is_contiguous()):
+        raise ValueError(f"{what}: table_idx must be a contiguous int64 "
+                         f"({n_table}, 3) tensor on {dirs_deg.device}")
+    taps = torch.empty((S, n_src, 2, 4, _KERNEL_HOP + 1),
+                       dtype=torch.float32, device=dirs_deg.device)
+    n_azi = int(360.0 / cfg.azi_res + 0.5) + 1
+    _launch(what, "saf_hrtf_taps_ri", dirs_deg.device, dirs_deg.data_ptr(),
+            ypr.data_ptr() if rotate else None, w.hrtf_ri_by_dir.data_ptr(),
+            w.hrtf_mag_by_dir.data_ptr(), w.table_w.data_ptr(),
+            idx.data_ptr(), w.itds.data_ptr(), w.freqs.data_ptr(),
+            taps.data_ptr(), S, n_src, n_dirs, n_table,
+            n_azi, float(cfg.azi_res), float(cfg.elev_res),
+            int(cfg.interp_mode == "tri_ps"))
+    hrtf_taps_ri.launches += 1
+    return taps
+
+
+hrtf_taps_ri.launches = 0
+
+
+def hrtf_taps_ri_reference(cfg, w, dirs_deg: torch.Tensor,
+                           ypr: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hrtf_taps_ri` (same contract, any
+    hop, any device): the binauraliser's own chain, unchanged and in its op
+    order, without the chain's spans (it runs inside this entry's)."""
+    # ops sits below models in the import graph, so the chain is imported
+    # here, at the call
+    from spatial_audio_framework_tpu_torch.models import binauraliser as B
+
+    if cfg.enable_rotation and ypr is not None:
+        dirs_deg = B.rotate_dirs.__wrapped__(dirs_deg, ypr)
+    return decode_taps(*B.interp_hrtfs_ri.__wrapped__(cfg, w, dirs_deg),
+                       hybrid=True)
+
+
 def _check_kernel_supported(*, per_stream: bool, hop: int, low_delay: bool,
                             hybrid: bool, cin: int, cout: int) -> None:
     """Raise NotImplementedError for what the one-pass CUDA kernel does not
@@ -134,9 +221,10 @@ def _check_hop(what: str, hop: int) -> None:
             "at hop != 128')")
 
 
-def _check_inputs(what: str, x: torch.Tensor, expect: dict) -> None:
+def _check_inputs(what: str, x: torch.Tensor, expect: dict,
+                  align: int = 16) -> None:
     """Raise unless every tensor of ``expect`` ({name: (tensor, shape)})
-    is float32 on x's device with that shape, contiguous and 16-byte
+    is float32 on x's device with that shape, contiguous and ``align``-byte
     aligned, as the CUDA kernels read them."""
     for name, (t, shape) in expect.items():
         if t.device != x.device:
@@ -146,9 +234,9 @@ def _check_inputs(what: str, x: torch.Tensor, expect: dict) -> None:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"{what}: {name} must be contiguous and "
-                             "16-byte aligned")
+                             f"{align}-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)

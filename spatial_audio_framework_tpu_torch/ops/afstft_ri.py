@@ -329,8 +329,7 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
     einsum, synthesis) on any device.
     """
     cout, cin = Mre.shape[-2], Mre.shape[-1]
-    if (fused and cout * cin <= _KERNEL_MAX_CH_PRODUCT
-            and bank.hop == _KERNEL_HOP):
+    if fused and takes_fused_route(bank, cout, cin):
         return render_tf_matrix_fused(bank, state, x, Mre, Mim)
     spec_p, state = analysis_ri_batched(bank, state, x, packed=True,
                                         use_kernel=fused)
@@ -353,48 +352,74 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
                                 use_kernel=fused)
 
 
+def takes_fused_route(bank: AfSTFT, cout: int, cin: int) -> bool:
+    """Whether ``render_tf_matrix_ri(fused=True)`` renders cin → cout
+    channels on :func:`render_tf_matrix_fused`: at most 128 channel pairs,
+    at hop 128."""
+    return cout * cin <= _KERNEL_MAX_CH_PRODUCT and bank.hop == _KERNEL_HOP
+
+
 def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
-                           x: torch.Tensor, Mre: torch.Tensor,
-                           Mim: Optional[torch.Tensor] = None):
+                           x: torch.Tensor, Mre: Optional[torch.Tensor] = None,
+                           Mim: Optional[torch.Tensor] = None,
+                           taps: Optional[torch.Tensor] = None):
     """The TF-matrix renderer on the decode kernels: the hybrid stage and
     the per-band mixing matrix collapse into uniform-band decode taps
     (:func:`decode_taps`).  cin ≤ 16 runs :func:`_render_one_pass`, wider
     inputs :func:`_render_two_pass`.  Same contract as
     :func:`render_tf_matrix_ri`; numerically equivalent to its plain path.
     A bank whose hop is not 128 takes that plain path (JAX afstft_ri.py:708).
-    """
+
+    ``taps``, in place of (Mre, Mim): the decode taps made already, shared
+    (cin, cout, 4, 129) or per stream (S, cin, cout, 4, 129), e.g. by
+    :func:`~spatial_audio_framework_tpu_torch.ops.afstft_kernels.hrtf_taps_ri`
+    (hop 128 only)."""
     if bank.hop != _KERNEL_HOP:
+        if taps is not None:
+            raise ValueError("render_tf_matrix_fused: decode taps are for "
+                             f"hop {_KERNEL_HOP}, the bank's hop is "
+                             f"{bank.hop}")
         return render_tf_matrix_ri(bank, state, x, Mre, Mim, fused=False)
     route = (_render_one_pass if x.shape[1] <= _ONE_PASS_MAX_CIN
              else _render_two_pass)
-    return route(bank, state, x, Mre, Mim)
+    return route(bank, state, x, Mre, Mim, taps)
 
 
 @spanned("ops.decode_taps")
-def _decode_inputs(bank: AfSTFT, state: AfSTFTStateBatched,
-                   Mre: torch.Tensor, Mim: Optional[torch.Tensor]):
-    """→ (taps, OLA tail (S, cout, 9, hop)) for the decode kernels."""
+def _decode_inputs(bank: AfSTFT, Mre: torch.Tensor,
+                   Mim: Optional[torch.Tensor]) -> torch.Tensor:
+    """→ the decode kernels' taps of the mixing matrix (Mre, Mim)."""
     if Mim is None:
         Mim = torch.zeros_like(Mre)
-    taps = _dense(decode_taps(Mre, Mim, hybrid=bank.hybrid))
+    return _dense(decode_taps(Mre, Mim, hybrid=bank.hybrid))
+
+
+def _route_inputs(bank: AfSTFT, state: AfSTFTStateBatched,
+                  Mre: Optional[torch.Tensor], Mim: Optional[torch.Tensor],
+                  taps: Optional[torch.Tensor]):
+    """→ (taps, OLA tail (S, cout, 9, hop)) for the decode kernels: the
+    taps given, or those of (Mre, Mim)."""
+    if taps is None:
+        taps = _decode_inputs(bank, Mre, Mim)
     S, cout = state.ola_tail.shape[:2]
     return taps, state.ola_tail.reshape(S, cout, _TOTAL_HOPS - 1, bank.hop)
 
 
 @spanned("ops.render_one_pass")
 def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
-                     x: torch.Tensor, Mre: torch.Tensor,
-                     Mim: Optional[torch.Tensor] = None):
+                     x: torch.Tensor, Mre: Optional[torch.Tensor] = None,
+                     Mim: Optional[torch.Tensor] = None,
+                     taps: Optional[torch.Tensor] = None):
     """:func:`render_tf_matrix_fused` on the one-pass kernel
     :func:`render_full_ri`: analysis ⊗ decode ⊗ synthesis in one call."""
     hop = bank.hop
-    taps, tail = _decode_inputs(bank, state, Mre, Mim)
+    taps, tail = _route_inputs(bank, state, Mre, Mim, taps)
     # the kernel reads its rows densely: a block that is a view of a longer
     # signal (render_signal's, a frame of a larger buffer) is copied first
     y, new_tail = render_full_ri(
         _dense(state.in_tail), _dense(x), tail, taps,
         low_delay=bank.low_delay, hybrid=bank.hybrid,
-        per_stream=Mre.ndim == 4)
+        per_stream=taps.ndim == 5)
     return y, AfSTFTStateBatched(
         in_tail=_next_in_tail(state.in_tail, x, x.shape[2] // hop, hop),
         ola_tail=new_tail.reshape(state.ola_tail.shape))
@@ -402,8 +427,9 @@ def _render_one_pass(bank: AfSTFT, state: AfSTFTStateBatched,
 
 @spanned("ops.render_two_pass")
 def _render_two_pass(bank: AfSTFT, state: AfSTFTStateBatched,
-                     x: torch.Tensor, Mre: torch.Tensor,
-                     Mim: Optional[torch.Tensor] = None):
+                     x: torch.Tensor, Mre: Optional[torch.Tensor] = None,
+                     Mim: Optional[torch.Tensor] = None,
+                     taps: Optional[torch.Tensor] = None):
     """:func:`render_tf_matrix_fused` on two kernels over the flattened
     (S·cin) rows: for hybrid banks :func:`analysis_front_dg_ri` →
     :func:`render_decode_synthesis_dg_ri`, otherwise
@@ -411,10 +437,10 @@ def _render_two_pass(bank: AfSTFT, state: AfSTFTStateBatched,
     hop = bank.hop
     S, cin = x.shape[:2]
     H = x.shape[2] // hop
-    taps, tail = _decode_inputs(bank, state, Mre, Mim)
+    taps, tail = _route_inputs(bank, state, Mre, Mim, taps)
     rows = (_dense(state.in_tail).reshape(S * cin, -1),
             _dense(x).reshape(S * cin, -1))
-    kw = dict(low_delay=bank.low_delay, per_stream=Mre.ndim == 4)
+    kw = dict(low_delay=bank.low_delay, per_stream=taps.ndim == 5)
     if bank.hybrid:
         dg = analysis_front_dg_ri(*rows, low_delay=bank.low_delay, hop=hop)
         y, new_tail = render_decode_synthesis_dg_ri(

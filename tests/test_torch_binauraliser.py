@@ -54,7 +54,15 @@ def test_design_ri_vs_jax(mode):
     ref = _jax_design(mode)
     got = tbin.design_ri(tbin.BinauraliserConfig(interp_mode=mode),
                          device="cpu")
-    assert got._fields == jbin.BinauraliserWeightsRI._fields
+    # the JAX package's fields, then the port's direction-major copies of
+    # the HRTF tables, which its hrtf_taps_ri kernel reads
+    assert got._fields == jbin.BinauraliserWeightsRI._fields + (
+        "hrtf_ri_by_dir", "hrtf_mag_by_dir")
+    assert torch.equal(got.hrtf_ri_by_dir, torch.stack(
+        [got.hrtf_re, got.hrtf_im], -1).permute(2, 1, 0, 3))
+    assert torch.equal(got.hrtf_mag_by_dir, got.hrtf_mag.permute(2, 1, 0))
+    assert got.hrtf_ri_by_dir.is_contiguous()
+    assert got.hrtf_mag_by_dir.is_contiguous()
     for name, a, b in zip(got._fields, ref, got):
         assert tuple(b.shape) == a.shape, name
         if name == "table_idx":

@@ -514,7 +514,7 @@ def test_decode_kernels_raise_for_hop_other_than_128(cuda):
 
 _ALL_KERNELS = ("analysis_front_ri", "analysis_front_dg_ri",
                 "render_decode_synthesis_ri", "render_decode_synthesis_dg_ri",
-                "render_full_ri", "synthesis_back_ri")
+                "render_full_ri", "synthesis_back_ri", "hrtf_taps_ri")
 
 
 def test_hop64_render_takes_the_plain_path(cuda):
@@ -554,10 +554,10 @@ def binauraliser_weights():
     (17, ("analysis_front_dg_ri", "render_decode_synthesis_dg_ri"))])
 def test_binauraliser_routes_match_plain_path(cuda, binauraliser_weights,
                                               monkeypatch, n_src, pair):
-    """Head-tracked sources with per-stream interpolated HRTFs: ≤ 16
-    sources take render_full_ri with per-stream taps, more the (d, g) pair,
-    once per block each, never a plain version; the result matches the
-    plain path."""
+    """Head-tracked sources with per-stream interpolated HRTFs: the taps
+    from hrtf_taps_ri, then ≤ 16 sources take render_full_ri with
+    per-stream taps, more the (d, g) pair, once per block each, never a
+    plain version; the result matches the plain path."""
     from spatial_audio_framework_tpu_torch.models import binauraliser
 
     cfg = binauraliser.BinauraliserConfig(n_sources=n_src,
@@ -591,7 +591,168 @@ def test_binauraliser_routes_match_plain_path(cuda, binauraliser_weights,
         assert (yk - yp).abs().max().item() <= TOL
     assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
     ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
-    assert ran == {n: 2 if n in pair else 0 for n in _ALL_KERNELS}
+    assert ran == {n: 2 if n in pair + ("hrtf_taps_ri",) else 0
+                   for n in _ALL_KERNELS}
+
+
+# -- hrtf_taps_ri: the binauraliser's taps from its directions --------------
+
+# (azimuth, elevation): the poles, the ±180° seam, exact half-step rows and
+# columns, azimuths outside [-180, 180]; then NaN, infinite, past-the-table
+# and negative-row directions (tests/test_torch_hrtf_taps.py)
+_TAP_EDGE_DIRS = [
+    [180.0, 90.0], [-180.0, -90.0], [179.9, 0.0], [-179.9, 0.0],
+    [-179.0, -87.5], [1.0, 2.5], [0.0, 89.9], [-541.0, -45.0],
+    [720.5, 12.5], [30.0, 0.0]]
+_TAP_BAD_DIRS = [
+    [10.0, 95.0], [10.0, -100.0], [float("nan"), 10.0],
+    [10.0, float("nan")], [10.0, 1e9], [float("inf"), 3.0],
+    [float("-inf"), 3.0], [10.0, float("-inf")]]
+
+
+def _taps_weights(rng, n_dirs, n_table, device):
+    """Random binauraliser weights over an HRTF grid of ``n_dirs``
+    directions and a VBAP table of ``n_table`` rows."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    return binauraliser.weights_from_numpy(
+        rng.standard_normal((133, 2, n_dirs)),
+        rng.standard_normal((133, 2, n_dirs)),
+        rng.uniform(0, 1, (133, 2, n_dirs)),
+        rng.uniform(-1e-3, 1e-3, n_dirs), rng.dirichlet(np.ones(3), n_table),
+        rng.integers(0, n_dirs, (n_table, 3)), np.linspace(0, 24e3, 133),
+        device)
+
+
+def _on_cpu(w):
+    return type(w)(*(t.cpu() for t in w))
+
+
+def _near_a_row_boundary(cfg, dirs, ypr, margin=1e-4):
+    """(S, nSrc): the plain version's table coordinates after rotation lie
+    within ``margin`` of a step's rounding boundary, where another
+    rounding of sin / atan2 may pick the next row."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    d = binauraliser.rotate_dirs(dirs, ypr)
+    a = torch.remainder(d[..., 0] + 180.0, 360.0) / cfg.azi_res + 0.5
+    e = (d[..., 1] + 90.0) / cfg.elev_res + 0.5
+    return ((a - a.round()).abs() < margin) | ((e - e.round()).abs() < margin)
+
+
+@pytest.mark.parametrize("S,n_src,mode,rotation,grid", [
+    (1, 1, "tri", False, "default"),
+    (3, 17, "tri_ps", True, "default"),
+    (64, 64, "tri", True, "default"),
+    (1024, 64, "tri", True, "default"),        # the track1024 cell's block
+    (1024, 64, "tri_ps", False, "default"),
+    (7, 5, "tri", True, "sofa"),               # another grid and table
+    (33, 16, "tri_ps", True, "sofa"),
+])
+def test_hrtf_taps_kernel_matches_plain_version(cuda, binauraliser_weights,
+                                                S, n_src, mode, rotation,
+                                                grid):
+    """The kernel vs its plain version (run on the CPU, the JAX package's
+    arithmetic), within 1e-6 of the largest tap.  After a rotation a
+    source within 1e-4 of a table step's rounding boundary (about 20
+    roundings of sin / atan2) may take the next row on either side, and is
+    not held: at most 2 sources or 0.5 % of them."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    rng = np.random.default_rng(S + n_src)
+    res = {"default": (2, 5), "sofa": (3, 4)}[grid]
+    cfg = binauraliser.BinauraliserConfig(
+        n_sources=n_src, interp_mode=mode, enable_rotation=rotation,
+        azi_res=res[0], elev_res=res[1])
+    if grid == "default":
+        w = binauraliser_weights
+    else:      # 2,300 directions, as dense a SOFA set as the repo's tests use
+        n_table = (int(360 / res[0] + 0.5) + 1) * (int(180 / res[1] + 0.5)
+                                                   + 1)
+        w = _taps_weights(rng, 2300, n_table, cuda)
+    dirs = _u(rng, (S, n_src, 2), "cpu") * torch.tensor([180.0, 90.0])
+    dirs[0, :min(n_src, len(_TAP_EDGE_DIRS))] = torch.tensor(
+        _TAP_EDGE_DIRS[:n_src])
+    ypr = _u(rng, (S, 3), "cpu") * np.pi
+    got = tak.hrtf_taps_ri(cfg, w, dirs.to(cuda), ypr.to(cuda))
+    ref = tak.hrtf_taps_ri(cfg, _on_cpu(w), dirs, ypr)
+    got = got.cpu()
+    assert got.shape == ref.shape == (S, n_src, 2, 4, 129)
+    keep = torch.ones((S, n_src), dtype=torch.bool)
+    if rotation:
+        keep = ~_near_a_row_boundary(cfg, dirs, ypr)
+        assert (~keep).sum().item() <= max(2, 0.005 * keep.numel())
+    assert bool(torch.isfinite(got[keep]).all())
+    err = (got[keep] - ref[keep]).abs().max().item()
+    assert err <= 1e-6 * ref[keep].abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["tri", "tri_ps"])
+def test_hrtf_taps_bad_directions_on_card(cuda, binauraliser_weights, mode):
+    """NaN, infinite, past-the-table and negative-row directions (and a NaN
+    head pose) neither assert on the card nor synchronise the host, and
+    give the plain version's taps: NaN exactly where it gives NaN."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    bad = torch.tensor([_TAP_BAD_DIRS + _TAP_EDGE_DIRS[:2]] * 2)
+    n = bad.shape[1]
+    ypr = torch.tensor([[0.3, -0.2, 0.1], [float("nan"), 0.2, -0.1]])
+    for rotation in (False, True):
+        cfg = binauraliser.BinauraliserConfig(
+            n_sources=n, interp_mode=mode, enable_rotation=rotation)
+        bad_c, ypr_c = bad.to(cuda), ypr.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tak.hrtf_taps_ri(cfg, binauraliser_weights, bad_c, ypr_c)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = got.cpu()
+        ref = tak.hrtf_taps_ri(cfg, _on_cpu(binauraliser_weights), bad, ypr)
+        assert torch.equal(got.isnan(), ref.isnan())
+        assert (got - ref).nan_to_num().abs().max().item() <= 1e-6 * (
+            ref.nan_to_num().abs().max().item())
+        if rotation:     # the NaN pose: every source of stream 1 at row 0
+            assert bool(torch.isfinite(got[1]).all())
+
+
+@pytest.mark.parametrize("n_src", [3, 64])
+def test_head_tracked_binauraliser_block_never_waits(cuda,
+                                                     binauraliser_weights,
+                                                     monkeypatch, n_src):
+    """Once warm, a binauraliser block with new directions and a new pose
+    on the card makes no tensor from host data and no host
+    synchronisation, and launches hrtf_taps_ri once."""
+    from spatial_audio_framework_tpu_torch.models import binauraliser
+
+    cfg = binauraliser.BinauraliserConfig(n_sources=n_src,
+                                          enable_rotation=True)
+    rng = np.random.default_rng(n_src)
+    dirs = [_u(rng, (4, n_src, 2), cuda) * 90.0 for _ in range(3)]
+    yprs = [_u(rng, (4, 3), cuda) for _ in range(3)]
+    xs = [_u(rng, (4, n_src, 512), cuda) for _ in range(3)]
+    st = binauraliser.init_state_batched(cfg, 4, cuda)
+    y, st = binauraliser.process_ri_batched(cfg, binauraliser_weights, st,
+                                            xs[0], dirs[0], None, yprs[0])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor was made from host data per block")
+
+    before = tak.hrtf_taps_ri.launches
+    torch.cuda.synchronize()
+    with monkeypatch.context() as m:
+        for name in ("from_numpy", "tensor", "as_tensor"):
+            m.setattr(torch, name, refuse)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in (1, 2):
+                y, st = binauraliser.process_ri_batched(
+                    cfg, binauraliser_weights, st, xs[i], dirs[i], None,
+                    yprs[i])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert tak.hrtf_taps_ri.launches == before + 2
+    assert bool(torch.isfinite(y).all())
 
 
 # -- panner, binauraliser_nf and roombinauraliser on the card ---------------

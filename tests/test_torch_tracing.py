@@ -25,6 +25,8 @@ from portbench import run, trace  # noqa: E402
 from portbench.tests.test_portbench_harness import tiny  # noqa: E402
 from spatial_audio_framework_tpu_torch.models import (  # noqa: E402
     ambi_bin, binauraliser)
+from spatial_audio_framework_tpu_torch.ops import (  # noqa: E402
+    afstft_kernels as ak)
 from spatial_audio_framework_tpu_torch.utils import profiling  # noqa: E402
 
 HOP, TAIL_HOPS, S = 128, 15, 2
@@ -40,12 +42,13 @@ TREES = {
         "kernels.render_full_ri": "ops.render_one_pass",
         "ops.next_in_tail": "ops.render_one_pass",
     },
+    # the rotation, the lookup and the taps are one kernel entry, whose taps
+    # the route takes as they are: no ops.rotate_dirs, ops.interp_hrtfs or
+    # ops.decode_taps on this path
     "binauraliser": {
         "models.binauraliser.process_ri_batched": None,
-        "ops.rotate_dirs": "models.binauraliser.process_ri_batched",
-        "ops.interp_hrtfs": "models.binauraliser.process_ri_batched",
+        "kernels.hrtf_taps_ri": "models.binauraliser.process_ri_batched",
         "ops.render_two_pass": "models.binauraliser.process_ri_batched",
-        "ops.decode_taps": "ops.render_two_pass",
         "kernels.analysis_front_dg_ri": "ops.render_two_pass",
         "kernels.render_decode_synthesis_dg_ri": "ops.render_two_pass",
         "ops.next_in_tail": "ops.render_two_pass",
@@ -117,7 +120,8 @@ def test_spans_off_build_no_record_function(name, monkeypatch):
     assert bool(torch.isfinite(y).all())
     got = profiling.counters()
     assert {k for k in got if not k.endswith(".launches")} == set()
-    assert len(got) == 6 and not any(got.values())   # no launch on the CPU
+    assert len(got) == len(ak.KERNELS) == 7          # a count a kernel,
+    assert not any(got.values())                     # no launch on the CPU
 
 
 @pytest.mark.parametrize("name", sorted(TREES))

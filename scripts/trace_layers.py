@@ -15,7 +15,8 @@ time is that of every operation launched inside it
 calls, host ms (inclusive) and device ms a block; the device ms a block of
 every operation (to check that the root spans hold them all); per layer
 the host ms a block less the nested spans (``<layer>.host_ns``),
-``ops.state_bytes`` a block, and each kernel's launches a block
+``ops.state_bytes`` and ``ops.spectra_bytes`` (the wide route's spectra
+between its two kernels) a block, and each kernel's launches a block
 (``kernels.<entry>.launches``).  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -77,6 +78,7 @@ def trace_cell(name: str, config: dict, mix: dict, blocks: int, seed: int,
         "self_host_ms": {k: counts.get(f"{k}.host_ns", 0) / blocks / 1e6
                          for k in LAYERS},
         "state_bytes": counts.get("ops.state_bytes", 0) / blocks,
+        "spectra_bytes": counts.get("ops.spectra_bytes", 0) / blocks,
         "launches": {k: v / blocks for k, v in sorted(counts.items())
                      if k.endswith(".launches") and v},
     }

@@ -39,6 +39,7 @@ from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import presets
 from spatial_audio_framework_tpu_torch.utils.convhull3d import glibc_rand
+from spatial_audio_framework_tpu_torch.utils.profiling import spanned
 
 AMPLITUDE_PRESERVING = 0  # ambi_dec.h AMBI_DEC_DIFFUSE_FIELD_EQ_APPROACH
 ENERGY_PRESERVING = 1
@@ -269,6 +270,7 @@ def init_state_batched(cfg: AmbiDecConfig, n_streams: int, n_ls: int,
                                  device=device)
 
 
+@spanned("models.ambi_dec.process_ri_batched")
 def process_ri_batched(cfg: AmbiDecConfig, w: AmbiDecWeightsRI,
                        state: ri.AfSTFTStateBatched, x: torch.Tensor,
                        fused: bool = True):

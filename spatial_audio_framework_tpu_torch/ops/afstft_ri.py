@@ -16,7 +16,8 @@ delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
   one-pass kernel (:func:`_render_one_pass`), wider inputs the two-kernel
   pipeline (:func:`_render_two_pass`: analysis front, then decode ⊗
   synthesis).  Renders wider than 128 channel pairs take analysis →
-  per-band einsum → synthesis on the filterbank kernels.  With
+  per-band einsum → synthesis on the filterbank kernels
+  (:func:`_render_wide`).  With
   ``fused=False`` it is the plain reference path, in ordinary torch code.
 * :func:`analysis_ri` / :func:`synthesis_ri` — the single-stream
   filterbank with the complex afSTFT's state layout (:class:`AfSTFTStateRI`:
@@ -118,11 +119,17 @@ def state_ri_from_numpy(in_tail, hyb_tail_re, hyb_tail_im, ola_tail,
         in_tail, hyb_tail_re, hyb_tail_im, ola_tail)))
 
 
-def _dense(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous; a copy it takes counts in ``ops.state_bytes``."""
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _dense(t: torch.Tensor, *also: str) -> torch.Tensor:
+    """``t`` contiguous; a copy it takes counts in ``ops.state_bytes`` and
+    in each counter named in ``also``."""
     if t.is_contiguous():
         return t
-    count("ops.state_bytes", t.numel() * t.element_size())
+    for name in ("ops.state_bytes",) + also:
+        count(name, _nbytes(t))
     return t.contiguous()
 
 
@@ -134,7 +141,7 @@ def _next_in_tail(in_tail: torch.Tensor, x: torch.Tensor, H: int,
     if H >= _TAIL_HOPS:
         return _dense(x[..., (H - _TAIL_HOPS) * hop:])
     new_in_tail = torch.cat([in_tail[..., H * hop:], x], dim=-1)
-    count("ops.state_bytes", new_in_tail.numel() * new_in_tail.element_size())
+    count("ops.state_bytes", _nbytes(new_in_tail))
     return new_in_tail
 
 
@@ -192,6 +199,7 @@ def _hybrid_forward_ri(fre, fim, H: int):
     return torch.cat(seg_re, dim=-1), torch.cat(seg_im, dim=-1)
 
 
+@spanned("ops.hybrid_forward")
 def _hybrid_forward_ri_packed(fre, fim, H: int):
     """:func:`_hybrid_forward_ri` as one packed (..., H, 2·nHyb) tensor
     ([re | im] on the last axis)."""
@@ -223,8 +231,8 @@ def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched,
     He = H + 6
     if use_kernel:
         sre, sim = analysis_front_ri(
-            state.in_tail.reshape(S * n_ch, -1).contiguous(),
-            x.reshape(S * n_ch, -1).contiguous(),
+            _dense(state.in_tail).reshape(S * n_ch, -1),
+            _dense(x).reshape(S * n_ch, -1),
             low_delay=bank.low_delay, hop=hop)
         new_in_tail = _next_in_tail(state.in_tail, x, H, hop)
     else:
@@ -262,9 +270,9 @@ def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
     if use_kernel:
         spec = Y if packed else torch.cat(Y, dim=-1)
         S, n_ch, H = spec.shape[:3]
-        tail = state.ola_tail.reshape(S * n_ch, _TOTAL_HOPS - 1, hop)
+        tail = _dense(state.ola_tail).reshape(S * n_ch, _TOTAL_HOPS - 1, hop)
         y, new_tail = synthesis_back_ri(
-            spec.reshape(S * n_ch, H, -1).contiguous(), tail.contiguous(),
+            _dense(spec).reshape(S * n_ch, H, -1), tail,
             low_delay=bank.low_delay, hybrid=bank.hybrid)
         return (y.reshape(S, n_ch, H * hop),
                 state._replace(ola_tail=new_tail.reshape(S, n_ch,
@@ -331,25 +339,59 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
     cout, cin = Mre.shape[-2], Mre.shape[-1]
     if fused and takes_fused_route(bank, cout, cin):
         return render_tf_matrix_fused(bank, state, x, Mre, Mim)
+    if fused:
+        return _render_wide(bank, state, x, Mre, Mim)
+    spec_p, state = analysis_ri_batched(bank, state, x, packed=True)
+    out_p = _mix_bands(Mre, Mim, spec_p).flatten(-2)
+    return synthesis_ri_batched(bank, state, out_p, packed=True)
+
+
+@spanned("ops.render_wide")
+def _render_wide(bank: AfSTFT, state: AfSTFTStateBatched, x: torch.Tensor,
+                 Mre: torch.Tensor, Mim: Optional[torch.Tensor]):
+    """:func:`render_tf_matrix_ri`'s kernel route for renders wider than
+    128 channel pairs: :func:`analysis_front_ri` over the flattened
+    (S·cin) rows, the hybrid stage, the per-band mix (:func:`_mix_bands`),
+    :func:`synthesis_back_ri` over the (S·cout) rows.
+
+    Counts in ``ops.spectra_bytes`` the bytes of the spectra the route
+    writes between the two kernels, reckoned from their shapes: the
+    front's (re, im) output, the hybrid stage's packed output, the mix's
+    output and the dense copy of it that the back end reads.  The copies
+    torch makes inside the einsum are not the program's to see and are
+    not counted."""
+    hop = bank.hop
+    S, cin = x.shape[:2]
+    H = x.shape[2] // hop
     spec_p, state = analysis_ri_batched(bank, state, x, packed=True,
-                                        use_kernel=fused)
+                                        use_kernel=True)
+    out = _mix_bands(Mre, Mim, spec_p)
+    count("ops.spectra_bytes",
+          4 * 2 * S * cin * (H + 6) * (hop + 1) + _nbytes(spec_p)
+          + _nbytes(out))
+    out_p = _dense(out, "ops.spectra_bytes").flatten(-2)
+    return synthesis_ri_batched(bank, state, out_p, packed=True,
+                                use_kernel=True)
+
+
+@spanned("ops.mix_bands")
+def _mix_bands(Mre: torch.Tensor, Mim: Optional[torch.Tensor],
+               spec_p: torch.Tensor) -> torch.Tensor:
+    """The per-band mix of packed spectra (S, cin, H, 2·B) by a real
+    (Mim None) or complex matrix, shared (B, cout, cin) or per stream
+    (S, B, cout, cin) → (S, cout, H, 2, B) in the layout the einsum leaves
+    (band-major, not contiguous)."""
     S, cin, H, nb2 = spec_p.shape
-    B = nb2 // 2
-    spec5 = spec_p.reshape(S, cin, H, 2, B)
+    spec5 = spec_p.reshape(S, cin, H, 2, nb2 // 2)
     per_stream = Mre.ndim == 4
     with fp32_matmul():
         if Mim is None:
             eq = "zbes,zshjb->zehjb" if per_stream else "bes,zshjb->zehjb"
-            out = torch.einsum(eq, Mre, spec5)
-        else:
-            M4 = torch.stack([torch.stack([Mre, -Mim], dim=-1),
-                              torch.stack([Mim, Mre], dim=-1)], dim=-2)
-            eq = ("zbesij,zshjb->zehib" if per_stream
-                  else "besij,zshjb->zehib")
-            out = torch.einsum(eq, M4, spec5)
-    out_p = out.reshape(S, cout, H, nb2)
-    return synthesis_ri_batched(bank, state, out_p, packed=True,
-                                use_kernel=fused)
+            return torch.einsum(eq, Mre, spec5)
+        M4 = torch.stack([torch.stack([Mre, -Mim], dim=-1),
+                          torch.stack([Mim, Mre], dim=-1)], dim=-2)
+        eq = "zbesij,zshjb->zehib" if per_stream else "besij,zshjb->zehib"
+        return torch.einsum(eq, M4, spec5)
 
 
 def takes_fused_route(bank: AfSTFT, cout: int, cin: int) -> bool:

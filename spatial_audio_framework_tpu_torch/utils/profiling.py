@@ -169,9 +169,11 @@ def count(name: str, n: int) -> None:
 def counters() -> Dict[str, int]:
     """The counters (each span layer's ``<layer>.host_ns``,
     ``ops.state_bytes``: the bytes the ops layer copies to carry state or
-    to lay inputs out for a kernel) and, beside them, each CUDA kernel's
-    launches, ``kernels.<entry>.launches`` (its ``<entry>.launches``
-    attribute, counted whether or not a profiler records)."""
+    to lay inputs out for a kernel, ``ops.spectra_bytes``: the spectra the
+    wide route writes between its two kernels) and, beside them, each CUDA
+    kernel's launches, ``kernels.<entry>.launches`` (its
+    ``<entry>.launches`` attribute, counted whether or not a profiler
+    records)."""
     from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
 
     with _lock:

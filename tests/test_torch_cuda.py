@@ -264,6 +264,34 @@ def test_wide_render_takes_the_two_kernels(cuda, monkeypatch):
                                              before[2])
 
 
+def test_wide_render_at_the_benchmark_cells_rows(cuda):
+    """The wide route at the ``ambi_dec_o3_22x.batch1024`` cell's size:
+    1024 streams, 16 → 22, H = 64 (16,384 front rows, 22,528 back rows),
+    two blocks with state carried, within the configuration's limit
+    (2e-5 of the largest sample) of the plain path on the card; each
+    kernel launched once a block."""
+    cfg = ambi_dec.AmbiDecConfig(master_order=3)
+    w = ambi_dec.design_ri(cfg, presets.loudspeaker_preset("22.x"),
+                           device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    xs = [torch.rand((1024, 16, 64 * 128), generator=gen, device=cuda)
+          .mul_(2.0).sub_(1.0) for _ in range(2)]
+    st_k = st_p = ambi_dec.init_state_batched(cfg, 1024, 22, cuda)
+    before = (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches)
+    for x in xs:
+        yk, st_k = ambi_dec.process_ri_batched(cfg, w, st_k, x)
+        yp, st_p = ambi_dec.process_ri_batched(cfg, w, st_p, x, fused=False)
+        torch.cuda.synchronize()
+        err = ((yk - yp).abs().max() / yp.abs().max()).item()
+        assert err <= 2e-5, err
+        assert ((st_k.ola_tail - st_p.ola_tail).abs().max()
+                / yp.abs().max()).item() <= 2e-5
+        assert torch.equal(st_k.in_tail, st_p.in_tail)
+        del yk, yp
+    assert (tak.analysis_front_ri.launches,
+            tak.synthesis_back_ri.launches) == (before[0] + 2, before[1] + 2)
+
+
 def test_new_kernels_raise_for_hop_other_than_128(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tak.analysis_front_ri(torch.zeros((2, 15 * 64), device=cuda),

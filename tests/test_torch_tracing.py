@@ -1,5 +1,5 @@
 """The port's spans and counters (``utils/profiling``) on the CPU: off
-without a profiler, the span tree of the benchmark's two entries,
+without a profiler, the span tree of the benchmark's three entries,
 ``ops.state_bytes`` by hand, the spans kept off the device's list, and the
 benchmark's readers of them (``portbench/metrics``).
 
@@ -24,7 +24,7 @@ if str(ROOT) not in sys.path:
 from portbench import run, trace  # noqa: E402
 from portbench.tests.test_portbench_harness import tiny  # noqa: E402
 from spatial_audio_framework_tpu_torch.models import (  # noqa: E402
-    ambi_bin, binauraliser)
+    ambi_bin, ambi_dec, binauraliser)
 from spatial_audio_framework_tpu_torch.ops import (  # noqa: E402
     afstft_kernels as ak)
 from spatial_audio_framework_tpu_torch.utils import profiling  # noqa: E402
@@ -53,8 +53,20 @@ TREES = {
         "kernels.render_decode_synthesis_dg_ri": "ops.render_two_pass",
         "ops.next_in_tail": "ops.render_two_pass",
     },
+    # 16 → 22 is 352 channel pairs: the wide route, whose torch glue
+    # between the two kernels has a span of each part
+    "ambi_dec": {
+        "models.ambi_dec.process_ri_batched": None,
+        "ops.render_wide": "models.ambi_dec.process_ri_batched",
+        "kernels.analysis_front_ri": "ops.render_wide",
+        "ops.next_in_tail": "ops.render_wide",
+        "ops.hybrid_forward": "ops.render_wide",
+        "ops.mix_bands": "ops.render_wide",
+        "kernels.synthesis_back_ri": "ops.render_wide",
+    },
 }
-CIN = {"ambi_bin": 16, "binauraliser": N_SRC}
+CIN = {"ambi_bin": 16, "binauraliser": N_SRC, "ambi_dec": 16}
+COUT = {"ambi_bin": 2, "binauraliser": 2, "ambi_dec": 22}
 
 
 def _entry(name: str, hops: int):
@@ -71,6 +83,12 @@ def _entry(name: str, hops: int):
                                         "cpu")
         st = ambi_bin.init_state_batched(cfg, S, device="cpu")
         return lambda: ambi_bin.process_ri_batched(cfg, w, st, x)
+    if name == "ambi_dec":
+        cfg = ambi_dec.AmbiDecConfig(master_order=3)
+        w = ambi_dec.weights_from_numpy(
+            rng.standard_normal((133, COUT[name], cin)), None, "cpu")
+        st = ambi_dec.init_state_batched(cfg, S, COUT[name], device="cpu")
+        return lambda: ambi_dec.process_ri_batched(cfg, w, st, x)
     cfg = binauraliser.BinauraliserConfig(n_sources=cin,
                                           enable_rotation=True)
     n_dirs, n_table = 40, (int(360 / cfg.azi_res + 0.5) + 1) * 37
@@ -116,7 +134,7 @@ def test_spans_off_build_no_record_function(name, monkeypatch):
     assert profiling.span("ops.a") is profiling.span("kernels.b")
     profiling.count("ops.state_bytes", 123)
     y, _ = call()
-    assert tuple(y.shape) == (S, 2, 4 * HOP)
+    assert tuple(y.shape) == (S, COUT[name], 4 * HOP)
     assert bool(torch.isfinite(y).all())
     got = profiling.counters()
     assert {k for k in got if not k.endswith(".launches")} == set()
@@ -140,11 +158,15 @@ def test_span_tree_of_each_entry(name):
 def test_state_bytes_by_hand(name, hops):
     """The input tail's 15 hops a block: written by a cat below 15 hops, a
     dense copy of the block's last 15 hops above; at 15 the tail is the
-    block itself, and nothing is copied."""
+    block itself, and nothing is copied.  The wide route (ambi_dec) also
+    copies the mix's spectra (S, 22, H, 2·133), which the einsum leaves
+    band-major, into the dense rows ``synthesis_back_ri`` reads."""
     call = _entry(name, hops)
     profiling.reset_counters()
     _profiled(call)
     want = 0 if hops == TAIL_HOPS else S * CIN[name] * TAIL_HOPS * HOP * 4
+    if name == "ambi_dec":
+        want += S * COUT[name] * hops * 2 * 133 * 4
     assert profiling.counters().get("ops.state_bytes", 0) == want
     profiling.reset_counters()
     call()                                   # no profiler, no count

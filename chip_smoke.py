@@ -9,7 +9,7 @@ state carried from chunk to chunk:
   pass of the ``render_full_ri`` kernel per chunk;
 * the ambi_dec render (order 3 → the 22.x layout, 22 loudspeakers):
   cout·cin = 352, so per chunk the ``analysis_front_ri`` kernel, the
-  hybrid forward and the per-band einsum in plain torch, then the
+  ``wide_mix_ri`` kernel (hybrid forward and per-band mix), then the
   ``synthesis_back_ri`` kernel;
 * the wide-order binaural render (ambi_bin order 7, MagLS): cin = 64 > 16,
   so per chunk the two-kernel pipeline ``analysis_front_dg_ri`` →
@@ -31,8 +31,8 @@ state carried from chunk to chunk:
 * ambi_enc: 64 sources encoded to order 1 in frames of 128 samples; plain
   matrix products, none of the six kernels;
 * array2sh: 16 Eigenmike32 recordings encoded to order 4 (32 → 25
-  channels): ``analysis_front_ri`` and ``synthesis_back_ri`` around the
-  einsum; and ambi_dec's binaural preview (order 3 → 22.x → 2 ears, one
+  channels): ``analysis_front_ri``, ``wide_mix_ri`` and
+  ``synthesis_back_ri``; and ambi_dec's binaural preview (order 3 → 22.x → 2 ears, one
   complex 16 → 2 decoder): ``render_full_ri``;
 * one head-tracked listener through the single-stream ``ambi_bin.process``
   / ``process_ri``: plain torch, the rotation built on the card per block;
@@ -239,7 +239,12 @@ Phase 2 begins with ``hrtf_taps_ri`` (the binauraliser's per-block taps
 from its directions and poses) against its plain version, the torch chain
 it replaced, run on the card, at small shapes and at 1024 streams x 64
 sources in both interpolation modes, then timed there against its byte
-bound; ``--hrtf-taps`` builds the kernels and runs that alone.
+bound; ``--hrtf-taps`` builds the kernels and runs that alone.  Then
+``wide_mix_ri`` (the wide route's hybrid stage and per-band mix) against
+its plain version, the torch glue it replaced, in every matrix form and
+bank at small shapes and at the benchmark's wide cell (1024 streams, 16 →
+22, H = 64), timed there against its byte bound; ``--wide-mix`` builds the
+kernels and runs that alone.
 
 Usage (from the repository root): ``python chip_smoke.py [--seed N]``;
 ``--profile`` instead profiles the ambi_bin order-3 and order-7, ambi_dec
@@ -305,9 +310,9 @@ FS = 48000.0
 # analysis inputs at half full scale keep the spectra below |X| ~ 14, where
 # KERNEL_TOL is ~10 float32 ulps (tests/test_torch_afstft_kernels.py)
 ANA_AMP = 0.5
-KERNELS = ("render_full_ri", "analysis_front_ri", "synthesis_back_ri",
-           "analysis_front_dg_ri", "render_decode_synthesis_ri",
-           "render_decode_synthesis_dg_ri", "hrtf_taps_ri")
+# wide_mix_ri's main path: the benchmark's ambi_dec_o3_22x.batch1024 block,
+# 1024 streams, 16 -> 22, H = 64
+MIX_STREAMS, MIX_CIN, MIX_COUT = 1024, 16, 22
 # hrtf_taps_ri's main path: the benchmark's binauraliser_64src.track1024
 # block, 1024 listeners x 64 head-tracked sources
 TAPS_STREAMS, TAPS_SOURCES = 1024, 64
@@ -855,14 +860,14 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
             ys.append(y)
         return ys, st
 
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
           f"{(n_streams, n_in, T)}; launches = {launches}")
-    expect = {k: expect.get(k, 0) for k in KERNELS}
+    expect = {k: expect.get(k, 0) for k in ak.KERNELS}
     check(launches == expect, f"{name}: expected launches {expect}")
     ys_p, st_p = run(False)
     torch.cuda.synchronize()
@@ -931,19 +936,19 @@ def phase_ambi_bin_c_parity(ambi_bin, ri, sh, geo, ak, dev, card):
                                                         *w),
                      ("render_full_ri",))}
     for route, (process, kernels) in routes.items():
-        before = {k: getattr(ak, k).launches for k in KERNELS}
+        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
         st = ambi_bin.init_state_batched(cfg, 1, dev)
         outs = []
         for f in range(n_blocks):
             y, st = process(st, x[..., f * 512:(f + 1) * 512].contiguous())
             outs.append(y[0])
         out = torch.cat(outs, dim=-1).cpu().numpy()
-        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
         err = float(np.abs(out - g["ambi_bin_out"]).max())
         print(f"phase 4: ambi_bin order 4 vs the C reference on the card, "
               f"{route} route [{card}]: max |err| = {err:.3e} (tol {C_TOL}); "
               f"launches = { {k: n for k, n in ran.items() if n} }")
-        check(ran == {k: n_blocks if k in kernels else 0 for k in KERNELS},
+        check(ran == {k: n_blocks if k in kernels else 0 for k in ak.KERNELS},
               f"C parity, {route} route: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL,
               f"C parity, {route} route: {err}")
@@ -1087,6 +1092,70 @@ def phase_hrtf_taps(binauraliser, w, ak, dev, rng, card) -> dict:
             "plain_ms": t["plain"][0], **b, "library_ms": None}
 
 
+def phase_wide_mix(ak, dev, rng, card) -> dict:
+    """wide_mix_ri vs its plain version (the wide route's torch glue, on
+    the card) in each matrix form (real or complex, shared or per stream)
+    and bank, at small shapes and at its main path's (MIX_STREAMS x
+    MIX_CIN -> MIX_COUT, H = HOPS, real, shared), within KERNEL_TOL of the
+    largest output; then timed there (kernel behind a spin, plain as it
+    comes) against its byte bound."""
+    def inputs(S, cin, cout, H, complex_m, per_stream, nb):
+        spec = [uniform(rng, (S * cin, H + 6, 129), dev, 14.0)
+                for _ in range(2)]
+        shape = ((S,) if per_stream else ()) + (nb, cout, cin)
+        M = [uniform(rng, shape, dev, cin ** -0.5)
+             for _ in range(2 if complex_m else 1)]
+        return spec, M[0], M[1] if complex_m else None
+
+    err = 0.0
+    for S, cin, cout, H, complex_m, per_stream, hybrid in (
+            (3, 16, 22, 5, False, False, True),
+            (2, 16, 22, 9, True, False, True),
+            (3, 65, 2, 8, True, True, True),
+            (2, 20, 7, 1, False, True, False),
+            (A2S_STREAMS, A2S_SENSORS, A2S_NSH, HOPS, True, False, True),
+            (MIX_STREAMS, MIX_CIN, MIX_COUT, HOPS, False, False, True)):
+        (sre, sim), Mre, Mim = inputs(S, cin, cout, H, complex_m, per_stream,
+                                      133 if hybrid else 129)
+        k = ak.wide_mix_ri(sre, sim, Mre, Mim, hybrid=hybrid)
+        p = ak.wide_mix_ri_reference(sre, sim, Mre, Mim, hybrid=hybrid)
+        torch.cuda.synchronize()
+        check(k.shape == p.shape and bool(torch.isfinite(k).all()),
+              "wide_mix_ri: output not finite or misshapen")
+        e = ((k - p).abs().max() / p.abs().max()).item()
+        err = max(err, e)
+        print(f"phase 2: wide_mix_ri ({S} streams, {cin} -> {cout}, H {H}, "
+              f"{'complex' if complex_m else 'real'}, "
+              f"{'per stream' if per_stream else 'shared'}, "
+              f"{'hybrid' if hybrid else 'non-hybrid'}) vs plain on the "
+              f"card: max |err| = {e:.3e} of the largest output")
+        check(e <= KERNEL_TOL, f"wide_mix_ri disagrees with the plain "
+                               f"version: {e}")
+        del k, p
+    t = ab_times({"kernel": lambda: ak.wide_mix_ri(sre, sim, Mre, Mim),
+                  "plain": lambda: ak.wide_mix_ri_reference(sre, sim, Mre,
+                                                            Mim)},
+                 10, queued=True)
+    S, cin, cout, H = MIX_STREAMS, MIX_CIN, MIX_COUT, HOPS
+    # the front's spectra read once, the packed rows written once, the
+    # real matrix read once; 2 flop a real product, re and im
+    b = bound(2 * S * cin * (H + 6) * 129 + 133 * cout * cin,
+              S * cout * H * 2 * 133, S * cout * cin * H * 133 * 4)
+    shape = f"({S}, {cin} -> {cout}, H {H}), real, shared"
+    report_times("wide_mix_ri", t, card, shape)
+    print(f"phase 2: wide_mix_ri at {shape} [{card}]: kernel "
+          f"{t['kernel'][0]:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; {100 * b['bound_ms'] / t['kernel'][0]:.1f} % "
+          f"of the kernel's time), plain {t['plain'][0]:.4f} ms")
+    return {"name": "wide_mix_ri", "route": "cuda",
+            "source": "spatial_audio_framework_tpu_torch/csrc/"
+                      "wide_mix_ri.cu",
+            "replaces": "the torch glue _hybrid_forward_ri_packed -> "
+                        "_mix_bands -> dense copy (no TPU kernel)",
+            "shape": shape, "max_rel_err": err, "ms": t["kernel"][0],
+            "plain_ms": t["plain"][0], **b, "library_ms": None}
+
+
 def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
     """binaur (2 sources, 128-sample blocks) and brot (the same with the
     head rotated by yaw 40°, pitch −15°, roll 10°) on the default HRIR
@@ -1103,7 +1172,7 @@ def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
         x = torch.from_numpy(np.asarray(g[f"{key}_in"], np.float32))[None]
         x = x.to(dev)
         n_blocks = x.shape[-1] // fsz
-        before = {k: getattr(ak, k).launches for k in KERNELS}
+        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
         st = binauraliser.init_state_batched(cfg, 1, dev)
         outs = []
         for f in range(n_blocks):
@@ -1112,14 +1181,14 @@ def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
                 None, ypr)
             outs.append(y[0])
         out = torch.cat(outs, dim=-1).cpu().numpy()
-        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
         err = float(np.abs(out - g[f"{key}_out"]).max())
         print(f"phase 11: binauraliser {key} (2 sources, rotation "
               f"{ypr is not None}, {n_blocks} blocks of {fsz}) vs the C "
               f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
               f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
         check(ran == {k: n_blocks if k in ("render_full_ri", "hrtf_taps_ri")
-                      else 0 for k in KERNELS}, f"{key}: launches {ran}")
+                      else 0 for k in ak.KERNELS}, f"{key}: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
 
 
@@ -1132,11 +1201,11 @@ def phase_hop64(ri, bank, ak, dev, rng):
     M = uniform(rng, (2, S, bank.n_bands, cout, cin), dev)
     x = uniform(rng, (S, cin, HOPS * 128), dev)
     st = ri.init_state_batched(bank, S, cin, cout, dev)
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     y_k, st_k = ri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     y_p, st_p = ri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=False)
     same = (torch.equal(y_k, y_p) and torch.equal(st_k.in_tail, st_p.in_tail)
             and torch.equal(st_k.ola_tail, st_p.ola_tail))
@@ -1209,7 +1278,7 @@ def phase_ambi_enc(ambi_enc, ak, dev, rng, card):
             ys.append(y)
         return torch.cat(ys, dim=-1), st
 
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     st = ambi_enc.init_state(cfg, dirs_np[0].astype(np.float64), device=dev)
     outs = []
@@ -1217,7 +1286,7 @@ def phase_ambi_enc(ambi_enc, ak, dev, rng, card):
         y, st = chunk(st, k)
         outs.append(y)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     out = torch.cat(outs, dim=-1).cpu().numpy()
     # float64 reference: frame f encodes frame f − 1 with the matrices of
     # frames f − 1 and f, faded arange(1, T+1)/T
@@ -1329,16 +1398,16 @@ def phase_new_models_c_parity(panner, ambi_enc, binauraliser_nf,
                                                           None, a[2]),
                       roombinauraliser.init_state_batched(cfg, 1, dev)))
     for key, fsz, n_blocks, process, st in cases:
-        before = {k: getattr(ak, k).launches for k in KERNELS}
+        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
         out = golden_blocks(process, st, t(g[f"{key}_in"])[None], fsz,
                             n_blocks)
-        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
         err = float(np.abs(out - g[f"{key}_out"]).max())
         print(f"phase 18: {key} ({n_blocks} blocks of {fsz}) vs the C "
               f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
               f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
         check(ran == {k: n_blocks if k == "render_full_ri" else 0
-                      for k in KERNELS}, f"{key}: launches {ran}")
+                      for k in ak.KERNELS}, f"{key}: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
     # ambi_enc: order 3, N3D, 3 sources, 32 frames of 64 samples
     cfg = ambi_enc.AmbiEncConfig(order=3, norm="n3d", n_sources=3,
@@ -1398,8 +1467,8 @@ def phase_array2sh(array2sh, presets, ak, dev, rng, card):
     """array2sh: the Tikhonov design (Eigenmike32, order 4, N3D) against the
     compiled C's filters on the host, then the slice: 16 recordings of the
     32 sensors encoded to order 4 (nSH x Q = 800 channel pairs: the
-    analysis front at 512 rows, the per-band einsum, the synthesis back at
-    400 rows), as phase 3.  Returns the launch counts."""
+    analysis front at 512 rows, the wide mix, the synthesis back at 400
+    rows), as phase 3.  Returns the launch counts."""
     g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
     em32 = np.degrees(presets.mic_preset("eigenmike32"))
     t0 = time.perf_counter()
@@ -1423,7 +1492,8 @@ def phase_array2sh(array2sh, presets, ak, dev, rng, card):
         lambda: array2sh.init_state_batched(cfg, A2S_STREAMS, A2S_SENSORS,
                                             dev),
         A2S_SENSORS, A2S_NSH, ak, dev, rng, card,
-        {"analysis_front_ri": N_CHUNKS, "synthesis_back_ri": N_CHUNKS},
+        {"analysis_front_ri": N_CHUNKS, "wide_mix_ri": N_CHUNKS,
+         "synthesis_back_ri": N_CHUNKS},
         n_streams=A2S_STREAMS)
 
 
@@ -1559,7 +1629,7 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
                     state["i"] += 1
                     ys.append(y)
 
-                before = {k: getattr(ak, k).launches for k in KERNELS}
+                before = {k: getattr(ak, k).launches for k in ak.KERNELS}
                 for _ in range(3):
                     step()
                 torch.cuda.synchronize()
@@ -1582,7 +1652,7 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
                                    for i in (0, 1))
                 ahead = all(r[2] for r in timed)
                 ran = {k: getattr(ak, k).launches - before[k]
-                       for k in KERNELS}
+                       for k in ak.KERNELS}
                 ys.clear()
                 runs.append((
                     f"ambi_bin.{entry} order {order}, one listener, blocks "
@@ -1644,7 +1714,7 @@ def phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card):
         proc = getattr(ambi_bin, entry)
         return frames(lambda s, xb: proc(cfg, w, s, xb, ypr), st, x, fsz, n)
 
-    before = {k: getattr(ak, k).launches for k in KERNELS}
+    before = {k: getattr(ak, k).launches for k in ak.KERNELS}
     cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d",
                                  enable_rotation=True)
     y_enc = sh.get_rsh(4, np.array([[-90.0, 0.0]], np.float32))[:, 0]
@@ -1665,7 +1735,7 @@ def phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card):
         cfg = ambi_bin.AmbiBinConfig(order=3, method=method, norm="n3d")
         out = run(cfg, "process", t(g["ab2_in"]), None, 128, 64)
         c_parity(23, f"ab2 ({method})", out, g[key], card, " (process)")
-    ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+    ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
     check(not any(ran.values()), f"single-stream ambi_bin launched {ran}")
 
 
@@ -1683,7 +1753,7 @@ def phase_single_stream_c_parity(rotator, beamformer, binauraliser,
     g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
     t = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, np.float32)).to(dev)
-    before = {k: getattr(ak, k).launches for k in KERNELS}
+    before = {k: getattr(ak, k).launches for k in ak.KERNELS}
     rot = t(np.deg2rad([40.0, -15.0, 10.0]))
 
     cfg = rotator.RotatorConfig(order=3, norm="n3d", frame_size=64)
@@ -1759,7 +1829,7 @@ def phase_single_stream_c_parity(rotator, beamformer, binauraliser,
                      panner.init_state(cfg, device=dev), t(g[f"{key}_in"]),
                      128, 32)
         c_parity(24, key, out, g[f"{key}_out"], card, " (panner.process)")
-    ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+    ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
     check(not any(ran.values()), f"a single-stream path launched {ran}")
 
 
@@ -1886,16 +1956,16 @@ def phase_path(name, phase, process, init_state, xs, expect, compare, ak,
             outs.append(out)
         return outs, st
 
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     outs_k, st_k = run(True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     n_chunks = len(xs) * chunks_per_call
     print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
           f"{streams} x {samples} samples in {len(xs)} calls; launches = "
           f"{launches}")
-    check(launches == {k: expect.get(k, 0) for k in KERNELS},
+    check(launches == {k: expect.get(k, 0) for k in ak.KERNELS},
           f"{name}: expected launches {expect}")
     outs_p, st_p = run(False)
     torch.cuda.synchronize()
@@ -2102,7 +2172,7 @@ def phase_dirass(dirass, ak, dev, rng, card):
         for x in xs[:3]:
             p, ref_st = dirass.analysis(cfg, cw, ref_st, x.cpu())
             ref.append(p)
-        before = {k: getattr(ak, k).launches for k in KERNELS}
+        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
         st = dirass.init_state(cfg, w, device=dev)
         got = []
         p, st = dirass.analysis(cfg, w, st, xs[0])
@@ -2114,7 +2184,7 @@ def phase_dirass(dirass, ak, dev, rng, card):
                 if i == 2:
                     st3 = st
         torch.cuda.synchronize()
-        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
         check(not any(ran.values()), f"dirass {mode} launched {ran}")
         check(all(bool(torch.isfinite(p).all()) for p in got),
               f"dirass {mode}: non-finite map")
@@ -2231,10 +2301,10 @@ def phase_analyser_c_parity(ak, dev, card):
                      decorrelator.init_state(cfg, w, device=dev), x, 128, 64)
         held(key, float(np.abs(out - g[f"{key}_out"]).max()), C_TOL,
              " (single-stream process)")
-        before = {k: getattr(ak, k).launches for k in KERNELS}
+        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
         y, _ = decorrelator.process_ri_batched(
             cfg, w, decorrelator.init_state_batched(cfg, w, 1, dev), x[None])
-        ran = {k: getattr(ak, k).launches - before[k] for k in KERNELS}
+        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
         check(ran["analysis_front_ri"] == ran["synthesis_back_ri"] == 1,
               f"{key}: the batched path bypassed its kernels: {ran}")
         held(key, float((y[0].cpu() - torch.from_numpy(
@@ -2345,10 +2415,10 @@ def phase_analyser_c_parity(ak, dev, card):
             interp_u=torch.from_numpy(np.asarray(
                 geo.unit_sph2cart(c_grid, degrees=True), np.float32)).to(dev))
         xs = torch.from_numpy(np.asarray(g[f"{tag}_in"], np.float32)).to(dev)
-        before = {k: getattr(ak, k).launches for k in KERNELS}
+        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
         pmap = blocks(lambda s, xb: dirass.analysis(cfg, w, s, xb),
                       dirass.init_state(cfg, w, device=dev), xs)[-1]
-        check(not any(getattr(ak, k).launches - before[k] for k in KERNELS),
+        check(not any(getattr(ak, k).launches - before[k] for k in ak.KERNELS),
               "dirass launched a kernel")
         pmap, ref = pmap.cpu().numpy(), np.asarray(g[f"{tag}_pmap"])
         if tag == "dir":
@@ -2381,14 +2451,14 @@ def plain_path(name, phase, make, xs, ak, dev, card, audio_s, tol,
     torch.profiler.  ``audio_s``: audio seconds a call.  Returns the
     numbers."""
     init, process = make(dev)
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     st, ys = init(), []
     for x in xs:
         y, st = process(st, x)
         ys.append(y)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     print(f"phase {phase}: {name} ran {len(xs)} calls; launches = "
           f"{launches}")
     check(not any(launches.values()), f"{name} launched {launches}")
@@ -2868,7 +2938,7 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
     for mode in ("process_block", "render thread"):
         runner = StreamRunner(torch_frame_fn(make(), n_in, F, dev), n_in,
                               n_out, F, fs=FS, ring_frames=8)
-        for k in KERNELS:
+        for k in ak.KERNELS:
             getattr(ak, k).launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2896,13 +2966,13 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
             y = np.concatenate(got, axis=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: getattr(ak, k).launches for k in KERNELS}
+        launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
         frames_run = runner.clock.frames
         print(f"phase 36: StreamRunner ({mode}) over the flagship main path: "
               f"{T} samples of {n_in} channels in blocks of {RT_BLOCK}, "
               f"{frames_run} frames of {F}; launches = {launches}")
         expect = {k: frames_run if k == "render_full_ri" else 0
-                  for k in KERNELS}
+                  for k in ak.KERNELS}
         check(frames_run == n_frames and launches == expect,
               f"runtime ({mode}): {frames_run} frames, expected launches "
               f"{expect}")
@@ -3009,7 +3079,7 @@ def phase_render_signal(bcfg, bw, ak, dev, rng, card) -> int:
 
     render_signal(proc, init(), x[..., :2 * T], T)      # warm: caches
     st0 = init()
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -3018,13 +3088,13 @@ def phase_render_signal(bcfg, bw, ak, dev, rng, card) -> int:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     print(f"phase 37: render_signal over the flagship main path, {N_CHUNKS} "
           f"blocks of {(N_STREAMS, bcfg.nsh, T)} under "
           f"set_sync_debug_mode('error'): no host wait; launches = "
           f"{launches}")
     check(launches == {k: N_CHUNKS if k == "render_full_ri" else 0
-                       for k in KERNELS}, "render_signal: launches")
+                       for k in ak.KERNELS}, "render_signal: launches")
     st, outs = init(), []
     for i in range(N_CHUNKS):
         o, st = proc(st, x[..., i * T:(i + 1) * T])
@@ -3068,19 +3138,19 @@ def phase_mesh(bcfg, bw, ak, dev, rng, card) -> int:
     def proc(w, st, b):
         return ambi_bin.process_ri_batched(bcfg, w, st, b)
 
-    for k in KERNELS:
+    for k in ak.KERNELS:
         getattr(ak, k).launches = 0
     st, ys = ambi_bin.init_state_batched(bcfg, N_STREAMS, dev), []
     for x in xs:
         y, st = mesh.run_sharded(proc, bw, st, x, grid)
         ys.append(y)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in KERNELS}
+    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
     n_dev = grid.devices.size
     print(f"phase 38: run_sharded over the flagship main path, 2 chunks; "
           f"launches = {launches}")
     check(launches == {k: 2 * n_dev if k == "render_full_ri" else 0
-                       for k in KERNELS}, "run_sharded: launches")
+                       for k in ak.KERNELS}, "run_sharded: launches")
     rst = ambi_bin.init_state_batched(bcfg, N_STREAMS, dev)
     for x, y in zip(xs, ys):
         r, rst = proc(bw, rst, x)
@@ -3439,6 +3509,10 @@ def main() -> int:
     ap.add_argument("--hrtf-taps", action="store_true",
                     help="only build and run hrtf_taps_ri's phase (its "
                          "checks and its time against its byte bound)")
+    ap.add_argument("--wide-mix", action="store_true",
+                    help="only build and run wide_mix_ri's phase (after "
+                         "hrtf_taps_ri's: its checks and its time against "
+                         "its byte bound)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile the ambi_bin order-3 and order-7, "
                          "ambi_dec 22.x, non-hybrid 64 -> 2 and 64-source "
@@ -3492,6 +3566,10 @@ def main() -> int:
     if args.hrtf_taps:
         print(json.dumps({"kernels": [taps_entry]}))
         return 0
+    mix_entry = phase_wide_mix(ak, dev, rng, card)
+    if args.wide_mix:
+        print(json.dumps({"kernels": [mix_entry]}))
+        return 0
     errs, times = {}, {}
     errs["render_full_ri"], times["render_full_ri"] = phase_render_full(
         ak, dev, rng, card)
@@ -3537,7 +3615,8 @@ def main() -> int:
                                                          fused=fused),
         lambda: ambi_dec.init_state_batched(dcfg, N_STREAMS, len(ls), dev),
         dcfg.nsh, len(ls), ak, dev, rng, card,
-        {"analysis_front_ri": N_CHUNKS, "synthesis_back_ri": N_CHUNKS})
+        {"analysis_front_ri": N_CHUNKS, "wide_mix_ri": N_CHUNKS,
+         "synthesis_back_ri": N_CHUNKS})
     phase_ambi_dec_c_parity(ambi_dec, ak, dev, card)
 
     t0 = time.perf_counter()
@@ -3819,6 +3898,7 @@ def main() -> int:
                      times["render_decode_synthesis_dg_ri"], bounds,
                      source="render_decode_synthesis_ri"),
         taps_entry,
+        mix_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,10 @@
 * :func:`hrtf_taps_ri` — the binauraliser's per-stream decode taps from a
   block's source directions and head poses: rotation, HRTF-table
   interpolation and :func:`decode_taps` in one call
-  (``csrc/hrtf_taps_ri.cu``).
+  (``csrc/hrtf_taps_ri.cu``);
+* :func:`wide_mix_ri` — the wide render's glue: the hybrid stage and the
+  per-band mixing matrix from :func:`analysis_front_ri`'s spectra into the
+  packed rows :func:`synthesis_back_ri` reads (``csrc/wide_mix_ri.cu``).
 
 For a per-band mixing (decode) matrix M over the 133 HYBRID bands, the chain
 hybrid-forward → per-band M → hybrid-inverse collapses into a 7-tap FIR along
@@ -79,7 +82,8 @@ _KERNEL_MAX_CH_PRODUCT = 128
 # ``<entry>.launches`` and spanned as ``kernels.<entry>``
 KERNELS = ("render_full_ri", "analysis_front_dg_ri",
            "render_decode_synthesis_dg_ri", "analysis_front_ri",
-           "render_decode_synthesis_ri", "synthesis_back_ri", "hrtf_taps_ri")
+           "render_decode_synthesis_ri", "synthesis_back_ri", "hrtf_taps_ri",
+           "wide_mix_ri")
 
 
 def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
@@ -783,3 +787,93 @@ def render_full_ri_reference(in_tail: torch.Tensor, x: torch.Tensor,
         sre.reshape(S, cin, *sre.shape[1:]),
         sim.reshape(S, cin, *sim.shape[1:]), ola_tail, taps,
         low_delay=low_delay, hybrid=hybrid, per_stream=per_stream)
+
+
+# ---------------------------------------------------------------------------
+# the wide render's glue: hybrid stage ⊗ per-band mix, spectra to packed rows
+# ---------------------------------------------------------------------------
+
+
+@spanned("kernels.wide_mix_ri")
+def wide_mix_ri(sre: torch.Tensor, sim: torch.Tensor, Mre: torch.Tensor,
+                Mim: torch.Tensor | None = None, hybrid: bool = True):
+    """The wide render's glue between :func:`analysis_front_ri` and
+    :func:`synthesis_back_ri`: the hybrid forward stage, then the per-band
+    mixing matrix.
+
+    sre/sim: (S·cin, H+6, hop+1) the front's spectra; Mre: (n_bands, cout,
+    cin) shared or (S, n_bands, cout, cin) per stream, Mim the same or None
+    for a real matrix (n_bands = hop+5 hybrid, hop+1 not).  Returns the
+    packed [re | im] rows (S·cout, H, 2·n_bands) that
+    :func:`synthesis_back_ri` takes.
+
+    CPU tensors take :func:`wide_mix_ri_reference`.  CUDA tensors launch
+    the kernel (counted in ``wide_mix_ri.launches``) or raise; the kernel
+    takes hop 128 only, real or complex, shared or per-stream matrices and
+    either bank, reads every tensor contiguous and the spectra 16-byte
+    aligned, and refuses (a CUDA error) a complex matrix of more inputs
+    than its shared memory holds (~140)."""
+    if sre.device.type == "cpu":
+        return wide_mix_ri_reference(sre, sim, Mre, Mim, hybrid=hybrid)
+    if sre.device.type != "cuda":
+        raise ValueError(f"wide_mix_ri: unsupported device {sre.device}")
+    what = "wide_mix_ri"
+    if sre.ndim != 3 or Mre.ndim not in (3, 4):
+        raise ValueError(f"{what}: needs spectra (S·cin, H+6, hop+1) and M "
+                         f"([S,] n_bands, cout, cin); got {tuple(sre.shape)}"
+                         f", {tuple(Mre.shape)}")
+    _check_hop(what, sre.shape[-1] - 1)
+    rows, He = sre.shape[:2]
+    cout, cin = Mre.shape[-2:]
+    nb = _KERNEL_HOP + (5 if hybrid else 1)
+    per_stream = Mre.ndim == 4
+    S = rows // max(cin, 1)
+    if min(rows, cin, cout, He - 6) < 1 or rows % cin:
+        raise ValueError(f"{what}: needs S·cin rows of H+6 >= 7 hops for "
+                         f"cin = {cin}; got {tuple(sre.shape)}")
+    m_shape = ((S,) if per_stream else ()) + (nb, cout, cin)
+    spec_shape = (rows, He, _KERNEL_HOP + 1)
+    # the spectra are copied in 16-byte chunks, the matrix read by floats
+    _check_inputs(what, sre, {"sre": (sre, spec_shape),
+                              "sim": (sim, spec_shape)})
+    expect = {"Mre": (Mre, m_shape)}
+    if Mim is not None:
+        expect["Mim"] = (Mim, m_shape)
+    _check_inputs(what, sre, expect, align=4)
+    H = He - 6
+    out = torch.empty((S * cout, H, 2 * nb), dtype=torch.float32,
+                      device=sre.device)
+    _launch(what, "saf_wide_mix_ri", sre.device, sre.data_ptr(),
+            sim.data_ptr(), Mre.data_ptr(),
+            None if Mim is None else Mim.data_ptr(), out.data_ptr(), S, cin,
+            cout, H, int(hybrid), int(per_stream))
+    wide_mix_ri.launches += 1
+    return out
+
+
+wide_mix_ri.launches = 0
+
+
+def wide_mix_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
+                          Mre: torch.Tensor, Mim: torch.Tensor | None = None,
+                          hybrid: bool = True):
+    """Plain PyTorch version of :func:`wide_mix_ri` (same contract, any
+    hop, any device): the wide route's torch glue in its op order, without
+    its spans (it runs inside this entry's): the packed hybrid spectra
+    (``afstft_ri._hybrid_forward_ri_packed``; a non-hybrid bank's spectra
+    from hop 6), the per-band einsum (``afstft_ri._mix_bands``), its dense
+    copy, flattened to rows."""
+    # afstft_ri sits above this module in the import graph, so the glue is
+    # imported here, at the call
+    from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
+
+    cin = Mre.shape[-1]
+    S, He = sre.shape[0] // cin, sre.shape[1]
+    sre = sre.reshape(S, cin, He, -1)
+    sim = sim.reshape(S, cin, He, -1)
+    if hybrid:
+        spec_p = ri._hybrid_forward_ri_packed.__wrapped__(sre, sim, He - 6)
+    else:
+        spec_p = torch.cat([sre[:, :, 6:], sim[:, :, 6:]], dim=-1)
+    out = ri._mix_bands.__wrapped__(Mre, Mim, spec_p).contiguous()
+    return out.reshape(S * out.shape[1], He - 6, -1)

@@ -16,7 +16,7 @@ delays; afSTFT_internal.c:237-673) with every complex tensor carried as an
   one-pass kernel (:func:`_render_one_pass`), wider inputs the two-kernel
   pipeline (:func:`_render_two_pass`: analysis front, then decode ⊗
   synthesis).  Renders wider than 128 channel pairs take analysis →
-  per-band einsum → synthesis on the filterbank kernels
+  hybrid stage and per-band mix → synthesis on three kernels
   (:func:`_render_wide`).  With
   ``fused=False`` it is the plain reference path, in ordinary torch code.
 * :func:`analysis_ri` / :func:`synthesis_ri` — the single-stream
@@ -49,7 +49,8 @@ from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
 from spatial_audio_framework_tpu_torch.ops.afstft_kernels import (
     _KERNEL_HOP, _KERNEL_MAX_CH_PRODUCT, _TAIL_HOPS, analysis_front_dg_ri,
     analysis_front_ri, decode_taps, render_decode_synthesis_dg_ri,
-    render_decode_synthesis_ri, render_full_ri, synthesis_back_ri)
+    render_decode_synthesis_ri, render_full_ri, synthesis_back_ri,
+    wide_mix_ri)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils.profiling import count, spanned
 
@@ -123,13 +124,11 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _dense(t: torch.Tensor, *also: str) -> torch.Tensor:
-    """``t`` contiguous; a copy it takes counts in ``ops.state_bytes`` and
-    in each counter named in ``also``."""
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous; a copy it takes counts in ``ops.state_bytes``."""
     if t.is_contiguous():
         return t
-    for name in ("ops.state_bytes",) + also:
-        count(name, _nbytes(t))
+    count("ops.state_bytes", _nbytes(t))
     return t.contiguous()
 
 
@@ -212,6 +211,18 @@ def _hybrid_inverse_ri(Y):
     return torch.cat([Y[..., :1], pairs, Y[..., 9:]], dim=-1)
 
 
+def _front_rows(bank: AfSTFT, state: AfSTFTStateBatched, x: torch.Tensor):
+    """:func:`analysis_front_ri` over the flattened (S·n_ch) rows of block
+    x → (re, im) each (S·n_ch, H+6, hop+1), and the next input tail."""
+    S, n_ch = x.shape[:2]
+    sre, sim = analysis_front_ri(
+        _dense(state.in_tail).reshape(S * n_ch, -1),
+        _dense(x).reshape(S * n_ch, -1), low_delay=bank.low_delay,
+        hop=bank.hop)
+    return sre, sim, _next_in_tail(state.in_tail, x, x.shape[2] // bank.hop,
+                                   bank.hop)
+
+
 def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched,
                         x: torch.Tensor, packed: bool = False,
                         use_kernel: bool = False):
@@ -230,11 +241,7 @@ def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched,
     H = x.shape[2] // hop
     He = H + 6
     if use_kernel:
-        sre, sim = analysis_front_ri(
-            _dense(state.in_tail).reshape(S * n_ch, -1),
-            _dense(x).reshape(S * n_ch, -1),
-            low_delay=bank.low_delay, hop=hop)
-        new_in_tail = _next_in_tail(state.in_tail, x, H, hop)
+        sre, sim, new_in_tail = _front_rows(bank, state, x)
     else:
         buf = torch.cat([state.in_tail, x], dim=-1)       # (S,C,(H+15)·hop)
         new_in_tail = buf[..., H * hop:].contiguous()
@@ -331,15 +338,15 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
     package does (afstft_ri.py:611-638 and 756-855 there): cout·cin ≤ 128
     at hop 128 runs :func:`render_tf_matrix_fused` (the one-pass kernel for
     cin ≤ 16, the two-kernel pipeline above); anything wider runs analysis
-    (:func:`analysis_front_ri`) → per-band einsum → synthesis
-    (:func:`synthesis_back_ri`).  At a hop other than 128 every step runs
-    in plain torch.  ``False`` runs the plain reference path (analysis,
-    einsum, synthesis) on any device.
+    (:func:`analysis_front_ri`) → hybrid stage and per-band mix
+    (:func:`wide_mix_ri`) → synthesis (:func:`synthesis_back_ri`).  At a
+    hop other than 128 it runs the plain path.  ``False`` runs the plain
+    reference path (analysis, einsum, synthesis) on any device.
     """
     cout, cin = Mre.shape[-2], Mre.shape[-1]
     if fused and takes_fused_route(bank, cout, cin):
         return render_tf_matrix_fused(bank, state, x, Mre, Mim)
-    if fused:
+    if fused and bank.hop == _KERNEL_HOP:
         return _render_wide(bank, state, x, Mre, Mim)
     spec_p, state = analysis_ri_batched(bank, state, x, packed=True)
     out_p = _mix_bands(Mre, Mim, spec_p).flatten(-2)
@@ -350,28 +357,24 @@ def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched,
 def _render_wide(bank: AfSTFT, state: AfSTFTStateBatched, x: torch.Tensor,
                  Mre: torch.Tensor, Mim: Optional[torch.Tensor]):
     """:func:`render_tf_matrix_ri`'s kernel route for renders wider than
-    128 channel pairs: :func:`analysis_front_ri` over the flattened
-    (S·cin) rows, the hybrid stage, the per-band mix (:func:`_mix_bands`),
-    :func:`synthesis_back_ri` over the (S·cout) rows.
+    128 channel pairs, at hop 128: :func:`analysis_front_ri` over the
+    flattened (S·cin) rows, :func:`wide_mix_ri` (the hybrid stage and the
+    per-band mix, straight into the packed (S·cout) rows),
+    :func:`synthesis_back_ri` over those rows.  A matrix that is a view is
+    made dense first (counted in ``ops.state_bytes``).
 
     Counts in ``ops.spectra_bytes`` the bytes of the spectra the route
-    writes between the two kernels, reckoned from their shapes: the
-    front's (re, im) output, the hybrid stage's packed output, the mix's
-    output and the dense copy of it that the back end reads.  The copies
-    torch makes inside the einsum are not the program's to see and are
-    not counted."""
-    hop = bank.hop
-    S, cin = x.shape[:2]
-    H = x.shape[2] // hop
-    spec_p, state = analysis_ri_batched(bank, state, x, packed=True,
-                                        use_kernel=True)
-    out = _mix_bands(Mre, Mim, spec_p)
-    count("ops.spectra_bytes",
-          4 * 2 * S * cin * (H + 6) * (hop + 1) + _nbytes(spec_p)
-          + _nbytes(out))
-    out_p = _dense(out, "ops.spectra_bytes").flatten(-2)
-    return synthesis_ri_batched(bank, state, out_p, packed=True,
-                                use_kernel=True)
+    writes between the two filterbank kernels, reckoned from their shapes:
+    the front's (re, im) output and the mix's packed rows."""
+    S, H = x.shape[0], x.shape[2] // bank.hop
+    sre, sim, new_in_tail = _front_rows(bank, state, x)
+    rows = wide_mix_ri(sre, sim, _dense(Mre),
+                       None if Mim is None else _dense(Mim),
+                       hybrid=bank.hybrid)
+    count("ops.spectra_bytes", _nbytes(sre) + _nbytes(sim) + _nbytes(rows))
+    return synthesis_ri_batched(
+        bank, state._replace(in_tail=new_in_tail),
+        rows.reshape(S, -1, H, rows.shape[-1]), packed=True, use_kernel=True)
 
 
 @spanned("ops.mix_bands")

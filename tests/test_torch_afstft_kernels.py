@@ -175,9 +175,10 @@ def test_kernel_hop_check_raises():
 
 
 def _spy(monkeypatch, calls):
-    """Record every call of the three kernel wrappers as afstft_ri sees
+    """Record every call of the four kernel wrappers as afstft_ri sees
     them, passing through to the real wrappers."""
-    for name in ("analysis_front_ri", "synthesis_back_ri", "render_full_ri"):
+    for name in ("analysis_front_ri", "wide_mix_ri", "synthesis_back_ri",
+                 "render_full_ri"):
         real = getattr(tri, name)
 
         def spy(*a, _real=real, _name=name, **k):
@@ -188,15 +189,15 @@ def _spy(monkeypatch, calls):
 
 
 @pytest.mark.parametrize("fused,cin,cout,expect", [
-    (True, 16, 9, ["analysis_front_ri", "synthesis_back_ri"]),
+    (True, 16, 9, ["analysis_front_ri", "wide_mix_ri", "synthesis_back_ri"]),
     (True, 4, 2, ["render_full_ri"]),
     (False, 16, 9, []),
     (False, 4, 2, []),
 ])
 def test_render_dispatch(monkeypatch, fused, cin, cout, expect):
-    """fused=True: cout·cin > 128 takes the analysis/synthesis kernels and
-    never render_full_ri, ≤ 128 the one-pass kernel; fused=False reaches no
-    kernel wrapper at all."""
+    """fused=True: cout·cin > 128 takes the analysis, wide-mix and
+    synthesis kernels and never render_full_ri, ≤ 128 the one-pass kernel;
+    fused=False reaches no kernel wrapper at all."""
     calls = []
     _spy(monkeypatch, calls)
     rng = np.random.default_rng(5)

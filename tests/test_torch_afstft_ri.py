@@ -9,6 +9,7 @@ import torch
 from spatial_audio_framework_tpu.ops import afstft as jaf
 from spatial_audio_framework_tpu.ops import afstft_ri as jri
 from spatial_audio_framework_tpu_torch.ops import afstft as taf
+from spatial_audio_framework_tpu_torch.ops import afstft_kernels as tak
 from spatial_audio_framework_tpu_torch.ops import afstft_ri as tri
 
 BANKS = {"hybrid": dict(hybrid=True, low_delay=False),
@@ -103,10 +104,10 @@ def test_render_tf_matrix_vs_jax(matrix, fused):
     assert np.abs(np.asarray(jst.ola_tail) - tst.ola_tail.numpy()).max() <= TOL
 
 
-_KERNEL_ENTRIES = ("analysis_front_ri", "analysis_front_dg_ri",
-                   "render_decode_synthesis_ri",
-                   "render_decode_synthesis_dg_ri", "render_full_ri",
-                   "synthesis_back_ri")
+# the kernel entries the TF-matrix routes call: every entry of
+# afstft_kernels.KERNELS that afstft_ri imports (all but the binauraliser's
+# hrtf_taps_ri)
+_KERNEL_ENTRIES = tuple(n for n in tak.KERNELS if hasattr(tri, n))
 
 
 @pytest.mark.parametrize("shape", ["one_pass", "two_pass", "wide"])

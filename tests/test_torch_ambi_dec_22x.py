@@ -106,9 +106,9 @@ def test_cells_block_bytes_by_hand():
 def test_tiny_cell_run_is_correct_and_counts_its_spectra():
     """The cell through ``run.run_cell`` at 4 streams x 512 samples,
     traced: correct, the TF32 control over the limit, and
-    ``ops.spectra_bytes`` the spectra written between the two kernels a
-    block: the front's (re, im) over H + 6 hops, the packed hybrid
-    spectra, the mix's output and its dense copy."""
+    ``ops.spectra_bytes`` the spectra written between the two filterbank
+    kernels a block: the front's (re, im) over H + 6 hops and the mix's
+    packed rows."""
     config, mix = tiny(CELL)
     profiling.reset_counters()
     r = run.run_cell(config, mix, 2 ** 31 + 19, 0.2, True, CPU,
@@ -118,9 +118,8 @@ def test_tiny_cell_run_is_correct_and_counts_its_spectra():
     assert r["correct"] and r["checks"]["max_rel_err"]["value"] < limit
     assert r["control"]["max_rel_err"] > 3 * limit
     s, h = mix["streams"], mix["block_samples"] // HOP
-    hand = 4 * (2 * s * CIN * (h + 6) * (HOP + 1) + s * CIN * h * 2 * N_BANDS
-                + 2 * s * COUT * h * 2 * N_BANDS)
-    assert hand == 1_681_920
+    hand = 4 * (2 * s * CIN * (h + 6) * (HOP + 1) + s * COUT * h * 2 * N_BANDS)
+    assert hand == 1_035_008
     assert r["metrics"]["ops.spectra_bytes"]["value"] == pytest.approx(
         hand / 1e6, rel=1e-12)
 

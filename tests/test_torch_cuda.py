@@ -232,9 +232,9 @@ def test_interp_hrtfs_bad_directions_on_card(cuda, binauraliser_weights):
 
 
 def test_wide_render_takes_the_two_kernels(cuda, monkeypatch):
-    """cout·cin > 128 (order 3 → 22.x) launches analysis_front_ri and
-    synthesis_back_ri once per block, never render_full_ri and never a
-    plain version; the result matches the plain path."""
+    """cout·cin > 128 (order 3 → 22.x) launches analysis_front_ri,
+    wide_mix_ri and synthesis_back_ri once per block, never render_full_ri
+    and never a plain version; the result matches the plain path."""
     cfg = ambi_dec.AmbiDecConfig(master_order=3)
     w = ambi_dec.design_ri(cfg, presets.loudspeaker_preset("22.x"),
                            device=cuda)
@@ -249,27 +249,25 @@ def test_wide_render_takes_the_two_kernels(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in ("analysis_front_ri_reference", "synthesis_back_ri_reference",
-                 "render_full_ri_reference"):
-        monkeypatch.setattr(tak, name, refuse)
-    before = (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches,
-              tak.render_full_ri.launches)
+    for name in tak.KERNELS:
+        monkeypatch.setattr(tak, f"{name}_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     st = ambi_dec.init_state_batched(cfg, 2, 22, cuda)
     for x, yp in zip(xs, ys_plain):
         y, st = ambi_dec.process_ri_batched(cfg, w, st, x)
         torch.cuda.synchronize()
         assert (y - yp).abs().max().item() <= TOL
-    assert (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches,
-            tak.render_full_ri.launches) == (before[0] + 2, before[1] + 2,
-                                             before[2])
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    assert ran == {n: 2 * (n in _WIDE_ROUTE) for n in tak.KERNELS}
 
 
-def test_wide_render_at_the_benchmark_cells_rows(cuda):
+def test_wide_render_at_the_benchmark_cells_rows(cuda, monkeypatch):
     """The wide route at the ``ambi_dec_o3_22x.batch1024`` cell's size:
     1024 streams, 16 → 22, H = 64 (16,384 front rows, 22,528 back rows),
     two blocks with state carried, within the configuration's limit
-    (2e-5 of the largest sample) of the plain path on the card; each
-    kernel launched once a block."""
+    (2e-5 of the largest sample) of the plain path on the card; each of
+    its three kernels launched once a block, and the mix's plain version
+    never."""
     cfg = ambi_dec.AmbiDecConfig(master_order=3)
     w = ambi_dec.design_ri(cfg, presets.loudspeaker_preset("22.x"),
                            device=cuda)
@@ -277,7 +275,12 @@ def test_wide_render_at_the_benchmark_cells_rows(cuda):
     xs = [torch.rand((1024, 16, 64 * 128), generator=gen, device=cuda)
           .mul_(2.0).sub_(1.0) for _ in range(2)]
     st_k = st_p = ambi_dec.init_state_batched(cfg, 1024, 22, cuda)
-    before = (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path took the mix's plain version")
+
+    monkeypatch.setattr(tak, "wide_mix_ri_reference", refuse)
+    before = {n: getattr(tak, n).launches for n in _WIDE_ROUTE}
     for x in xs:
         yk, st_k = ambi_dec.process_ri_batched(cfg, w, st_k, x)
         yp, st_p = ambi_dec.process_ri_batched(cfg, w, st_p, x, fused=False)
@@ -288,8 +291,87 @@ def test_wide_render_at_the_benchmark_cells_rows(cuda):
                 / yp.abs().max()).item() <= 2e-5
         assert torch.equal(st_k.in_tail, st_p.in_tail)
         del yk, yp
-    assert (tak.analysis_front_ri.launches,
-            tak.synthesis_back_ri.launches) == (before[0] + 2, before[1] + 2)
+    assert {n: getattr(tak, n).launches - before[n]
+            for n in _WIDE_ROUTE} == dict.fromkeys(_WIDE_ROUTE, 2)
+
+
+# -- wide_mix_ri: the wide route's hybrid stage and per-band mix ------------
+
+_WIDE_ROUTE = ("analysis_front_ri", "wide_mix_ri", "synthesis_back_ri")
+
+
+def _wide_inputs(rng, S, cin, cout, H, complex_m, per_stream, hybrid,
+                 device):
+    """Front-like spectra (S·cin, H+6, 129) at |X| ≤ 14 and a matrix
+    scaled by 1/√cin, real or complex, shared or per stream."""
+    spec = [_u(rng, (S * cin, H + 6, 129), device, amp=14.0)
+            for _ in range(2)]
+    shape = ((S,) if per_stream else ()) + (133 if hybrid else 129, cout,
+                                            cin)
+    M = [_u(rng, shape, device, amp=cin ** -0.5)
+         for _ in range(2 if complex_m else 1)]
+    return spec, M[0], M[1] if complex_m else None
+
+
+@pytest.mark.parametrize("S,cin,cout,H,complex_m,per_stream,hybrid", [
+    (3, 16, 22, 64, False, False, True),    # ambi_dec 22.x, odd S
+    (2, 16, 22, 5, True, False, True),      # complex, H odd
+    (5, 9, 17, 1, False, False, True),      # one hop: half an item
+    (3, 65, 2, 5, True, True, True),        # the binauraliser past 64
+    (2, 20, 7, 64, False, True, True),      # the panner, per stream, real
+    (3, 32, 25, 5, True, False, True),      # array2sh: three e-groups
+    (1, 64, 22, 5, True, True, True),       # many inputs: small band groups
+    (3, 16, 22, 5, False, False, False),    # non-hybrid: 129 bands
+    (2, 12, 13, 64, True, True, False),
+    (7, 11, 13, 1, False, True, False),
+    (2, 9, 17, 8, False, False, True),      # order 2: inputs past cin zero
+    (3, 12, 13, 8, False, False, False),    # the real kernel, 129 bands
+    (2, 16, 5, 4, False, False, True),      # one block of outputs a unit
+])
+def test_wide_mix_matches_plain_version(cuda, S, cin, cout, H, complex_m,
+                                        per_stream, hybrid):
+    """Within 2e-5 of the largest output of the plain version, which is
+    the route's old torch glue, on the card."""
+    rng = np.random.default_rng(S * cin + H)
+    (sre, sim), Mre, Mim = _wide_inputs(rng, S, cin, cout, H, complex_m,
+                                        per_stream, hybrid, cuda)
+    before = tak.wide_mix_ri.launches
+    got = tak.wide_mix_ri(sre, sim, Mre, Mim, hybrid=hybrid)
+    ref = tak.wide_mix_ri_reference(sre, sim, Mre, Mim, hybrid=hybrid)
+    torch.cuda.synchronize()
+    assert tak.wide_mix_ri.launches == before + 1
+    assert got.shape == ref.shape == (S * cout, H, 2 * (133 if hybrid
+                                                        else 129))
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 2e-5 * scale
+
+
+def test_wide_mix_raises_on_what_it_does_not_take(cuda):
+    """Wrong shapes, a dtype, a device or a hop other than 128 raise; the
+    kernel never runs on them."""
+    rng = np.random.default_rng(3)
+    (sre, sim), Mre, Mim = _wide_inputs(rng, 2, 16, 22, 4, True, False,
+                                        True, cuda)
+    before = tak.wide_mix_ri.launches
+    with pytest.raises(ValueError, match="rows"):
+        tak.wide_mix_ri(sre[:-1], sim[:-1], Mre, Mim)       # S·cin rows
+    with pytest.raises(ValueError, match="shape"):
+        tak.wide_mix_ri(sre, sim, Mre[:129], Mim[:129])     # bands
+    with pytest.raises(ValueError, match="shape"):
+        tak.wide_mix_ri(sre, sim, Mre, Mim[:, :21])         # Mim's shape
+    with pytest.raises(ValueError, match="shape"):
+        tak.wide_mix_ri(sre, sim, Mre, Mim, hybrid=False)   # 129 bands
+    with pytest.raises(TypeError, match="float32"):
+        tak.wide_mix_ri(sre, sim.double(), Mre, Mim)
+    with pytest.raises(ValueError, match="cpu"):
+        tak.wide_mix_ri(sre, sim, Mre.cpu(), Mim)
+    with pytest.raises(ValueError, match="contiguous"):
+        tak.wide_mix_ri(sre, sim, Mre.transpose(1, 2).contiguous()
+                        .transpose(1, 2), Mim)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tak.wide_mix_ri(sre[..., :65].contiguous(), sim[..., :65]
+                        .contiguous(), Mre[:69], Mim[:69])
+    assert tak.wide_mix_ri.launches == before
 
 
 def test_new_kernels_raise_for_hop_other_than_128(cuda):
@@ -540,10 +622,6 @@ def test_decode_kernels_raise_for_hop_other_than_128(cuda):
             z(1, 2, 9, 64), z(2, 2, 4, 65))
 
 
-_ALL_KERNELS = ("analysis_front_ri", "analysis_front_dg_ri",
-                "render_decode_synthesis_ri", "render_decode_synthesis_dg_ri",
-                "render_full_ri", "synthesis_back_ri", "hrtf_taps_ri")
-
 
 def test_hop64_render_takes_the_plain_path(cuda):
     """At hop 64 render_tf_matrix_ri(fused=True) dispatches as the JAX
@@ -555,7 +633,7 @@ def test_hop64_render_takes_the_plain_path(cuda):
     bank = AfSTFT(hop=64, hybrid=True)
     rng = np.random.default_rng(12)
     M = _u(rng, (2, 3, bank.n_bands, 2, 4), cuda)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     st_k = st_p = tri.init_state_batched(bank, 3, 4, 2, cuda)
     for _ in range(2):
         x = _u(rng, (3, 4, 6 * 64), cuda)
@@ -564,7 +642,7 @@ def test_hop64_render_takes_the_plain_path(cuda):
                                            fused=False)
         assert torch.equal(yk, yp) and torch.equal(st_k.ola_tail,
                                                    st_p.ola_tail)
-    assert {n: getattr(tak, n).launches for n in _ALL_KERNELS} == before
+    assert {n: getattr(tak, n).launches for n in tak.KERNELS} == before
 
 
 @pytest.fixture(scope="module")
@@ -610,17 +688,17 @@ def test_binauraliser_routes_match_plain_path(cuda, binauraliser_weights,
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in _ALL_KERNELS:
+    for name in tak.KERNELS:
         monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     for yk, yp in zip(ys_k, ys_p):
         assert (yk - yp).abs().max().item() <= TOL
     assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
-    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
     assert ran == {n: 2 if n in pair + ("hrtf_taps_ri",) else 0
-                   for n in _ALL_KERNELS}
+                   for n in tak.KERNELS}
 
 
 # -- hrtf_taps_ri: the binauraliser's taps from its directions --------------
@@ -862,9 +940,9 @@ def test_new_model_routes_match_plain_path(cuda, monkeypatch, model, n_src,
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in _ALL_KERNELS:
+    for name in tak.KERNELS:
         monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     for yk, yp in zip(ys_k, ys_p):
@@ -872,8 +950,8 @@ def test_new_model_routes_match_plain_path(cuda, monkeypatch, model, n_src,
         assert bool(torch.isfinite(yk).all())
         assert (yk - yp).abs().max().item() <= TOL
     assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
-    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
-    assert ran == {n: 2 if n in pair else 0 for n in _ALL_KERNELS}
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    assert ran == {n: 2 if n in pair else 0 for n in tak.KERNELS}
 
 
 def test_binauraliser_nf_warm_chunk_builds_nothing_from_host_data(
@@ -968,8 +1046,9 @@ def test_synthesis_back_at_the_array2sh_rows(cuda, rows, H):
 
 
 def test_array2sh_route_matches_plain_path(cuda, monkeypatch):
-    """Eigenmike32 → order 4, 3 streams: the front and the back once a
-    chunk, never a plain version, equal to ``fused=False``."""
+    """Eigenmike32 → order 4, 3 streams (800 channel pairs, the wide
+    route): the front, the mix and the back once a chunk, never a plain
+    version, equal to ``fused=False``."""
     from spatial_audio_framework_tpu_torch.models import array2sh
 
     cfg = array2sh.Array2SHConfig(order=4)
@@ -990,18 +1069,17 @@ def test_array2sh_route_matches_plain_path(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in _ALL_KERNELS:
+    for name in tak.KERNELS:
         monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     for yk, yp in zip(ys_k, ys_p):
         assert yk.shape == (3, 25, yk.shape[-1])
         assert (yk - yp).abs().max().item() <= TOL * max(
             1.0, yp.abs().max().item())
-    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
-    assert ran == {n: 2 if n in ("analysis_front_ri", "synthesis_back_ri")
-                   else 0 for n in _ALL_KERNELS}
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    assert ran == {n: 2 * (n in _WIDE_ROUTE) for n in tak.KERNELS}
 
 
 def test_ambi_dec_binaural_preview_takes_the_one_pass_kernel(cuda):
@@ -1014,14 +1092,14 @@ def test_ambi_dec_binaural_preview_takes_the_one_pass_kernel(cuda):
     assert w.M_im is not None and w.M_re.shape == (133, 2, 16)
     rng = np.random.default_rng(4)
     x = _u(rng, (2, 16, 9 * 128), cuda)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     yk, _ = ambi_dec.process_ri_batched(
         cfg, w, ambi_dec.init_state_batched(cfg, 2, 22, cuda), x)
-    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
     yp, _ = ambi_dec.process_ri_batched(
         cfg, w, ambi_dec.init_state_batched(cfg, 2, 22, cuda), x,
         fused=False)
-    assert ran == {n: int(n == "render_full_ri") for n in _ALL_KERNELS}
+    assert ran == {n: int(n == "render_full_ri") for n in tak.KERNELS}
     assert yk.shape == (2, 2, 9 * 128)
     assert (yk - yp).abs().max().item() <= TOL
 
@@ -1076,9 +1154,9 @@ def test_head_tracked_block_never_waits_for_the_device(cuda, monkeypatch,
             finally:
                 torch.cuda.set_sync_debug_mode("default")
 
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     got = run(cuda, no_host_data)
-    assert {n: getattr(tak, n).launches for n in _ALL_KERNELS} == before
+    assert {n: getattr(tak, n).launches for n in tak.KERNELS} == before
     ref = run("cpu", contextlib.nullcontext)
     assert bool(torch.isfinite(got).all())
     assert (got - ref).abs().max().item() <= TOL * max(
@@ -1234,13 +1312,13 @@ def test_analyser_route_matches_plain_path(cuda, monkeypatch, name):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for k in _ALL_KERNELS:
+    for k in tak.KERNELS:
         monkeypatch.setattr(tak, f"{k}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     fused = run(True)
     torch.cuda.synchronize()
-    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
-    assert ran == {n: 2 * (n in kernels) for n in _ALL_KERNELS}
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    assert ran == {n: 2 * (n in kernels) for n in tak.KERNELS}
     for k, p in zip(fused, plain):
         assert k.shape == p.shape and bool(torch.isfinite(k).all())
         if name == "sldoa" and k.shape[-1:] == (2,) and k.ndim == 5:
@@ -1323,9 +1401,9 @@ def test_dirass_on_card_matches_the_cpu(cuda, mode):
             out.append(p.cpu())
         return torch.stack(out), [t.cpu() for t in st[2:]]
 
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     got, got_st = run(cuda)
-    assert {n: getattr(tak, n).launches for n in _ALL_KERNELS} == before
+    assert {n: getattr(tak, n).launches for n in tak.KERNELS} == before
     ref, ref_st = run("cpu")
     assert bool(torch.isfinite(got).all())
     if mode != "nearest":
@@ -1422,14 +1500,14 @@ def test_batched_hades_spreader_route_matches_plain_path(cuda, monkeypatch,
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for k in _ALL_KERNELS:
+    for k in tak.KERNELS:
         monkeypatch.setattr(tak, f"{k}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in _ALL_KERNELS}
+    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
     fused = run(True)
     torch.cuda.synchronize()
-    ran = {n: getattr(tak, n).launches - before[n] for n in _ALL_KERNELS}
+    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
     assert ran == {n: 2 * (n in ("analysis_front_ri", "synthesis_back_ri"))
-                   for n in _ALL_KERNELS}
+                   for n in tak.KERNELS}
     for (k, tol), (p, _) in zip(fused, plain):
         assert k.shape == p.shape and bool(torch.isfinite(k).all())
         scale = max(1.0, p.abs().max().item())

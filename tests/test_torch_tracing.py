@@ -53,15 +53,14 @@ TREES = {
         "kernels.render_decode_synthesis_dg_ri": "ops.render_two_pass",
         "ops.next_in_tail": "ops.render_two_pass",
     },
-    # 16 → 22 is 352 channel pairs: the wide route, whose torch glue
-    # between the two kernels has a span of each part
+    # 16 → 22 is 352 channel pairs: the wide route, three kernel entries
+    # (the hybrid stage and the per-band mix are one, wide_mix_ri)
     "ambi_dec": {
         "models.ambi_dec.process_ri_batched": None,
         "ops.render_wide": "models.ambi_dec.process_ri_batched",
         "kernels.analysis_front_ri": "ops.render_wide",
         "ops.next_in_tail": "ops.render_wide",
-        "ops.hybrid_forward": "ops.render_wide",
-        "ops.mix_bands": "ops.render_wide",
+        "kernels.wide_mix_ri": "ops.render_wide",
         "kernels.synthesis_back_ri": "ops.render_wide",
     },
 }
@@ -138,7 +137,7 @@ def test_spans_off_build_no_record_function(name, monkeypatch):
     assert bool(torch.isfinite(y).all())
     got = profiling.counters()
     assert {k for k in got if not k.endswith(".launches")} == set()
-    assert len(got) == len(ak.KERNELS) == 7          # a count a kernel,
+    assert len(got) == len(ak.KERNELS) == 8          # a count a kernel,
     assert not any(got.values())                     # no launch on the CPU
 
 
@@ -158,15 +157,13 @@ def test_span_tree_of_each_entry(name):
 def test_state_bytes_by_hand(name, hops):
     """The input tail's 15 hops a block: written by a cat below 15 hops, a
     dense copy of the block's last 15 hops above; at 15 the tail is the
-    block itself, and nothing is copied.  The wide route (ambi_dec) also
-    copies the mix's spectra (S, 22, H, 2·133), which the einsum leaves
-    band-major, into the dense rows ``synthesis_back_ri`` reads."""
+    block itself, and nothing is copied.  The wide route (ambi_dec) copies
+    nothing more: its mix writes the dense rows ``synthesis_back_ri``
+    reads."""
     call = _entry(name, hops)
     profiling.reset_counters()
     _profiled(call)
     want = 0 if hops == TAIL_HOPS else S * CIN[name] * TAIL_HOPS * HOP * 4
-    if name == "ambi_dec":
-        want += S * COUT[name] * hops * 2 * 133 * 4
     assert profiling.counters().get("ops.state_bytes", 0) == want
     profiling.reset_counters()
     call()                                   # no profiler, no count

@@ -860,14 +860,13 @@ def phase_slice(name, phase, process, init_state, n_in, n_out, ak, dev, rng,
             ys.append(y)
         return ys, st
 
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
           f"{(n_streams, n_in, T)}; launches = {launches}")
-    expect = {k: expect.get(k, 0) for k in ak.KERNELS}
+    expect = {k: expect.get(k, 0) for k in ak.LAUNCHES}
     check(launches == expect, f"{name}: expected launches {expect}")
     ys_p, st_p = run(False)
     torch.cuda.synchronize()
@@ -936,19 +935,19 @@ def phase_ambi_bin_c_parity(ambi_bin, ri, sh, geo, ak, dev, card):
                                                         *w),
                      ("render_full_ri",))}
     for route, (process, kernels) in routes.items():
-        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        before = dict(ak.LAUNCHES)
         st = ambi_bin.init_state_batched(cfg, 1, dev)
         outs = []
         for f in range(n_blocks):
             y, st = process(st, x[..., f * 512:(f + 1) * 512].contiguous())
             outs.append(y[0])
         out = torch.cat(outs, dim=-1).cpu().numpy()
-        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+        ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
         err = float(np.abs(out - g["ambi_bin_out"]).max())
         print(f"phase 4: ambi_bin order 4 vs the C reference on the card, "
               f"{route} route [{card}]: max |err| = {err:.3e} (tol {C_TOL}); "
               f"launches = { {k: n for k, n in ran.items() if n} }")
-        check(ran == {k: n_blocks if k in kernels else 0 for k in ak.KERNELS},
+        check(ran == {k: n_blocks if k in kernels else 0 for k in ak.LAUNCHES},
               f"C parity, {route} route: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL,
               f"C parity, {route} route: {err}")
@@ -992,7 +991,7 @@ def phase_ambi_dec_c_parity(ambi_dec, ak, dev, card):
                            device=dev)
     x = torch.from_numpy(np.asarray(g["dec_e2e_in"], np.float32))[None].to(dev)
     st = ambi_dec.init_state_batched(cfg, 1, 9, dev)
-    before = ak.analysis_front_ri.launches
+    before = ak.LAUNCHES["analysis_front_ri"]
     outs = []
     for f in range(x.shape[-1] // 128):
         y, st = ambi_dec.process_ri_batched(
@@ -1000,7 +999,7 @@ def phase_ambi_dec_c_parity(ambi_dec, ak, dev, card):
         outs.append(y[0])
     out = torch.cat(outs, dim=-1).cpu().numpy()
     err = float(np.abs(out - g["dec_e2e_out"]).max())
-    n = ak.analysis_front_ri.launches - before
+    n = ak.LAUNCHES["analysis_front_ri"] - before
     print(f"phase 6: ambi_dec dec_e2e (order 3 -> 9 LS, {n} blocks through "
           f"the kernels) vs the C reference on the card [{card}]: max |err| "
           f"= {err:.3e} (tol {C_TOL})")
@@ -1028,7 +1027,7 @@ def design_binauraliser_from_sofa(binauraliser, hrir, sofa, cfg, dev):
                                   device=dev), c
 
 
-def phase_hrtf_taps(binauraliser, w, ak, dev, rng, card) -> dict:
+def phase_hrtf_taps(binauraliser, w, dev, rng, card) -> dict:
     """hrtf_taps_ri vs its plain version (the torch chain it replaced, on
     the card) at small shapes and at its main path's (TAPS_STREAMS x
     TAPS_SOURCES, rotation), both interpolation modes, on the default
@@ -1046,8 +1045,8 @@ def phase_hrtf_taps(binauraliser, w, ak, dev, rng, card) -> dict:
         dirs = uniform(rng, (S, n, 2), dev) * torch.tensor([180.0, 90.0],
                                                            device=dev)
         ypr = uniform(rng, (S, 3), dev, amp=np.pi)
-        k = ak.hrtf_taps_ri(cfg, w, dirs, ypr)
-        p = ak.hrtf_taps_ri_reference(cfg, w, dirs, ypr)
+        k = binauraliser.hrtf_taps_ri(cfg, w, dirs, ypr)
+        p = binauraliser.hrtf_taps_ri_reference(cfg, w, dirs, ypr)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(k).all()), "hrtf_taps_ri: taps not finite")
         scale = p.abs().max().item()
@@ -1068,9 +1067,10 @@ def phase_hrtf_taps(binauraliser, w, ak, dev, rng, card) -> dict:
                                           enable_rotation=True)
     dirs = uniform(rng, (TAPS_STREAMS, TAPS_SOURCES, 2), dev) * 90.0
     ypr = uniform(rng, (TAPS_STREAMS, 3), dev)
-    t = ab_times({"kernel": lambda: ak.hrtf_taps_ri(cfg, w, dirs, ypr),
-                  "plain": lambda: ak.hrtf_taps_ri_reference(cfg, w, dirs,
-                                                             ypr)},
+    t = ab_times({"kernel": lambda: binauraliser.hrtf_taps_ri(cfg, w, dirs,
+                                                              ypr),
+                  "plain": lambda: binauraliser.hrtf_taps_ri_reference(
+                      cfg, w, dirs, ypr)},
                  20, queued=True)
     pairs, n_dirs = TAPS_STREAMS * TAPS_SOURCES, w.hrtf_mag_by_dir.shape[0]
     # the controls and the (re, im) table read once, the taps written once
@@ -1172,7 +1172,7 @@ def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
         x = torch.from_numpy(np.asarray(g[f"{key}_in"], np.float32))[None]
         x = x.to(dev)
         n_blocks = x.shape[-1] // fsz
-        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        before = dict(ak.LAUNCHES)
         st = binauraliser.init_state_batched(cfg, 1, dev)
         outs = []
         for f in range(n_blocks):
@@ -1181,14 +1181,14 @@ def phase_binauraliser_c_parity(binauraliser, w, ak, dev, card):
                 None, ypr)
             outs.append(y[0])
         out = torch.cat(outs, dim=-1).cpu().numpy()
-        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+        ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
         err = float(np.abs(out - g[f"{key}_out"]).max())
         print(f"phase 11: binauraliser {key} (2 sources, rotation "
               f"{ypr is not None}, {n_blocks} blocks of {fsz}) vs the C "
               f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
               f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
         check(ran == {k: n_blocks if k in ("render_full_ri", "hrtf_taps_ri")
-                      else 0 for k in ak.KERNELS}, f"{key}: launches {ran}")
+                      else 0 for k in ak.LAUNCHES}, f"{key}: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
 
 
@@ -1201,11 +1201,10 @@ def phase_hop64(ri, bank, ak, dev, rng):
     M = uniform(rng, (2, S, bank.n_bands, cout, cin), dev)
     x = uniform(rng, (S, cin, HOPS * 128), dev)
     st = ri.init_state_batched(bank, S, cin, cout, dev)
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     y_k, st_k = ri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     y_p, st_p = ri.render_tf_matrix_ri(bank, st, x, M[0], M[1], fused=False)
     same = (torch.equal(y_k, y_p) and torch.equal(st_k.in_tail, st_p.in_tail)
             and torch.equal(st_k.ola_tail, st_p.ola_tail))
@@ -1239,9 +1238,9 @@ def phase_fuma(ambi_bin, ak, dev, rng, card):
         ys.append(y)
 
     step()
-    before = ak.render_full_ri.launches
+    before = ak.LAUNCHES["render_full_ri"]
     dev_ms, host_ms, ahead = device_ms(step, len(xs))
-    n = ak.render_full_ri.launches - before
+    n = ak.LAUNCHES["render_full_ri"] - before
     ok = all(bool(torch.isfinite(y).all()) for y in ys)
     print(f"phase 13: ambi_bin order 3, FuMa input, {len(xs)} chunks behind "
           f"a spin kernel [{card}]: device {dev_ms:.4f} ms, host enqueue "
@@ -1278,15 +1277,14 @@ def phase_ambi_enc(ambi_enc, ak, dev, rng, card):
             ys.append(y)
         return torch.cat(ys, dim=-1), st
 
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     st = ambi_enc.init_state(cfg, dirs_np[0].astype(np.float64), device=dev)
     outs = []
     for k in range(N_CHUNKS):
         y, st = chunk(st, k)
         outs.append(y)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     out = torch.cat(outs, dim=-1).cpu().numpy()
     # float64 reference: frame f encodes frame f − 1 with the matrices of
     # frames f − 1 and f, faded arange(1, T+1)/T
@@ -1398,16 +1396,16 @@ def phase_new_models_c_parity(panner, ambi_enc, binauraliser_nf,
                                                           None, a[2]),
                       roombinauraliser.init_state_batched(cfg, 1, dev)))
     for key, fsz, n_blocks, process, st in cases:
-        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        before = dict(ak.LAUNCHES)
         out = golden_blocks(process, st, t(g[f"{key}_in"])[None], fsz,
                             n_blocks)
-        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+        ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
         err = float(np.abs(out - g[f"{key}_out"]).max())
         print(f"phase 18: {key} ({n_blocks} blocks of {fsz}) vs the C "
               f"reference on the card [{card}]: max |err| = {err:.3e} (tol "
               f"{C_TOL}); launches = { {k: n for k, n in ran.items() if n} }")
         check(ran == {k: n_blocks if k == "render_full_ri" else 0
-                      for k in ak.KERNELS}, f"{key}: launches {ran}")
+                      for k in ak.LAUNCHES}, f"{key}: launches {ran}")
         check(np.isfinite(out).all() and err <= C_TOL, f"{key}: {err}")
     # ambi_enc: order 3, N3D, 3 sources, 32 frames of 64 samples
     cfg = ambi_enc.AmbiEncConfig(order=3, norm="n3d", n_sources=3,
@@ -1450,12 +1448,12 @@ def phase_design_checks(ambi_bin, hrir, ak, dev, card):
     cfg = ambi_bin.AmbiBinConfig(order=3, method="spr", norm="n3d")
     w = ambi_bin.design_ri(cfg, device=dev)
     x = torch.from_numpy(np.asarray(g["ab2_in"], np.float32))[None].to(dev)
-    before = ak.render_full_ri.launches
+    before = ak.LAUNCHES["render_full_ri"]
     out = golden_blocks(
         lambda st, xb: ambi_bin.process_ri_batched(cfg, w, st, xb),
         ambi_bin.init_state_batched(cfg, 1, dev), x, 128, 64)
     err = float(np.abs(out - g["abspr_out"]).max())
-    n = ak.render_full_ri.launches - before
+    n = ak.LAUNCHES["render_full_ri"] - before
     print(f"phase 19: ambi_bin order 3, SPR decoder ({n} blocks through "
           f"render_full_ri) vs the C reference on the card [{card}]: max "
           f"|err| = {err:.3e} (tol {C_TOL})")
@@ -1552,11 +1550,11 @@ def phase_ambi_dec_preview(ambi_dec, presets, ak, dev, rng, card):
                                   transition_freq=800.0, binauralise_ls=True)
     x = torch.from_numpy(np.asarray(g["adb_in"], np.float32)).to(dev)
     wri = ambi_dec.design_ri(ccfg, ls9, device=dev)
-    before = ak.render_full_ri.launches
+    before = ak.LAUNCHES["render_full_ri"]
     out = golden_blocks(
         lambda st, xb: ambi_dec.process_ri_batched(ccfg, wri, st, xb),
         ambi_dec.init_state_batched(ccfg, 1, 9, dev), x[None], 128, 32)
-    n = ak.render_full_ri.launches - before
+    n = ak.LAUNCHES["render_full_ri"] - before
     c_parity(21, "adb", out, g["adb_out"], card,
              f" (batched path, {n} blocks through render_full_ri)")
     check(n == 32, "adb: the batched preview bypassed render_full_ri")
@@ -1629,7 +1627,7 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
                     state["i"] += 1
                     ys.append(y)
 
-                before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+                before = dict(ak.LAUNCHES)
                 for _ in range(3):
                     step()
                 torch.cuda.synchronize()
@@ -1651,8 +1649,8 @@ def phase_head_tracked(ambi_bin, sh, geo, cases, ak, dev, rng, card):
                 dev_ms, host_ms = (float(np.median([r[i] for r in timed]))
                                    for i in (0, 1))
                 ahead = all(r[2] for r in timed)
-                ran = {k: getattr(ak, k).launches - before[k]
-                       for k in ak.KERNELS}
+                ran = {k: ak.LAUNCHES[k] - before[k]
+                       for k in ak.LAUNCHES}
                 ys.clear()
                 runs.append((
                     f"ambi_bin.{entry} order {order}, one listener, blocks "
@@ -1714,7 +1712,7 @@ def phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card):
         proc = getattr(ambi_bin, entry)
         return frames(lambda s, xb: proc(cfg, w, s, xb, ypr), st, x, fsz, n)
 
-    before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    before = dict(ak.LAUNCHES)
     cfg = ambi_bin.AmbiBinConfig(order=4, method="magls", norm="n3d",
                                  enable_rotation=True)
     y_enc = sh.get_rsh(4, np.array([[-90.0, 0.0]], np.float32))[:, 0]
@@ -1735,7 +1733,7 @@ def phase_ambi_bin_single_c_parity(ambi_bin, sh, ak, dev, card):
         cfg = ambi_bin.AmbiBinConfig(order=3, method=method, norm="n3d")
         out = run(cfg, "process", t(g["ab2_in"]), None, 128, 64)
         c_parity(23, f"ab2 ({method})", out, g[key], card, " (process)")
-    ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+    ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
     check(not any(ran.values()), f"single-stream ambi_bin launched {ran}")
 
 
@@ -1753,7 +1751,7 @@ def phase_single_stream_c_parity(rotator, beamformer, binauraliser,
     g = np.load(ROOT / "tests" / "goldens" / "c_goldens.npz")
     t = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, np.float32)).to(dev)
-    before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    before = dict(ak.LAUNCHES)
     rot = t(np.deg2rad([40.0, -15.0, 10.0]))
 
     cfg = rotator.RotatorConfig(order=3, norm="n3d", frame_size=64)
@@ -1829,7 +1827,7 @@ def phase_single_stream_c_parity(rotator, beamformer, binauraliser,
                      panner.init_state(cfg, device=dev), t(g[f"{key}_in"]),
                      128, 32)
         c_parity(24, key, out, g[f"{key}_out"], card, " (panner.process)")
-    ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+    ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
     check(not any(ran.values()), f"a single-stream path launched {ran}")
 
 
@@ -1956,16 +1954,15 @@ def phase_path(name, phase, process, init_state, xs, expect, compare, ak,
             outs.append(out)
         return outs, st
 
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     outs_k, st_k = run(True)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     n_chunks = len(xs) * chunks_per_call
     print(f"phase {phase}: {name} main path ran {n_chunks} chunks of "
           f"{streams} x {samples} samples in {len(xs)} calls; launches = "
           f"{launches}")
-    check(launches == {k: expect.get(k, 0) for k in ak.KERNELS},
+    check(launches == {k: expect.get(k, 0) for k in ak.LAUNCHES},
           f"{name}: expected launches {expect}")
     outs_p, st_p = run(False)
     torch.cuda.synchronize()
@@ -2172,7 +2169,7 @@ def phase_dirass(dirass, ak, dev, rng, card):
         for x in xs[:3]:
             p, ref_st = dirass.analysis(cfg, cw, ref_st, x.cpu())
             ref.append(p)
-        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        before = dict(ak.LAUNCHES)
         st = dirass.init_state(cfg, w, device=dev)
         got = []
         p, st = dirass.analysis(cfg, w, st, xs[0])
@@ -2184,7 +2181,7 @@ def phase_dirass(dirass, ak, dev, rng, card):
                 if i == 2:
                     st3 = st
         torch.cuda.synchronize()
-        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+        ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
         check(not any(ran.values()), f"dirass {mode} launched {ran}")
         check(all(bool(torch.isfinite(p).all()) for p in got),
               f"dirass {mode}: non-finite map")
@@ -2301,10 +2298,10 @@ def phase_analyser_c_parity(ak, dev, card):
                      decorrelator.init_state(cfg, w, device=dev), x, 128, 64)
         held(key, float(np.abs(out - g[f"{key}_out"]).max()), C_TOL,
              " (single-stream process)")
-        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        before = dict(ak.LAUNCHES)
         y, _ = decorrelator.process_ri_batched(
             cfg, w, decorrelator.init_state_batched(cfg, w, 1, dev), x[None])
-        ran = {k: getattr(ak, k).launches - before[k] for k in ak.KERNELS}
+        ran = {k: ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES}
         check(ran["analysis_front_ri"] == ran["synthesis_back_ri"] == 1,
               f"{key}: the batched path bypassed its kernels: {ran}")
         held(key, float((y[0].cpu() - torch.from_numpy(
@@ -2415,10 +2412,10 @@ def phase_analyser_c_parity(ak, dev, card):
             interp_u=torch.from_numpy(np.asarray(
                 geo.unit_sph2cart(c_grid, degrees=True), np.float32)).to(dev))
         xs = torch.from_numpy(np.asarray(g[f"{tag}_in"], np.float32)).to(dev)
-        before = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        before = dict(ak.LAUNCHES)
         pmap = blocks(lambda s, xb: dirass.analysis(cfg, w, s, xb),
                       dirass.init_state(cfg, w, device=dev), xs)[-1]
-        check(not any(getattr(ak, k).launches - before[k] for k in ak.KERNELS),
+        check(not any(ak.LAUNCHES[k] - before[k] for k in ak.LAUNCHES),
               "dirass launched a kernel")
         pmap, ref = pmap.cpu().numpy(), np.asarray(g[f"{tag}_pmap"])
         if tag == "dir":
@@ -2451,14 +2448,13 @@ def plain_path(name, phase, make, xs, ak, dev, card, audio_s, tol,
     torch.profiler.  ``audio_s``: audio seconds a call.  Returns the
     numbers."""
     init, process = make(dev)
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     st, ys = init(), []
     for x in xs:
         y, st = process(st, x)
         ys.append(y)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     print(f"phase {phase}: {name} ran {len(xs)} calls; launches = "
           f"{launches}")
     check(not any(launches.values()), f"{name} launched {launches}")
@@ -2938,8 +2934,7 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
     for mode in ("process_block", "render thread"):
         runner = StreamRunner(torch_frame_fn(make(), n_in, F, dev), n_in,
                               n_out, F, fs=FS, ring_frames=8)
-        for k in ak.KERNELS:
-            getattr(ak, k).launches = 0
+        ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if mode == "process_block":
@@ -2966,13 +2961,13 @@ def phase_runtime(bcfg, bw, ak, dev, rng, card) -> dict:
             y = np.concatenate(got, axis=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+        launches = dict(ak.LAUNCHES)
         frames_run = runner.clock.frames
         print(f"phase 36: StreamRunner ({mode}) over the flagship main path: "
               f"{T} samples of {n_in} channels in blocks of {RT_BLOCK}, "
               f"{frames_run} frames of {F}; launches = {launches}")
         expect = {k: frames_run if k == "render_full_ri" else 0
-                  for k in ak.KERNELS}
+                  for k in ak.LAUNCHES}
         check(frames_run == n_frames and launches == expect,
               f"runtime ({mode}): {frames_run} frames, expected launches "
               f"{expect}")
@@ -3079,8 +3074,7 @@ def phase_render_signal(bcfg, bw, ak, dev, rng, card) -> int:
 
     render_signal(proc, init(), x[..., :2 * T], T)      # warm: caches
     st0 = init()
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3088,13 +3082,13 @@ def phase_render_signal(bcfg, bw, ak, dev, rng, card) -> int:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     print(f"phase 37: render_signal over the flagship main path, {N_CHUNKS} "
           f"blocks of {(N_STREAMS, bcfg.nsh, T)} under "
           f"set_sync_debug_mode('error'): no host wait; launches = "
           f"{launches}")
     check(launches == {k: N_CHUNKS if k == "render_full_ri" else 0
-                       for k in ak.KERNELS}, "render_signal: launches")
+                       for k in ak.LAUNCHES}, "render_signal: launches")
     st, outs = init(), []
     for i in range(N_CHUNKS):
         o, st = proc(st, x[..., i * T:(i + 1) * T])
@@ -3138,19 +3132,18 @@ def phase_mesh(bcfg, bw, ak, dev, rng, card) -> int:
     def proc(w, st, b):
         return ambi_bin.process_ri_batched(bcfg, w, st, b)
 
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0
+    ak.LAUNCHES.update(dict.fromkeys(ak.LAUNCHES, 0))
     st, ys = ambi_bin.init_state_batched(bcfg, N_STREAMS, dev), []
     for x in xs:
         y, st = mesh.run_sharded(proc, bw, st, x, grid)
         ys.append(y)
     torch.cuda.synchronize()
-    launches = {k: getattr(ak, k).launches for k in ak.KERNELS}
+    launches = dict(ak.LAUNCHES)
     n_dev = grid.devices.size
     print(f"phase 38: run_sharded over the flagship main path, 2 chunks; "
           f"launches = {launches}")
     check(launches == {k: 2 * n_dev if k == "render_full_ri" else 0
-                       for k in ak.KERNELS}, "run_sharded: launches")
+                       for k in ak.LAUNCHES}, "run_sharded: launches")
     rst = ambi_bin.init_state_batched(bcfg, N_STREAMS, dev)
     for x, y in zip(xs, ys):
         r, rst = proc(bw, rst, x)
@@ -3562,7 +3555,7 @@ def main() -> int:
         return 0
     taps_entry = phase_hrtf_taps(
         binauraliser, binauraliser.design_ri(binauraliser.BinauraliserConfig(),
-                                             device=dev), ak, dev, rng, card)
+                                             device=dev), dev, rng, card)
     if args.hrtf_taps:
         print(json.dumps({"kernels": [taps_entry]}))
         return 0

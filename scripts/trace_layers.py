@@ -17,7 +17,8 @@ every operation (to check that the root spans hold them all); per layer
 the host ms a block less the nested spans (``<layer>.host_ns``),
 ``ops.state_bytes`` and ``ops.spectra_bytes`` (the wide route's spectra
 between its two kernels) a block, and each kernel's launches a block
-(``kernels.<entry>.launches``).  Needs a CUDA card.
+(``kernels.<entry>.launches``, from the kernel layer's
+``afstft_kernels.LAUNCHES``).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ def trace_cell(name: str, config: dict, mix: dict, blocks: int, seed: int,
     import torch
 
     from portbench import run, trace
+    from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
     from spatial_audio_framework_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,6 +49,7 @@ def trace_cell(name: str, config: dict, mix: dict, blocks: int, seed: int,
         loop.block()
     loop.drain()
     profiling.reset_counters()
+    launched = dict(ak.LAUNCHES)
     prof = trace.profiler(device)
     prof.start()
     for _ in range(blocks):
@@ -79,8 +82,9 @@ def trace_cell(name: str, config: dict, mix: dict, blocks: int, seed: int,
                          for k in LAYERS},
         "state_bytes": counts.get("ops.state_bytes", 0) / blocks,
         "spectra_bytes": counts.get("ops.spectra_bytes", 0) / blocks,
-        "launches": {k: v / blocks for k, v in sorted(counts.items())
-                     if k.endswith(".launches") and v},
+        "launches": {f"kernels.{k}.launches": (v - launched[k]) / blocks
+                     for k, v in sorted(ak.LAUNCHES.items())
+                     if v > launched[k]},
     }
 
 

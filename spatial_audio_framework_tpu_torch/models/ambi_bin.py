@@ -5,9 +5,9 @@
 afSTFT filterbank HRTFs → Voronoi weights → diffuse-field EQ → binaural
 decoder → truncation EQ) and folds the input-convention conversion into the
 per-band decode matrix.  ``process_ri_batched`` renders a chunk for many
-streams at once: with ``fused=True`` through the decode kernels
-(``ops/afstft_ri.render_tf_matrix_fused``: the one-pass ``render_full_ri``
-up to order 3, the two-kernel ``analysis_front_dg_ri`` →
+streams at once through ``ops/afstft_ri.render_tf_matrix_ri``: with
+``fused=True`` on the decode kernels (the one-pass ``render_full_ri`` up to
+order 3, the two-kernel ``analysis_front_dg_ri`` →
 ``render_decode_synthesis_dg_ri`` pipeline for orders 4 to 7), with
 ``fused=False`` through the plain analysis → einsum → synthesis path.
 
@@ -290,30 +290,16 @@ def init_state_batched(cfg: AmbiBinConfig, n_streams: int,
 @spanned("models.ambi_bin.process_ri_batched")
 def process_ri_batched(cfg: AmbiBinConfig, w_ri, state: ri.AfSTFTStateBatched,
                        x: torch.Tensor, fused: bool = True):
-    """Stream-batched render: x (S, nSH, T) → ((S, 2, T), state).
-
-    ``fused=True`` runs the kernel path (the CUDA kernels on CUDA tensors):
-    the one-pass kernel for nSH ≤ 16 (order ≤ 3), the two-kernel (d, g)
-    pipeline above; ``fused=False`` the plain reference path, whose complex
-    per-band multiply is one einsum over a (B, 2, nSH, 2, 2) tensor.
+    """Stream-batched render: x (S, nSH, T) → ((S, 2, T), state), by
+    :func:`ops.afstft_ri.render_tf_matrix_ri`, which picks the route:
+    ``fused=True`` the kernel path (the CUDA kernels on CUDA tensors), the
+    one-pass kernel for nSH ≤ 16 (order ≤ 3), the two-kernel (d, g)
+    pipeline above; ``fused=False`` the plain reference path.
     """
-    bank = cfg.afstft
     Mre, Mim = w_ri
     cv = _fuma_conv(cfg.order, cfg.ch_ordering, cfg.norm, Mre.device)
     if cv is not None:  # FuMa: conversion not folded at design time
         with fp32_matmul():
             Mre = torch.einsum("bes,st->bet", Mre, cv)
             Mim = torch.einsum("bes,st->bet", Mim, cv)
-    if fused:
-        return ri.render_tf_matrix_fused(bank, state, x, Mre, Mim)
-    spec_p, state = ri.analysis_ri_batched(bank, state, x, packed=True)
-    # [out_re; out_im][b] = [[Mre, -Mim], [Mim, Mre]][b] @ [sre; sim][b]
-    S, nsh, H, nb2 = spec_p.shape
-    B = nb2 // 2
-    M4 = torch.stack([torch.stack([Mre, -Mim], dim=-1),
-                      torch.stack([Mim, Mre], dim=-1)], dim=-2)  # (B,2,nSH,2,2)
-    spec5 = spec_p.reshape(S, nsh, H, 2, B)
-    with fp32_matmul():
-        out = torch.einsum("besij,zshjb->zehib", M4, spec5)
-    out_p = out.reshape(S, C.NUM_EARS, H, 2 * B)
-    return ri.synthesis_ri_batched(bank, state, out_p, packed=True)
+    return ri.render_tf_matrix_ri(cfg.afstft, state, x, Mre, Mim, fused=fused)

@@ -42,7 +42,8 @@ from spatial_audio_framework_tpu_torch.models import _common as C
 from spatial_audio_framework_tpu_torch.modules import hrir as hrir_mod, vbap
 from spatial_audio_framework_tpu_torch.ops import afstft, afstft_ri as ri
 from spatial_audio_framework_tpu_torch.ops.afstft import AfSTFT, AfSTFTState
-from spatial_audio_framework_tpu_torch.ops.afstft_kernels import hrtf_taps_ri
+from spatial_audio_framework_tpu_torch.ops.afstft_kernels import (
+    _KERNEL_HOP, _check_hop, _check_inputs, decode_taps, kernel)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils import geometry as geo
 from spatial_audio_framework_tpu_torch.utils.profiling import spanned
@@ -216,9 +217,8 @@ def _gather(table: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
     return table[:, :, i3].movedim((0, 1), (-4, -3))
 
 
-@spanned("ops.interp_hrtfs")
-def interp_hrtfs_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
-                    dirs_deg: torch.Tensor):
+def _interp_hrtfs_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
+                     dirs_deg: torch.Tensor):
     """Per-source HRTF interpolation (binauraliser_interpHRTFs) in split
     real/imaginary arithmetic on the weights' device: dirs_deg (..., nSrc,
     2) → (Hre, Him), each (..., nBands, 2, nSrc).
@@ -256,6 +256,9 @@ def interp_hrtfs_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
     return mag * torch.cos(phase), mag * torch.sin(phase)
 
 
+interp_hrtfs_ri = spanned("ops.interp_hrtfs")(_interp_hrtfs_ri)
+
+
 def interp_hrtfs(cfg: BinauraliserConfig, w: BinauraliserWeights,
                  dirs_deg: torch.Tensor) -> torch.Tensor:
     """:func:`interp_hrtfs_ri` as one complex tensor: dirs_deg (nSrc, 2) →
@@ -263,8 +266,8 @@ def interp_hrtfs(cfg: BinauraliserConfig, w: BinauraliserWeights,
     return torch.complex(*interp_hrtfs_ri(cfg, w.as_ri(), dirs_deg))
 
 
-@spanned("ops.rotate_dirs")
-def rotate_dirs(src_dirs_deg: torch.Tensor, ypr: torch.Tensor) -> torch.Tensor:
+def _rotate_dirs(src_dirs_deg: torch.Tensor, ypr: torch.Tensor
+                 ) -> torch.Tensor:
     """Source directions (..., nSrc, 2) degrees after the listener's head
     rotation ypr (..., 3) [yaw, pitch, roll] radians (one per stream on the
     batched path, one in all for a single listener), on the device.  C uses
@@ -275,6 +278,73 @@ def rotate_dirs(src_dirs_deg: torch.Tensor, ypr: torch.Tensor) -> torch.Tensor:
     with fp32_matmul():
         u = torch.einsum("...sj,...ji->...si", u, R)
     return geo.unit_cart2sph_torch(u)
+
+
+rotate_dirs = spanned("ops.rotate_dirs")(_rotate_dirs)
+
+
+def hrtf_taps_ri_reference(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
+                           dirs_deg: torch.Tensor,
+                           ypr: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hrtf_taps_ri` (same contract, any
+    hop, any device): the chain :func:`rotate_dirs` →
+    :func:`interp_hrtfs_ri` → ``decode_taps``, unchanged and in its op
+    order, without the chain's spans (it runs inside this entry's)."""
+    if cfg.enable_rotation and ypr is not None:
+        dirs_deg = _rotate_dirs(dirs_deg, ypr)
+    return decode_taps(*_interp_hrtfs_ri(cfg, w, dirs_deg), hybrid=True)
+
+
+@kernel(hrtf_taps_ri_reference)
+def hrtf_taps_ri(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
+                 dirs_deg: torch.Tensor,
+                 ypr: torch.Tensor | None = None) -> torch.Tensor:
+    """The per-stream decode taps of a block:
+    ``decode_taps(*interp_hrtfs_ri(cfg, w, rotate_dirs(dirs_deg, ypr)))``,
+    the rotation only when ``cfg.enable_rotation`` and ``ypr`` is given, in
+    one CUDA kernel (``csrc/hrtf_taps_ri.cu``).
+
+    cfg at hop 128; dirs_deg (S, nSrc, 2) degrees; ypr (S, 3) radians or
+    None.  → taps (S, nSrc, 2, 4, 129), the per-stream taps of
+    ``render_full_ri`` and ``render_decode_synthesis_dg_ri``.  The kernel
+    reads the weights' direction-major tables ``w.hrtf_ri_by_dir`` and
+    ``w.hrtf_mag_by_dir``."""
+    what = "hrtf_taps_ri"
+    _check_hop(what, cfg.hop)
+    if w.hrtf_ri_by_dir is None or w.hrtf_mag_by_dir is None:
+        raise ValueError(f"{what}: the weights carry no direction-major "
+                         "tables; make them with binauraliser."
+                         "weights_from_numpy or design_ri")
+    if dirs_deg.ndim != 3 or dirs_deg.shape[-1] != 2:
+        raise ValueError(f"{what}: dirs_deg must be (S, nSrc, 2), got "
+                         f"{tuple(dirs_deg.shape)}")
+    S, n_src = dirs_deg.shape[:2]
+    n_dirs, n_table = w.hrtf_mag_by_dir.shape[0], w.table_w.shape[0]
+    nb = _KERNEL_HOP + 5
+    rotate = cfg.enable_rotation and ypr is not None
+    _check_inputs(what, dirs_deg, {
+        "hrtf_ri_by_dir": (w.hrtf_ri_by_dir, (n_dirs, 2, nb, 2)),
+        "hrtf_mag_by_dir": (w.hrtf_mag_by_dir, (n_dirs, 2, nb)),
+        "table_w": (w.table_w, (n_table, 3)), "itds": (w.itds, (n_dirs,)),
+        "freqs": (w.freqs, (nb,))})
+    # the controls are read a float at a time: a block's slice of a longer
+    # control buffer need not start on a 16-byte boundary
+    controls = {"dirs_deg": (dirs_deg, (S, n_src, 2))}
+    if rotate:
+        controls["ypr"] = (ypr, (S, 3))
+    _check_inputs(what, dirs_deg, controls, align=4)
+    idx = w.table_idx
+    if (idx.device != dirs_deg.device or idx.dtype != torch.int64
+            or tuple(idx.shape) != (n_table, 3) or not idx.is_contiguous()):
+        raise ValueError(f"{what}: table_idx must be a contiguous int64 "
+                         f"({n_table}, 3) tensor on {dirs_deg.device}")
+    taps = torch.empty((S, n_src, 2, 4, _KERNEL_HOP + 1),
+                       dtype=torch.float32, device=dirs_deg.device)
+    n_azi = int(360.0 / cfg.azi_res + 0.5) + 1
+    return taps, (dirs_deg, ypr if rotate else None, w.hrtf_ri_by_dir,
+                  w.hrtf_mag_by_dir, w.table_w, idx, w.itds, w.freqs, taps,
+                  S, n_src, n_dirs, n_table, n_azi, float(cfg.azi_res),
+                  float(cfg.elev_res), cfg.interp_mode == INTERP_TRI_PS)
 
 
 def mix_complex(bank: AfSTFT, state: AfSTFTState, x: torch.Tensor,
@@ -321,8 +391,8 @@ def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
     :func:`ops.afstft_ri.render_tf_matrix_ri`: ``fused=True`` runs its
     kernel route, ``fused=False`` its plain path.  On the kernel route (hop
     128) the rotation, the interpolation and the collapse to decode taps are
-    one call, :func:`ops.afstft_kernels.hrtf_taps_ri`, whose taps go
-    straight to :func:`ops.afstft_ri.render_tf_matrix_fused`."""
+    one call, :func:`hrtf_taps_ri`, whose taps go straight to
+    :func:`ops.afstft_ri.render_tf_matrix_fused`."""
     if src_gains is not None:
         x = x * src_gains[..., None]
     rotate = cfg.enable_rotation and ypr is not None

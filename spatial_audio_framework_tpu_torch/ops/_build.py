@@ -112,29 +112,12 @@ def build() -> float:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's types."""
+    """Build if needed, load, and declare ``saf_cuda_error_string``'s
+    types.  A kernel entry point's types are set from its arguments at its
+    first launch (``ops/afstft_kernels.kernel``)."""
     build()
     lib = ctypes.CDLL(str(library_path()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.saf_render_full_ri.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-    lib.saf_render_full_ri.restype = i32
-    lib.saf_analysis_front_ri.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-    lib.saf_analysis_front_ri.restype = i32
-    lib.saf_synthesis_back_ri.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.saf_synthesis_back_ri.restype = i32
-    lib.saf_analysis_front_dg_ri.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
-    lib.saf_analysis_front_dg_ri.restype = i32
-    lib.saf_render_decode_synthesis_ri.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
-    lib.saf_render_decode_synthesis_ri.restype = i32
-    lib.saf_render_decode_synthesis_dg_ri.argtypes = ([ptr] * 11 + [i32] * 6
-                                                      + [ptr])
-    lib.saf_render_decode_synthesis_dg_ri.restype = i32
-    lib.saf_hrtf_taps_ri.argtypes = ([ptr] * 9 + [i32] * 5
-                                     + [ctypes.c_float] * 2 + [i32, ptr])
-    lib.saf_hrtf_taps_ri.restype = i32
-    lib.saf_wide_mix_ri.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-    lib.saf_wide_mix_ri.restype = i32
-    lib.saf_cuda_error_string.argtypes = [i32]
+    lib.saf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.saf_cuda_error_string.restype = ctypes.c_char_p
     return lib
 

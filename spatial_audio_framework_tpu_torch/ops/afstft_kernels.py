@@ -1,5 +1,6 @@
 """The afSTFT kernels and their plain versions (counterpart of
-``spatial_audio_framework_tpu/ops/pallas_afstft.py``).
+``spatial_audio_framework_tpu/ops/pallas_afstft.py``), and the seam that
+declares every CUDA kernel entry point of the port (:func:`kernel`).
 
 * :func:`analysis_front_ri` — framing ⊗ analysis window ⊗ fold ⊗ rDFT of a
   block for many rows (``csrc/analysis_front_ri.cu``);
@@ -15,13 +16,13 @@
 * :func:`synthesis_back_ri` — hybrid inverse, low-delay sign and irDFT of
   [re | im] spectra, synthesis window, overlap-add and tail merge
   (``csrc/synthesis_back_ri.cu``);
-* :func:`hrtf_taps_ri` — the binauraliser's per-stream decode taps from a
-  block's source directions and head poses: rotation, HRTF-table
-  interpolation and :func:`decode_taps` in one call
-  (``csrc/hrtf_taps_ri.cu``);
 * :func:`wide_mix_ri` — the wide render's glue: the hybrid stage and the
   per-band mixing matrix from :func:`analysis_front_ri`'s spectra into the
   packed rows :func:`synthesis_back_ri` reads (``csrc/wide_mix_ri.cu``).
+
+The binauraliser's per-block taps kernel, ``hrtf_taps_ri``
+(``csrc/hrtf_taps_ri.cu``), is declared on the same seam in
+``models/binauraliser``, beside the chain it replaces.
 
 For a per-band mixing (decode) matrix M over the 133 HYBRID bands, the chain
 hybrid-forward → per-band M → hybrid-inverse collapses into a 7-tap FIR along
@@ -42,19 +43,20 @@ the plain versions multiply by the dense DFT matrices of
 :func:`~spatial_audio_framework_tpu_torch.ops.afstft.device_consts`.
 
 Each entry point launches its hand-written CUDA kernel for CUDA tensors
-(counted in ``<entry>.launches``) and uses its plain PyTorch version
-``<entry>_reference`` for CPU tensors only.  The kernels take every option
-of their TPU counterparts (shared or per-stream taps, hybrid or not, normal
-or low delay) at hop 128; other hops, and one-pass renders wider than 128
-channel pairs, raise NotImplementedError on CUDA, naming their ROADMAP.md
-item or the route that serves them.  Nothing falls back to the plain
-version.  The plain versions share one decode:
+(counted in :data:`LAUNCHES`) and uses its plain PyTorch version
+``<entry>_reference`` for CPU tensors only (:func:`kernel`).  The kernels
+take every option of their TPU counterparts (shared or per-stream taps,
+hybrid or not, normal or low delay) at hop 128; other hops, and one-pass
+renders wider than 128 channel pairs, raise NotImplementedError on CUDA,
+naming their ROADMAP.md item or the route that serves them.  Nothing falls
+back to the plain version.  The plain versions share one decode:
 :func:`render_full_ri_reference` is the front's plain version followed by
 :func:`render_decode_synthesis_ri_reference`, which derives (d, g) and runs
 :func:`render_decode_synthesis_dg_ri_reference`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -78,12 +80,73 @@ _NT = _TOTAL_HOPS - 1   # overlap-add tail hops
 _TAIL_HOPS = _NT + 6    # the renderers' input tail: 9 framing + 6 hybrid hops
 _KERNEL_HOP = 128       # the kernel's fixed hop
 _KERNEL_MAX_CH_PRODUCT = 128
-# the entry points that launch a CUDA kernel, each counted in
-# ``<entry>.launches`` and spanned as ``kernels.<entry>``
-KERNELS = ("render_full_ri", "analysis_front_dg_ri",
-           "render_decode_synthesis_dg_ri", "analysis_front_ri",
-           "render_decode_synthesis_ri", "synthesis_back_ri", "hrtf_taps_ri",
-           "wide_mix_ri")
+
+# the launches of each kernel entry point, counted whether or not a profiler
+# records; :func:`kernel` adds an entry as it declares it
+LAUNCHES: dict[str, int] = {}
+
+
+def kernel(reference):
+    """Declare a CUDA kernel entry point: ``@kernel(reference)`` on a
+    function named as the entry, whose C entry point is ``saf_<name>``
+    (``csrc/``).  The function checks the entry's arguments, allocates its
+    outputs and returns ``(result, args)``, with ``args`` in the C entry
+    point's order, less the CUDA stream that ends every entry's list.
+
+    The entry is spanned as ``kernels.<name>``; its first tensor argument
+    gives the device.  CPU tensors take ``reference`` (same contract); CUDA
+    tensors take the function, then the launch on the device's current
+    stream, which raises on a CUDA error and counts in ``LAUNCHES[name]``;
+    any other device raises."""
+    def declare(prepare):
+        name = prepare.__name__
+        symbol = f"saf_{name}"
+        LAUNCHES[name] = 0
+
+        @spanned(f"kernels.{name}")
+        @functools.wraps(prepare)
+        def entry(*args, **kwargs):
+            device = next(a for a in (*args, *kwargs.values())
+                          if isinstance(a, torch.Tensor)).device
+            if device.type == "cpu":
+                return reference(*args, **kwargs)
+            if device.type != "cuda":
+                raise ValueError(f"{name}: unsupported device {device}")
+            result, c_args = prepare(*args, **kwargs)
+            lib = _build.load_library()
+            with torch.cuda.device(device):
+                code = _call(getattr(lib, symbol), c_args,
+                             torch.cuda.current_stream(device).cuda_stream)
+            _build.check(lib, code, name)
+            LAUNCHES[name] += 1
+            return result
+        return entry
+    return declare
+
+
+def _c_type(a) -> type:
+    """The C type an argument is passed as: a tensor (its data pointer) or
+    None (a null pointer) as a pointer, an int or a bool as an ``int``, a
+    float as a ``float``."""
+    if a is None or isinstance(a, torch.Tensor):
+        return ctypes.c_void_p
+    if isinstance(a, float):
+        return ctypes.c_float
+    if isinstance(a, int):
+        return ctypes.c_int
+    raise TypeError(f"no C type for a {type(a).__name__} argument")
+
+
+def _call(c_fn, args, stream: int) -> int:
+    """Call the C entry point ``c_fn`` with ``args``, each tensor as its
+    data pointer, and ``stream`` → its return code.  ``c_fn``'s argument
+    types are set from the kinds of ``args`` at its first call, so ctypes
+    converts every later call's arguments in C."""
+    if not c_fn.argtypes:
+        c_fn.argtypes = [*map(_c_type, args), ctypes.c_void_p]
+        c_fn.restype = ctypes.c_int
+    return c_fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args], stream)
 
 
 def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
@@ -117,89 +180,6 @@ def decode_taps(Mre: torch.Tensor, Mim: torch.Tensor,
     return torch.stack([r(A_re), r(A_im), r(B_re), r(B_im)], dim=-2)
 
 
-
-@spanned("kernels.hrtf_taps_ri")
-def hrtf_taps_ri(cfg, w, dirs_deg: torch.Tensor,
-                 ypr: torch.Tensor | None = None) -> torch.Tensor:
-    """The binauraliser's per-stream decode taps of a block:
-    ``decode_taps(*interp_hrtfs_ri(cfg, w, rotate_dirs(dirs_deg, ypr)))``
-    (``models/binauraliser``), the rotation only when
-    ``cfg.enable_rotation`` and ``ypr`` is given.
-
-    cfg: a ``BinauraliserConfig`` at hop 128; w: its
-    ``BinauraliserWeightsRI``; dirs_deg (S, nSrc, 2) degrees; ypr (S, 3)
-    radians or None.  → taps (S, nSrc, 2, 4, 129), the per-stream taps of
-    :func:`render_full_ri` and :func:`render_decode_synthesis_dg_ri`.
-
-    CPU tensors take :func:`hrtf_taps_ri_reference`.  CUDA tensors launch
-    the kernel (counted in ``hrtf_taps_ri.launches``), which reads the
-    weights' direction-major tables ``w.hrtf_ri_by_dir`` and
-    ``w.hrtf_mag_by_dir``, or raise."""
-    if dirs_deg.device.type == "cpu":
-        return hrtf_taps_ri_reference(cfg, w, dirs_deg, ypr)
-    if dirs_deg.device.type != "cuda":
-        raise ValueError(f"hrtf_taps_ri: unsupported device {dirs_deg.device}")
-    what = "hrtf_taps_ri"
-    _check_hop(what, cfg.hop)
-    if w.hrtf_ri_by_dir is None or w.hrtf_mag_by_dir is None:
-        raise ValueError(f"{what}: the weights carry no direction-major "
-                         "tables; make them with binauraliser."
-                         "weights_from_numpy or design_ri")
-    if dirs_deg.ndim != 3 or dirs_deg.shape[-1] != 2:
-        raise ValueError(f"{what}: dirs_deg must be (S, nSrc, 2), got "
-                         f"{tuple(dirs_deg.shape)}")
-    S, n_src = dirs_deg.shape[:2]
-    n_dirs, n_table = w.hrtf_mag_by_dir.shape[0], w.table_w.shape[0]
-    nb = _KERNEL_HOP + 5
-    rotate = cfg.enable_rotation and ypr is not None
-    _check_inputs(what, dirs_deg, {
-        "hrtf_ri_by_dir": (w.hrtf_ri_by_dir, (n_dirs, 2, nb, 2)),
-        "hrtf_mag_by_dir": (w.hrtf_mag_by_dir, (n_dirs, 2, nb)),
-        "table_w": (w.table_w, (n_table, 3)), "itds": (w.itds, (n_dirs,)),
-        "freqs": (w.freqs, (nb,))})
-    # the controls are read a float at a time: a block's slice of a longer
-    # control buffer need not start on a 16-byte boundary
-    controls = {"dirs_deg": (dirs_deg, (S, n_src, 2))}
-    if rotate:
-        controls["ypr"] = (ypr, (S, 3))
-    _check_inputs(what, dirs_deg, controls, align=4)
-    idx = w.table_idx
-    if (idx.device != dirs_deg.device or idx.dtype != torch.int64
-            or tuple(idx.shape) != (n_table, 3) or not idx.is_contiguous()):
-        raise ValueError(f"{what}: table_idx must be a contiguous int64 "
-                         f"({n_table}, 3) tensor on {dirs_deg.device}")
-    taps = torch.empty((S, n_src, 2, 4, _KERNEL_HOP + 1),
-                       dtype=torch.float32, device=dirs_deg.device)
-    n_azi = int(360.0 / cfg.azi_res + 0.5) + 1
-    _launch(what, "saf_hrtf_taps_ri", dirs_deg.device, dirs_deg.data_ptr(),
-            ypr.data_ptr() if rotate else None, w.hrtf_ri_by_dir.data_ptr(),
-            w.hrtf_mag_by_dir.data_ptr(), w.table_w.data_ptr(),
-            idx.data_ptr(), w.itds.data_ptr(), w.freqs.data_ptr(),
-            taps.data_ptr(), S, n_src, n_dirs, n_table,
-            n_azi, float(cfg.azi_res), float(cfg.elev_res),
-            int(cfg.interp_mode == "tri_ps"))
-    hrtf_taps_ri.launches += 1
-    return taps
-
-
-hrtf_taps_ri.launches = 0
-
-
-def hrtf_taps_ri_reference(cfg, w, dirs_deg: torch.Tensor,
-                           ypr: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hrtf_taps_ri` (same contract, any
-    hop, any device): the binauraliser's own chain, unchanged and in its op
-    order, without the chain's spans (it runs inside this entry's)."""
-    # ops sits below models in the import graph, so the chain is imported
-    # here, at the call
-    from spatial_audio_framework_tpu_torch.models import binauraliser as B
-
-    if cfg.enable_rotation and ypr is not None:
-        dirs_deg = B.rotate_dirs.__wrapped__(dirs_deg, ypr)
-    return decode_taps(*B.interp_hrtfs_ri.__wrapped__(cfg, w, dirs_deg),
-                       hybrid=True)
-
-
 def _check_kernel_supported(*, per_stream: bool, hop: int, low_delay: bool,
                             hybrid: bool, cin: int, cout: int) -> None:
     """Raise NotImplementedError for what the one-pass CUDA kernel does not
@@ -213,16 +193,17 @@ def _check_kernel_supported(*, per_stream: bool, hop: int, low_delay: bool,
         raise NotImplementedError(
             f"cout*cin = {cout * cin} > 128: the one-pass kernel holds at "
             "most 128 channel pairs; render_tf_matrix_ri serves such "
-            "renders with analysis_front_ri → einsum → synthesis_back_ri, "
-            "as the JAX package's dispatch does (ROADMAP.md, Queue 2, "
-            "'render_full_ri: the remaining options')")
+            "renders with analysis_front_ri → wide_mix_ri → "
+            "synthesis_back_ri, as the JAX package's dispatch takes its "
+            "wide route (ROADMAP.md, Queue 2 item 1, the wide route)")
 
 
 def _check_hop(what: str, hop: int) -> None:
     if hop != _KERNEL_HOP:
         raise NotImplementedError(
-            f"{what}: hop {hop} != 128 (ROADMAP.md, Queue 2, 'the kernels "
-            "at hop != 128')")
+            f"{what}: hop {hop} != 128: every kernel takes hop 128 only, "
+            "and the routes take the plain path at any other hop "
+            "(ROADMAP.md, Queue 5, 'the hop-128 decision')")
 
 
 def _check_inputs(what: str, x: torch.Tensor, expect: dict,
@@ -249,16 +230,6 @@ def _fft_twiddles(device: torch.device) -> torch.Tensor:
     :func:`~spatial_audio_framework_tpu_torch.ops.fft._fft256_twiddles`) on
     ``device``, made once per device."""
     return f32_tensor(_fft256_twiddles(), device)
-
-
-def _launch(what: str, fn: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``fn`` with ``args`` and the current CUDA
-    stream of ``device``; raise on a CUDA error."""
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, fn)(*args, stream)
-    _build.check(lib, code, what)
 
 
 def _fold_rdft(xx: torch.Tensor, k: dict, n: int):
@@ -321,42 +292,6 @@ def _check_rows(what: str, tail: torch.Tensor, x: torch.Tensor, hop: int,
     return B, t_hops, x_hops
 
 
-@spanned("kernels.analysis_front_ri")
-def analysis_front_ri(tail: torch.Tensor, x: torch.Tensor,
-                      low_delay: bool = False, hop: int = _KERNEL_HOP):
-    """Fused framing + window + fold + rDFT.
-
-    tail: (B, T_tail) carried input history, whole hops, at least 9;
-    x: (B, H·hop) the new block.  Returns (re, im), each
-    (B, H + T_tail/hop − 9, hop+1): one spectral hop per input hop beyond
-    the 9-hop window warm-up.
-
-    CPU tensors take :func:`analysis_front_ri_reference`.  CUDA tensors
-    launch the kernel (counted in ``analysis_front_ri.launches``) or raise;
-    the kernel takes hop 128 only.
-    """
-    if x.device.type == "cpu":
-        return analysis_front_ri_reference(tail, x, low_delay=low_delay,
-                                           hop=hop)
-    if x.device.type != "cuda":
-        raise ValueError(f"analysis_front_ri: unsupported device {x.device}")
-    B, t_hops, H = _check_rows("analysis_front_ri", tail, x, hop, _NT)
-    k = device_consts(hop, low_delay, x.device)
-    n_out = t_hops + H - _NT
-    re = torch.empty((B, n_out, hop + 1), dtype=torch.float32,
-                     device=x.device)
-    im = torch.empty_like(re)
-    _launch("analysis_front_ri", "saf_analysis_front_ri", x.device,
-            tail.data_ptr(), x.data_ptr(), k["w_ana"].data_ptr(),
-            _fft_twiddles(x.device).data_ptr(), re.data_ptr(),
-            im.data_ptr(), B, t_hops, H)
-    analysis_front_ri.launches += 1
-    return re, im
-
-
-analysis_front_ri.launches = 0
-
-
 def analysis_front_ri_reference(tail: torch.Tensor, x: torch.Tensor,
                                 low_delay: bool = False,
                                 hop: int = _KERNEL_HOP):
@@ -367,6 +302,25 @@ def analysis_front_ri_reference(tail: torch.Tensor, x: torch.Tensor,
     xx = torch.cat([tail, x], dim=1).reshape(B, n_hops, hop)
     return _fold_rdft(xx, device_consts(hop, low_delay, x.device),
                       n_hops - _NT)
+
+
+@kernel(analysis_front_ri_reference)
+def analysis_front_ri(tail: torch.Tensor, x: torch.Tensor,
+                      low_delay: bool = False, hop: int = _KERNEL_HOP):
+    """Fused framing + window + fold + rDFT.
+
+    tail: (B, T_tail) carried input history, whole hops, at least 9;
+    x: (B, H·hop) the new block.  Returns (re, im), each
+    (B, H + T_tail/hop − 9, hop+1): one spectral hop per input hop beyond
+    the 9-hop window warm-up.  The kernel takes hop 128 only.
+    """
+    B, t_hops, H = _check_rows("analysis_front_ri", tail, x, hop, _NT)
+    k = device_consts(hop, low_delay, x.device)
+    re = torch.empty((B, t_hops + H - _NT, hop + 1), dtype=torch.float32,
+                     device=x.device)
+    im = torch.empty_like(re)
+    return (re, im), (tail, x, k["w_ana"], _fft_twiddles(x.device), re, im,
+                      B, t_hops, H)
 
 
 def _d_g(sre: torch.Tensor, sim: torch.Tensor, hybrid: bool):
@@ -388,45 +342,6 @@ def _d_g(sre: torch.Tensor, sim: torch.Tensor, hybrid: bool):
     return sre[..., 3:3 + H, :], sim[..., 3:3 + H, :], g(sre), g(sim)
 
 
-@spanned("kernels.analysis_front_dg_ri")
-def analysis_front_dg_ri(tail: torch.Tensor, x: torch.Tensor,
-                         low_delay: bool = False, hop: int = _KERNEL_HOP):
-    """Fused framing + window + fold + rDFT emitting the renderer's (d, g)
-    pair (for hybrid banks).
-
-    tail: (B, T_tail) carried input history, whole hops, at least 9 (the
-    renderers carry 15); x: (B, X·hop) the new block.  With H = T_tail/hop
-    + X − 15 output hops, returns (d_re, d_im, g_re, g_im): the direct taps
-    d = s[h+3], each (B, H, hop+1), and the hybrid context g on bands 0..15,
-    each (B, H, 16), where s are :func:`analysis_front_ri`'s spectra.
-
-    CPU tensors take :func:`analysis_front_dg_ri_reference`.  CUDA tensors
-    launch the kernel (counted in ``analysis_front_dg_ri.launches``) or
-    raise; the kernel takes hop 128 only.
-    """
-    if x.device.type == "cpu":
-        return analysis_front_dg_ri_reference(tail, x, low_delay=low_delay,
-                                              hop=hop)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"analysis_front_dg_ri: unsupported device {x.device}")
-    B, t_hops, x_hops = _check_rows("analysis_front_dg_ri", tail, x, hop,
-                                    _TAIL_HOPS)
-    k = device_consts(hop, low_delay, x.device)
-    H = t_hops + x_hops - _TAIL_HOPS
-    out = [torch.empty((B, H, n), dtype=torch.float32, device=x.device)
-           for n in (hop + 1, hop + 1, _G_BANDS, _G_BANDS)]
-    _launch("analysis_front_dg_ri", "saf_analysis_front_dg_ri", x.device,
-            tail.data_ptr(), x.data_ptr(), k["w_ana"].data_ptr(),
-            _fft_twiddles(x.device).data_ptr(),
-            *(t.data_ptr() for t in out), B, t_hops, x_hops)
-    analysis_front_dg_ri.launches += 1
-    return tuple(out)
-
-
-analysis_front_dg_ri.launches = 0
-
-
 def analysis_front_dg_ri_reference(tail: torch.Tensor, x: torch.Tensor,
                                    low_delay: bool = False,
                                    hop: int = _KERNEL_HOP):
@@ -436,6 +351,29 @@ def analysis_front_dg_ri_reference(tail: torch.Tensor, x: torch.Tensor,
     sre, sim = analysis_front_ri_reference(tail, x, low_delay=low_delay,
                                            hop=hop)
     return _d_g(sre, sim, hybrid=True)
+
+
+@kernel(analysis_front_dg_ri_reference)
+def analysis_front_dg_ri(tail: torch.Tensor, x: torch.Tensor,
+                         low_delay: bool = False, hop: int = _KERNEL_HOP):
+    """Fused framing + window + fold + rDFT emitting the renderer's (d, g)
+    pair (for hybrid banks).
+
+    tail: (B, T_tail) carried input history, whole hops, at least 9 (the
+    renderers carry 15); x: (B, X·hop) the new block.  With H = T_tail/hop
+    + X − 15 output hops, returns (d_re, d_im, g_re, g_im): the direct taps
+    d = s[h+3], each (B, H, hop+1), and the hybrid context g on bands 0..15,
+    each (B, H, 16), where s are :func:`analysis_front_ri`'s spectra.  The
+    kernel takes hop 128 only.
+    """
+    B, t_hops, x_hops = _check_rows("analysis_front_dg_ri", tail, x, hop,
+                                    _TAIL_HOPS)
+    k = device_consts(hop, low_delay, x.device)
+    H = t_hops + x_hops - _TAIL_HOPS
+    out = tuple(torch.empty((B, H, n), dtype=torch.float32, device=x.device)
+                for n in (hop + 1, hop + 1, _G_BANDS, _G_BANDS))
+    return out, (tail, x, k["w_ana"], _fft_twiddles(x.device), *out, B,
+                 t_hops, x_hops)
 
 
 # ---------------------------------------------------------------------------
@@ -475,26 +413,27 @@ def _syn_consts(hop: int, low_delay: bool, hybrid: bool,
     return {"AB": f32_tensor(AB, device), "w_syn": f32_tensor(w_syn, device)}
 
 
-@spanned("kernels.synthesis_back_ri")
+def synthesis_back_ri_reference(spec: torch.Tensor, tail: torch.Tensor,
+                                low_delay: bool = False,
+                                hybrid: bool = True):
+    """Plain PyTorch version of :func:`synthesis_back_ri` (same contract,
+    any hop, any device), in the TPU kernel ``_syn_kernel``'s op order."""
+    c = _syn_consts(tail.shape[-1], low_delay, hybrid, spec.device)
+    with fp32_matmul():
+        fr = spec @ c["AB"]                          # (B, H, 2·hop)
+    return _overlap_add(fr, c["w_syn"], tail)
+
+
+@kernel(synthesis_back_ri_reference)
 def synthesis_back_ri(spec: torch.Tensor, tail: torch.Tensor,
                       low_delay: bool = False, hybrid: bool = True):
     """Fused hybrid inverse + irDFT + window + overlap-add.
 
     spec: (B, H, 2·n_bands) packed [re | im] spectra (n_bands = hop+5
     hybrid, hop+1 not); tail: (B, 9, hop) the previous block's overlap
-    carry.  Returns (y (B, H, hop), new_tail (B, 9, hop)).
-
-    CPU tensors take :func:`synthesis_back_ri_reference`.  CUDA tensors
-    launch the kernel (counted in ``synthesis_back_ri.launches``) or raise;
-    the kernel takes hop 128 only, with any bank (hybrid or not, normal or
-    low delay).
+    carry.  Returns (y (B, H, hop), new_tail (B, 9, hop)).  The kernel
+    takes hop 128 only, with any bank (hybrid or not, normal or low delay).
     """
-    if spec.device.type == "cpu":
-        return synthesis_back_ri_reference(spec, tail, low_delay=low_delay,
-                                           hybrid=hybrid)
-    if spec.device.type != "cuda":
-        raise ValueError(
-            f"synthesis_back_ri: unsupported device {spec.device}")
     hop = tail.shape[-1]
     _check_hop("synthesis_back_ri", hop)
     B, H = spec.shape[:2]
@@ -508,26 +447,8 @@ def synthesis_back_ri(spec: torch.Tensor, tail: torch.Tensor,
     y = torch.empty((B, H, hop), dtype=torch.float32, device=spec.device)
     new_tail = torch.empty((B, _NT, hop), dtype=torch.float32,
                            device=spec.device)
-    _launch("synthesis_back_ri", "saf_synthesis_back_ri", spec.device,
-            spec.data_ptr(), tail.data_ptr(), w_syn.data_ptr(),
-            _fft_twiddles(spec.device).data_ptr(), y.data_ptr(),
-            new_tail.data_ptr(), B, H, int(hybrid), int(low_delay))
-    synthesis_back_ri.launches += 1
-    return y, new_tail
-
-
-synthesis_back_ri.launches = 0
-
-
-def synthesis_back_ri_reference(spec: torch.Tensor, tail: torch.Tensor,
-                                low_delay: bool = False,
-                                hybrid: bool = True):
-    """Plain PyTorch version of :func:`synthesis_back_ri` (same contract,
-    any hop, any device), in the TPU kernel ``_syn_kernel``'s op order."""
-    c = _syn_consts(tail.shape[-1], low_delay, hybrid, spec.device)
-    with fp32_matmul():
-        fr = spec @ c["AB"]                          # (B, H, 2·hop)
-    return _overlap_add(fr, c["w_syn"], tail)
+    return (y, new_tail), (spec, tail, w_syn, _fft_twiddles(spec.device), y,
+                           new_tail, B, H, hybrid, low_delay)
 
 
 # ---------------------------------------------------------------------------
@@ -535,14 +456,14 @@ def synthesis_back_ri_reference(spec: torch.Tensor, tail: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _launch_decode_synthesis(what: str, fn: str, inputs: dict,
-                             tail: torch.Tensor, taps: torch.Tensor,
-                             low_delay: bool, per_stream: bool, S: int,
-                             cin: int, cout: int, H: int, *flags: bool):
-    """Check and launch a decode + synthesis kernel: ``inputs`` ({name:
-    (tensor, shape)}) are its spectral inputs in the C entry point's order,
-    ``flags`` its trailing int arguments.  → (y (S, cout, H·hop),
-    new_tail (S, cout, 9, hop))."""
+def _decode_synthesis_args(what: str, inputs: dict, tail: torch.Tensor,
+                           taps: torch.Tensor, low_delay: bool,
+                           per_stream: bool, S: int, cin: int, cout: int,
+                           H: int, *flags: bool):
+    """Check a decode + synthesis kernel's inputs and allocate its outputs:
+    ``inputs`` ({name: (tensor, shape)}) are its spectral inputs in the C
+    entry point's order, ``flags`` its trailing int arguments.  → ((y (S,
+    cout, H·hop), new_tail (S, cout, 9, hop)), the C entry's arguments)."""
     hop = tail.shape[-1]
     _check_hop(what, hop)
     if min(S, cin, cout, H) < 1:
@@ -558,109 +479,9 @@ def _launch_decode_synthesis(what: str, fn: str, inputs: dict,
     y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x0.device)
     new_tail = torch.empty((S, cout, _NT, hop), dtype=torch.float32,
                            device=x0.device)
-    _launch(what, fn, x0.device, *(t.data_ptr() for t, _ in inputs.values()),
-            taps.data_ptr(), _fft_twiddles(x0.device).data_ptr(),
-            w_syn.data_ptr(), tail.data_ptr(), frames.data_ptr(),
-            y.data_ptr(), new_tail.data_ptr(), S, cin, cout, H,
-            *(int(f) for f in flags), int(low_delay))
-    return y, new_tail
-
-
-@spanned("kernels.render_decode_synthesis_ri")
-def render_decode_synthesis_ri(sre: torch.Tensor, sim: torch.Tensor,
-                               tail: torch.Tensor, taps: torch.Tensor,
-                               low_delay: bool = False, hybrid: bool = True,
-                               per_stream: bool = False):
-    """Fused decode ⊗ irDFT ⊗ window ⊗ overlap-add from spectra.
-
-    sre/sim: (S, cin, H+6, hop+1) uniform-band spectra from
-    :func:`analysis_front_ri` (6 leading context hops); tail: (S, cout, 9,
-    hop) the overlap carry; taps from :func:`decode_taps`, shared (cin,
-    cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).  Hybrid banks
-    decode d = s[h+3] with the hybrid context g (B taps on bands 0..15),
-    non-hybrid banks d = s[h+6] with A alone.  Returns (y (S, cout, H·hop),
-    new_tail (S, cout, 9, hop)).
-
-    CPU tensors take :func:`render_decode_synthesis_ri_reference`.  CUDA
-    tensors launch the kernel (counted in
-    ``render_decode_synthesis_ri.launches``) or raise; the kernel takes
-    hop 128 only, with any bank and shared or per-stream taps.
-    """
-    if sre.device.type == "cpu":
-        return render_decode_synthesis_ri_reference(
-            sre, sim, tail, taps, low_delay=low_delay, hybrid=hybrid,
-            per_stream=per_stream)
-    if sre.device.type != "cuda":
-        raise ValueError(
-            f"render_decode_synthesis_ri: unsupported device {sre.device}")
-    S, cin, Hp6, _ = sre.shape
-    cout = taps.shape[-3]
-    y, new_tail = _launch_decode_synthesis(
-        "render_decode_synthesis_ri", "saf_render_decode_synthesis_ri",
-        {"sre": (sre, (S, cin, Hp6, tail.shape[-1] + 1)),
-         "sim": (sim, (S, cin, Hp6, tail.shape[-1] + 1))},
-        tail, taps, low_delay, per_stream, S, cin, cout, Hp6 - 6, hybrid,
-        per_stream)
-    render_decode_synthesis_ri.launches += 1
-    return y, new_tail
-
-
-render_decode_synthesis_ri.launches = 0
-
-
-def render_decode_synthesis_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
-                                         tail: torch.Tensor,
-                                         taps: torch.Tensor,
-                                         low_delay: bool = False,
-                                         hybrid: bool = True,
-                                         per_stream: bool = False):
-    """Plain PyTorch version of :func:`render_decode_synthesis_ri` (same
-    contract, any hop, any device): (d, g) from the spectra, then
-    :func:`render_decode_synthesis_dg_ri_reference`.  It sums the decode
-    over cin in one reduction where the TPU kernel ``_render_kernel``
-    accumulates channel by channel (~1 ulp·√cin apart)."""
-    return render_decode_synthesis_dg_ri_reference(
-        *_d_g(sre, sim, hybrid), tail, taps, low_delay=low_delay,
-        per_stream=per_stream)
-
-
-@spanned("kernels.render_decode_synthesis_dg_ri")
-def render_decode_synthesis_dg_ri(dre: torch.Tensor, dim_: torch.Tensor,
-                                  gre: torch.Tensor, gim: torch.Tensor,
-                                  tail: torch.Tensor, taps: torch.Tensor,
-                                  low_delay: bool = False,
-                                  per_stream: bool = False):
-    """Fused decode ⊗ irDFT ⊗ window ⊗ overlap-add from the (d, g) pair of
-    :func:`analysis_front_dg_ri`: d (S, cin, H, hop+1), g (S, cin, H, 16);
-    tail and taps as in :func:`render_decode_synthesis_ri`; hybrid banks.
-    Returns (y (S, cout, H·hop), new_tail (S, cout, 9, hop)).
-
-    CPU tensors take :func:`render_decode_synthesis_dg_ri_reference`.  CUDA
-    tensors launch the kernel (counted in
-    ``render_decode_synthesis_dg_ri.launches``) or raise; the kernel takes
-    hop 128 only, normal or low-delay banks, shared or per-stream taps.
-    """
-    if dre.device.type == "cpu":
-        return render_decode_synthesis_dg_ri_reference(
-            dre, dim_, gre, gim, tail, taps, low_delay=low_delay,
-            per_stream=per_stream)
-    if dre.device.type != "cuda":
-        raise ValueError(
-            f"render_decode_synthesis_dg_ri: unsupported device {dre.device}")
-    S, cin, H, _ = dre.shape
-    cout = taps.shape[-3]
-    d_shape = (S, cin, H, tail.shape[-1] + 1)
-    g_shape = (S, cin, H, _G_BANDS)
-    y, new_tail = _launch_decode_synthesis(
-        "render_decode_synthesis_dg_ri", "saf_render_decode_synthesis_dg_ri",
-        {"dre": (dre, d_shape), "dim": (dim_, d_shape),
-         "gre": (gre, g_shape), "gim": (gim, g_shape)},
-        tail, taps, low_delay, per_stream, S, cin, cout, H, per_stream)
-    render_decode_synthesis_dg_ri.launches += 1
-    return y, new_tail
-
-
-render_decode_synthesis_dg_ri.launches = 0
+    return (y, new_tail), (*(t for t, _ in inputs.values()), taps,
+                           _fft_twiddles(x0.device), w_syn, tail, frames, y,
+                           new_tail, S, cin, cout, H, *flags, low_delay)
 
 
 def render_decode_synthesis_dg_ri_reference(dre: torch.Tensor,
@@ -704,69 +525,74 @@ def render_decode_synthesis_dg_ri_reference(dre: torch.Tensor,
     return y.reshape(S, cout, H * hop), new_tail
 
 
+def render_decode_synthesis_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
+                                         tail: torch.Tensor,
+                                         taps: torch.Tensor,
+                                         low_delay: bool = False,
+                                         hybrid: bool = True,
+                                         per_stream: bool = False):
+    """Plain PyTorch version of :func:`render_decode_synthesis_ri` (same
+    contract, any hop, any device): (d, g) from the spectra, then
+    :func:`render_decode_synthesis_dg_ri_reference`.  It sums the decode
+    over cin in one reduction where the TPU kernel ``_render_kernel``
+    accumulates channel by channel (~1 ulp·√cin apart)."""
+    return render_decode_synthesis_dg_ri_reference(
+        *_d_g(sre, sim, hybrid), tail, taps, low_delay=low_delay,
+        per_stream=per_stream)
+
+
+@kernel(render_decode_synthesis_ri_reference)
+def render_decode_synthesis_ri(sre: torch.Tensor, sim: torch.Tensor,
+                               tail: torch.Tensor, taps: torch.Tensor,
+                               low_delay: bool = False, hybrid: bool = True,
+                               per_stream: bool = False):
+    """Fused decode ⊗ irDFT ⊗ window ⊗ overlap-add from spectra.
+
+    sre/sim: (S, cin, H+6, hop+1) uniform-band spectra from
+    :func:`analysis_front_ri` (6 leading context hops); tail: (S, cout, 9,
+    hop) the overlap carry; taps from :func:`decode_taps`, shared (cin,
+    cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).  Hybrid banks
+    decode d = s[h+3] with the hybrid context g (B taps on bands 0..15),
+    non-hybrid banks d = s[h+6] with A alone.  Returns (y (S, cout, H·hop),
+    new_tail (S, cout, 9, hop)).  The kernel takes hop 128 only, with any
+    bank and shared or per-stream taps.
+    """
+    S, cin, Hp6, _ = sre.shape
+    nb = tail.shape[-1] + 1
+    return _decode_synthesis_args(
+        "render_decode_synthesis_ri",
+        {"sre": (sre, (S, cin, Hp6, nb)), "sim": (sim, (S, cin, Hp6, nb))},
+        tail, taps, low_delay, per_stream, S, cin, taps.shape[-3], Hp6 - 6,
+        hybrid, per_stream)
+
+
+@kernel(render_decode_synthesis_dg_ri_reference)
+def render_decode_synthesis_dg_ri(dre: torch.Tensor, dim_: torch.Tensor,
+                                  gre: torch.Tensor, gim: torch.Tensor,
+                                  tail: torch.Tensor, taps: torch.Tensor,
+                                  low_delay: bool = False,
+                                  per_stream: bool = False):
+    """Fused decode ⊗ irDFT ⊗ window ⊗ overlap-add from the (d, g) pair of
+    :func:`analysis_front_dg_ri`: d (S, cin, H, hop+1), g (S, cin, H, 16);
+    tail and taps as in :func:`render_decode_synthesis_ri`; hybrid banks.
+    Returns (y (S, cout, H·hop), new_tail (S, cout, 9, hop)).  The kernel
+    takes hop 128 only, normal or low-delay banks, shared or per-stream
+    taps.
+    """
+    S, cin, H, _ = dre.shape
+    d_shape = (S, cin, H, tail.shape[-1] + 1)
+    g_shape = (S, cin, H, _G_BANDS)
+    return _decode_synthesis_args(
+        "render_decode_synthesis_dg_ri",
+        {"dre": (dre, d_shape), "dim": (dim_, d_shape),
+         "gre": (gre, g_shape), "gim": (gim, g_shape)},
+        tail, taps, low_delay, per_stream, S, cin, taps.shape[-3], H,
+        per_stream)
+
+
 # ---------------------------------------------------------------------------
 # one-pass TF-matrix renderer
 # ---------------------------------------------------------------------------
-
-
-@spanned("kernels.render_full_ri")
-def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
-                   ola_tail: torch.Tensor, taps: torch.Tensor,
-                   low_delay: bool = False, hybrid: bool = True,
-                   per_stream: bool = False):
-    """One-pass TF-matrix renderer.
-
-    in_tail: (S, cin, 15·hop) carried input history; x: (S, cin, H·hop);
-    ola_tail: (S, cout, 9, hop); taps from :func:`decode_taps`, shared
-    (cin, cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).  Hybrid
-    banks decode d = s[h+3] with the hybrid context, non-hybrid banks
-    d = s[h+6] with A alone.
-    Returns (y (S, cout, H·hop), new_ola_tail (S, cout, 9, hop)).
-
-    CPU tensors take :func:`render_full_ri_reference`.  CUDA tensors launch
-    the kernel (counted in ``render_full_ri.launches``) or raise; the
-    kernel takes hop 128 and cout·cin ≤ 128, with any bank and shared or
-    per-stream taps.
-    """
-    if x.device.type == "cpu":
-        return render_full_ri_reference(in_tail, x, ola_tail, taps,
-                                        low_delay=low_delay, hybrid=hybrid,
-                                        per_stream=per_stream)
-    if x.device.type != "cuda":
-        raise ValueError(f"render_full_ri: unsupported device {x.device}")
-    hop = ola_tail.shape[-1]
-    S, cin = x.shape[:2]
-    cout = taps.shape[-3]
-    _check_kernel_supported(per_stream=per_stream, hop=hop,
-                            low_delay=low_delay, hybrid=hybrid, cin=cin,
-                            cout=cout)
-    H = x.shape[2] // hop
-    _check_inputs("render_full_ri", x, {
-        "in_tail": (in_tail, (S, cin, 15 * hop)),
-        "x": (x, (S, cin, H * hop)),
-        "ola_tail": (ola_tail, (S, cout, _NT, hop)),
-        "taps": (taps, ((S,) if per_stream else ()) + (cin, cout, 4,
-                                                       hop + 1))})
-    if S < 1 or H < 1:
-        raise ValueError(f"render_full_ri: needs S >= 1 and H >= 1 hops "
-                         f"(got S={S}, x length {x.shape[2]})")
-    k = device_consts(hop, low_delay, x.device)
-    frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
-                         device=x.device)
-    y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x.device)
-    new_tail = torch.empty((S, cout, _NT, hop), dtype=torch.float32,
-                           device=x.device)
-    _launch("render_full_ri", "saf_render_full_ri", x.device,
-            in_tail.data_ptr(), x.data_ptr(), ola_tail.data_ptr(),
-            taps.data_ptr(), k["w_ana"].data_ptr(), k["w_syn"].data_ptr(),
-            _fft_twiddles(x.device).data_ptr(), frames.data_ptr(),
-            y.data_ptr(), new_tail.data_ptr(), S, cin, cout, H, int(hybrid),
-            int(per_stream), int(low_delay))
-    render_full_ri.launches += 1
-    return y, new_tail
-
-
-render_full_ri.launches = 0
 
 
 def render_full_ri_reference(in_tail: torch.Tensor, x: torch.Tensor,
@@ -789,12 +615,131 @@ def render_full_ri_reference(in_tail: torch.Tensor, x: torch.Tensor,
         low_delay=low_delay, hybrid=hybrid, per_stream=per_stream)
 
 
+@kernel(render_full_ri_reference)
+def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
+                   ola_tail: torch.Tensor, taps: torch.Tensor,
+                   low_delay: bool = False, hybrid: bool = True,
+                   per_stream: bool = False):
+    """One-pass TF-matrix renderer.
+
+    in_tail: (S, cin, 15·hop) carried input history; x: (S, cin, H·hop);
+    ola_tail: (S, cout, 9, hop); taps from :func:`decode_taps`, shared
+    (cin, cout, 4, hop+1) or per-stream (S, cin, cout, 4, hop+1).  Hybrid
+    banks decode d = s[h+3] with the hybrid context, non-hybrid banks
+    d = s[h+6] with A alone.
+    Returns (y (S, cout, H·hop), new_ola_tail (S, cout, 9, hop)).  The
+    kernel takes hop 128 and cout·cin ≤ 128, with any bank and shared or
+    per-stream taps.
+    """
+    hop = ola_tail.shape[-1]
+    S, cin = x.shape[:2]
+    cout = taps.shape[-3]
+    _check_kernel_supported(per_stream=per_stream, hop=hop,
+                            low_delay=low_delay, hybrid=hybrid, cin=cin,
+                            cout=cout)
+    H = x.shape[2] // hop
+    _check_inputs("render_full_ri", x, {
+        "in_tail": (in_tail, (S, cin, 15 * hop)),
+        "x": (x, (S, cin, H * hop)),
+        "ola_tail": (ola_tail, (S, cout, _NT, hop)),
+        "taps": (taps, ((S,) if per_stream else ()) + (cin, cout, 4,
+                                                       hop + 1))})
+    if S < 1 or H < 1:
+        raise ValueError(f"render_full_ri: needs S >= 1 and H >= 1 hops "
+                         f"(got S={S}, x length {x.shape[2]})")
+    k = device_consts(hop, low_delay, x.device)
+    frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
+                         device=x.device)
+    y = torch.empty((S, cout, H * hop), dtype=torch.float32, device=x.device)
+    new_tail = torch.empty((S, cout, _NT, hop), dtype=torch.float32,
+                           device=x.device)
+    return (y, new_tail), (in_tail, x, ola_tail, taps, k["w_ana"],
+                           k["w_syn"], _fft_twiddles(x.device), frames, y,
+                           new_tail, S, cin, cout, H, hybrid, per_stream,
+                           low_delay)
+
+
 # ---------------------------------------------------------------------------
 # the wide render's glue: hybrid stage ⊗ per-band mix, spectra to packed rows
 # ---------------------------------------------------------------------------
 
 
-@spanned("kernels.wide_mix_ri")
+def _hybrid_segments_ri(fre, fim, H: int):
+    """Shared core of the real-pair hybrid filterbank: f*: (..., 6+H, hop+1)
+    → ([re segments], [im segments]), each a 3-list [band0, split-pairs,
+    bands 5:] to be concatenated on the last axis."""
+    b = slice(1, 5)
+    d3_re = fre[..., 3:3 + H, :]
+    d3_im = fim[..., 3:3 + H, :]
+
+    def inner(f):
+        return (_COEFF1 * (f[..., 6:6 + H, b] - f[..., 0:H, b])
+                + _COEFF2 * (f[..., 4:4 + H, b] - f[..., 2:2 + H, b]))
+
+    # hb = 1j * inner  →  hb_re = -inner_im, hb_im = inner_re
+    hb_re = -inner(fim)
+    hb_im = inner(fre)
+    s = torch.ones(4, dtype=fre.dtype, device=fre.device)  # [-1, 1, -1, 1]
+    s[0::2] = -1.0
+
+    def halves(d3, hb):
+        c = 0.5 * d3[..., b]
+        lo = c + s * hb
+        hi = c - s * hb
+        pairs = torch.stack([lo, hi], dim=-1).reshape(*lo.shape[:-1], 8)
+        return [d3[..., :1], pairs, d3[..., 5:]]
+
+    return halves(d3_re, hb_re), halves(d3_im, hb_im)
+
+
+def _hybrid_forward_ri_packed(fre, fim, H: int):
+    """The real-pair hybrid forward stage f*: (..., 6+H, hop+1) → one
+    packed (..., H, 2·(hop+5)) tensor ([re | im] on the last axis)."""
+    seg_re, seg_im = _hybrid_segments_ri(fre, fim, H)
+    return torch.cat(seg_re + seg_im, dim=-1)
+
+
+def _mix_bands(Mre: torch.Tensor, Mim: torch.Tensor | None,
+               spec_p: torch.Tensor) -> torch.Tensor:
+    """The per-band mix of packed spectra (S, cin, H, 2·B) by a real
+    (Mim None) or complex matrix, shared (B, cout, cin) or per stream
+    (S, B, cout, cin) → (S, cout, H, 2, B) in the layout the einsum leaves
+    (band-major, not contiguous)."""
+    S, cin, H, nb2 = spec_p.shape
+    spec5 = spec_p.reshape(S, cin, H, 2, nb2 // 2)
+    per_stream = Mre.ndim == 4
+    with fp32_matmul():
+        if Mim is None:
+            eq = "zbes,zshjb->zehjb" if per_stream else "bes,zshjb->zehjb"
+            return torch.einsum(eq, Mre, spec5)
+        # [out_re; out_im][b] = [[Mre, -Mim], [Mim, Mre]][b] @ [sre; sim][b]
+        M4 = torch.stack([torch.stack([Mre, -Mim], dim=-1),
+                          torch.stack([Mim, Mre], dim=-1)], dim=-2)
+        eq = "zbesij,zshjb->zehib" if per_stream else "besij,zshjb->zehib"
+        return torch.einsum(eq, M4, spec5)
+
+
+def wide_mix_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
+                          Mre: torch.Tensor, Mim: torch.Tensor | None = None,
+                          hybrid: bool = True):
+    """Plain PyTorch version of :func:`wide_mix_ri` (same contract, any
+    hop, any device): the wide route's plain glue in its op order: the
+    packed hybrid spectra (:func:`_hybrid_forward_ri_packed`; a non-hybrid
+    bank's spectra from hop 6), the per-band einsum (:func:`_mix_bands`),
+    its dense copy, flattened to rows."""
+    cin = Mre.shape[-1]
+    S, He = sre.shape[0] // cin, sre.shape[1]
+    sre = sre.reshape(S, cin, He, -1)
+    sim = sim.reshape(S, cin, He, -1)
+    if hybrid:
+        spec_p = _hybrid_forward_ri_packed(sre, sim, He - 6)
+    else:
+        spec_p = torch.cat([sre[:, :, 6:], sim[:, :, 6:]], dim=-1)
+    out = _mix_bands(Mre, Mim, spec_p).contiguous()
+    return out.reshape(S * out.shape[1], He - 6, -1)
+
+
+@kernel(wide_mix_ri_reference)
 def wide_mix_ri(sre: torch.Tensor, sim: torch.Tensor, Mre: torch.Tensor,
                 Mim: torch.Tensor | None = None, hybrid: bool = True):
     """The wide render's glue between :func:`analysis_front_ri` and
@@ -807,16 +752,10 @@ def wide_mix_ri(sre: torch.Tensor, sim: torch.Tensor, Mre: torch.Tensor,
     packed [re | im] rows (S·cout, H, 2·n_bands) that
     :func:`synthesis_back_ri` takes.
 
-    CPU tensors take :func:`wide_mix_ri_reference`.  CUDA tensors launch
-    the kernel (counted in ``wide_mix_ri.launches``) or raise; the kernel
-    takes hop 128 only, real or complex, shared or per-stream matrices and
-    either bank, reads every tensor contiguous and the spectra 16-byte
-    aligned, and refuses (a CUDA error) a complex matrix of more inputs
-    than its shared memory holds (~140)."""
-    if sre.device.type == "cpu":
-        return wide_mix_ri_reference(sre, sim, Mre, Mim, hybrid=hybrid)
-    if sre.device.type != "cuda":
-        raise ValueError(f"wide_mix_ri: unsupported device {sre.device}")
+    The kernel takes hop 128 only, real or complex, shared or per-stream
+    matrices and either bank, reads every tensor contiguous and the spectra
+    16-byte aligned, and refuses (a CUDA error) a complex matrix of more
+    inputs than its shared memory holds (~140)."""
     what = "wide_mix_ri"
     if sre.ndim != 3 or Mre.ndim not in (3, 4):
         raise ValueError(f"{what}: needs spectra (S·cin, H+6, hop+1) and M "
@@ -843,37 +782,5 @@ def wide_mix_ri(sre: torch.Tensor, sim: torch.Tensor, Mre: torch.Tensor,
     H = He - 6
     out = torch.empty((S * cout, H, 2 * nb), dtype=torch.float32,
                       device=sre.device)
-    _launch(what, "saf_wide_mix_ri", sre.device, sre.data_ptr(),
-            sim.data_ptr(), Mre.data_ptr(),
-            None if Mim is None else Mim.data_ptr(), out.data_ptr(), S, cin,
-            cout, H, int(hybrid), int(per_stream))
-    wide_mix_ri.launches += 1
-    return out
-
-
-wide_mix_ri.launches = 0
-
-
-def wide_mix_ri_reference(sre: torch.Tensor, sim: torch.Tensor,
-                          Mre: torch.Tensor, Mim: torch.Tensor | None = None,
-                          hybrid: bool = True):
-    """Plain PyTorch version of :func:`wide_mix_ri` (same contract, any
-    hop, any device): the wide route's torch glue in its op order, without
-    its spans (it runs inside this entry's): the packed hybrid spectra
-    (``afstft_ri._hybrid_forward_ri_packed``; a non-hybrid bank's spectra
-    from hop 6), the per-band einsum (``afstft_ri._mix_bands``), its dense
-    copy, flattened to rows."""
-    # afstft_ri sits above this module in the import graph, so the glue is
-    # imported here, at the call
-    from spatial_audio_framework_tpu_torch.ops import afstft_ri as ri
-
-    cin = Mre.shape[-1]
-    S, He = sre.shape[0] // cin, sre.shape[1]
-    sre = sre.reshape(S, cin, He, -1)
-    sim = sim.reshape(S, cin, He, -1)
-    if hybrid:
-        spec_p = ri._hybrid_forward_ri_packed.__wrapped__(sre, sim, He - 6)
-    else:
-        spec_p = torch.cat([sre[:, :, 6:], sim[:, :, 6:]], dim=-1)
-    out = ri._mix_bands.__wrapped__(Mre, Mim, spec_p).contiguous()
-    return out.reshape(S * out.shape[1], He - 6, -1)
+    return out, (sre, sim, Mre, Mim, out, S, cin, cout, H, hybrid,
+                 per_stream)

@@ -43,14 +43,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from spatial_audio_framework_tpu_torch import default_device, f32_tensor
-from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
-                                                          _TOTAL_HOPS, AfSTFT,
+from spatial_audio_framework_tpu_torch.ops import afstft_kernels as _ak
+from spatial_audio_framework_tpu_torch.ops.afstft import (_TOTAL_HOPS, AfSTFT,
                                                           device_consts)
 from spatial_audio_framework_tpu_torch.ops.afstft_kernels import (
-    _KERNEL_HOP, _KERNEL_MAX_CH_PRODUCT, _TAIL_HOPS, analysis_front_dg_ri,
-    analysis_front_ri, decode_taps, render_decode_synthesis_dg_ri,
-    render_decode_synthesis_ri, render_full_ri, synthesis_back_ri,
-    wide_mix_ri)
+    _KERNEL_HOP, _KERNEL_MAX_CH_PRODUCT, _TAIL_HOPS, _hybrid_segments_ri,
+    analysis_front_dg_ri, analysis_front_ri, decode_taps,
+    render_decode_synthesis_dg_ri, render_decode_synthesis_ri, render_full_ri,
+    synthesis_back_ri, wide_mix_ri)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
 from spatial_audio_framework_tpu_torch.utils.profiling import count, spanned
 
@@ -78,7 +78,7 @@ class AfSTFTStateRI(NamedTuple):
 # the H100 the two routes are within 5 % of each other per call at order 3
 # and the two-kernel route is 10 % faster at order 7 (PERF.md); the
 # threshold stays the reference's until a chunk-level measurement moves it
-# (ROADMAP.md, Queue 2, "still open" item 5).
+# (ROADMAP.md, Queue 2 item 9).
 _ONE_PASS_MAX_CIN = 16
 
 
@@ -164,46 +164,17 @@ def _fold_hops_ri(hops: torch.Tensor, n_frames: int, hop: int,
     return torch.cat([even, odd], dim=-1)
 
 
-def _hybrid_segments_ri(fre, fim, H: int):
-    """Shared core of the real-pair hybrid filterbank: f*: (..., 6+H, hop+1)
-    → ([re segments], [im segments]), each a 3-list [band0, split-pairs,
-    bands 5:] to be concatenated on the last axis."""
-    b = slice(1, 5)
-    d3_re = fre[..., 3:3 + H, :]
-    d3_im = fim[..., 3:3 + H, :]
-
-    def inner(f):
-        return (_COEFF1 * (f[..., 6:6 + H, b] - f[..., 0:H, b])
-                + _COEFF2 * (f[..., 4:4 + H, b] - f[..., 2:2 + H, b]))
-
-    # hb = 1j * inner  →  hb_re = -inner_im, hb_im = inner_re
-    hb_re = -inner(fim)
-    hb_im = inner(fre)
-    s = torch.ones(4, dtype=fre.dtype, device=fre.device)  # [-1, 1, -1, 1]
-    s[0::2] = -1.0
-
-    def halves(d3, hb):
-        c = 0.5 * d3[..., b]
-        lo = c + s * hb
-        hi = c - s * hb
-        pairs = torch.stack([lo, hi], dim=-1).reshape(*lo.shape[:-1], 8)
-        return [d3[..., :1], pairs, d3[..., 5:]]
-
-    return halves(d3_re, hb_re), halves(d3_im, hb_im)
-
-
 def _hybrid_forward_ri(fre, fim, H: int):
     """Real-pair hybrid forward: f*: (..., 6+H, hop+1) → (..., H, hop+5)×2."""
     seg_re, seg_im = _hybrid_segments_ri(fre, fim, H)
     return torch.cat(seg_re, dim=-1), torch.cat(seg_im, dim=-1)
 
 
-@spanned("ops.hybrid_forward")
-def _hybrid_forward_ri_packed(fre, fim, H: int):
-    """:func:`_hybrid_forward_ri` as one packed (..., H, 2·nHyb) tensor
-    ([re | im] on the last axis)."""
-    seg_re, seg_im = _hybrid_segments_ri(fre, fim, H)
-    return torch.cat(seg_re + seg_im, dim=-1)
+# the plain glue of the wide route, kept below this module as
+# ``wide_mix_ri``'s plain version, spanned on the plain route's calls
+_hybrid_forward_ri_packed = spanned("ops.hybrid_forward")(
+    _ak._hybrid_forward_ri_packed)
+_mix_bands = spanned("ops.mix_bands")(_ak._mix_bands)
 
 
 def _hybrid_inverse_ri(Y):
@@ -377,26 +348,6 @@ def _render_wide(bank: AfSTFT, state: AfSTFTStateBatched, x: torch.Tensor,
         rows.reshape(S, -1, H, rows.shape[-1]), packed=True, use_kernel=True)
 
 
-@spanned("ops.mix_bands")
-def _mix_bands(Mre: torch.Tensor, Mim: Optional[torch.Tensor],
-               spec_p: torch.Tensor) -> torch.Tensor:
-    """The per-band mix of packed spectra (S, cin, H, 2·B) by a real
-    (Mim None) or complex matrix, shared (B, cout, cin) or per stream
-    (S, B, cout, cin) → (S, cout, H, 2, B) in the layout the einsum leaves
-    (band-major, not contiguous)."""
-    S, cin, H, nb2 = spec_p.shape
-    spec5 = spec_p.reshape(S, cin, H, 2, nb2 // 2)
-    per_stream = Mre.ndim == 4
-    with fp32_matmul():
-        if Mim is None:
-            eq = "zbes,zshjb->zehjb" if per_stream else "bes,zshjb->zehjb"
-            return torch.einsum(eq, Mre, spec5)
-        M4 = torch.stack([torch.stack([Mre, -Mim], dim=-1),
-                          torch.stack([Mim, Mre], dim=-1)], dim=-2)
-        eq = "zbesij,zshjb->zehib" if per_stream else "besij,zshjb->zehib"
-        return torch.einsum(eq, M4, spec5)
-
-
 def takes_fused_route(bank: AfSTFT, cout: int, cin: int) -> bool:
     """Whether ``render_tf_matrix_ri(fused=True)`` renders cin → cout
     channels on :func:`render_tf_matrix_fused`: at most 128 channel pairs,
@@ -417,7 +368,7 @@ def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
 
     ``taps``, in place of (Mre, Mim): the decode taps made already, shared
     (cin, cout, 4, 129) or per stream (S, cin, cout, 4, 129), e.g. by
-    :func:`~spatial_audio_framework_tpu_torch.ops.afstft_kernels.hrtf_taps_ri`
+    :func:`~spatial_audio_framework_tpu_torch.models.binauraliser.hrtf_taps_ri`
     (hop 128 only)."""
     if bank.hop != _KERNEL_HOP:
         if taps is not None:

@@ -167,27 +167,16 @@ def count(name: str, n: int) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """The counters (each span layer's ``<layer>.host_ns``,
-    ``ops.state_bytes``: the bytes the ops layer copies to carry state or
-    to lay inputs out for a kernel, ``ops.spectra_bytes``: the spectra the
-    wide route writes between its two kernels) and, beside them, each CUDA
-    kernel's launches, ``kernels.<entry>.launches`` (its
-    ``<entry>.launches`` attribute, counted whether or not a profiler
-    records)."""
-    from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
-
+    """The counters: each span layer's ``<layer>.host_ns``,
+    ``ops.state_bytes`` (the bytes the ops layer copies to carry state or
+    to lay inputs out for a kernel) and ``ops.spectra_bytes`` (the spectra
+    the wide route writes between its two kernels).  The kernels' launches
+    are counted where the kernels are declared, not here."""
     with _lock:
-        out = dict(_counts)
-    out.update({f"kernels.{k}.launches": getattr(ak, k).launches
-                for k in ak.KERNELS})
-    return out
+        return dict(_counts)
 
 
 def reset_counters() -> None:
-    """Zero every counter of :func:`counters`, the launches included."""
-    from spatial_audio_framework_tpu_torch.ops import afstft_kernels as ak
-
+    """Zero every counter of :func:`counters`."""
     with _lock:
         _counts.clear()
-    for k in ak.KERNELS:
-        getattr(ak, k).launches = 0

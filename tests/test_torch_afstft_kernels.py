@@ -1,7 +1,11 @@
 """analysis_front_ri and synthesis_back_ri: the port's plain versions vs the
 JAX Pallas kernels run in interpret mode (CPU), the batched filterbank's
-kernel route vs the JAX package's Pallas route, the wrappers' CPU contract
-and the TF-matrix dispatch."""
+kernel route vs the JAX package's Pallas route, the wrappers' CPU contract,
+the kernel seam and the TF-matrix dispatch."""
+import ast
+import ctypes
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,15 +141,77 @@ def test_cpu_wrappers_are_the_references_and_not_counted():
         torch.from_numpy(_u(rng, (3, 4 * 128)))
     spec = torch.from_numpy(_u(rng, (3, 4, 266)))
     ola = torch.from_numpy(_u(rng, (3, 9, 128)))
-    before = (tak.analysis_front_ri.launches, tak.synthesis_back_ri.launches)
+    before = (tak.LAUNCHES["analysis_front_ri"],
+              tak.LAUNCHES["synthesis_back_ri"])
     for a, b in zip(tak.analysis_front_ri(tail, x),
                     tak.analysis_front_ri_reference(tail, x)):
         assert torch.equal(a, b)
     for a, b in zip(tak.synthesis_back_ri(spec, ola),
                     tak.synthesis_back_ri_reference(spec, ola)):
         assert torch.equal(a, b)
-    assert (tak.analysis_front_ri.launches,
-            tak.synthesis_back_ri.launches) == before
+    assert (tak.LAUNCHES["analysis_front_ri"],
+            tak.LAUNCHES["synthesis_back_ri"]) == before
+
+
+def _imports(path: Path) -> set[str]:
+    """Every module and name a source file imports, at its top or inside a
+    function, as dotted paths."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            out.update(f"{node.module}.{a.name}" for a in node.names)
+    return out
+
+
+def test_the_kernel_layer_imports_point_down():
+    """The kernel module imports neither the routes above it nor a model,
+    the spans and counters import nothing of the package, and no code
+    reaches behind a decorator for the function it wraps."""
+    pkg = Path(tak.__file__).resolve().parents[1]
+    name = pkg.name
+    assert not {m for m in _imports(pkg / "ops" / "afstft_kernels.py")
+                if m.startswith((f"{name}.ops.afstft_ri", f"{name}.models"))}
+    assert not {m for m in _imports(pkg / "utils" / "profiling.py")
+                if m.startswith(name)}
+    assert not [f for f in pkg.rglob("*.py") if "__wrapped__" in f.read_text()]
+
+
+def test_the_seam_passes_each_kind_as_its_c_type():
+    """A launch passes a tensor as its data pointer, None as a null
+    pointer, an int or a bool as a C int and a float as a C float, with the
+    stream last; the entry's argument types are set at its first call and
+    kept.  An entry given a tensor on a device that is neither the CPU nor
+    CUDA raises before any launch."""
+    seen = []
+
+    @ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p)
+    def entry(ptr, null, n, flag, scale, stream):
+        seen.append((ptr, null, n, flag, scale, stream))
+        return len(seen)
+
+    # a symbol with no declared types, as a loaded library's is
+    c_fn = ctypes.CFUNCTYPE(ctypes.c_int)(
+        ctypes.cast(entry, ctypes.c_void_p).value)
+    a, b = torch.zeros(4), torch.ones(3)
+    assert tak._call(c_fn, (a, None, 7, True, 0.25), 12345) == 1
+    types = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p]
+    assert list(c_fn.argtypes) == types
+    assert tak._call(c_fn, (b, a, -3, False, 1.5), 678) == 2
+    assert list(c_fn.argtypes) == types
+    assert seen == [(a.data_ptr(), None, 7, 1, 0.25, 12345),
+                    (b.data_ptr(), a.data_ptr(), -3, 0, 1.5, 678)]
+    with pytest.raises(TypeError, match="no C type"):
+        tak._c_type("hybrid")
+    before = dict(tak.LAUNCHES)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        tak.analysis_front_ri(torch.zeros((2, 15 * 128), device="meta"),
+                              torch.zeros((2, 4 * 128), device="meta"))
+    assert tak.LAUNCHES == before
 
 
 @pytest.mark.parametrize("low_delay", [False, True])

@@ -105,9 +105,9 @@ def test_render_tf_matrix_vs_jax(matrix, fused):
 
 
 # the kernel entries the TF-matrix routes call: every entry of
-# afstft_kernels.KERNELS that afstft_ri imports (all but the binauraliser's
+# afstft_kernels.LAUNCHES that afstft_ri imports (all but the binauraliser's
 # hrtf_taps_ri)
-_KERNEL_ENTRIES = tuple(n for n in tak.KERNELS if hasattr(tri, n))
+_KERNEL_ENTRIES = tuple(n for n in tak.LAUNCHES if hasattr(tri, n))
 
 
 @pytest.mark.parametrize("shape", ["one_pass", "two_pass", "wide"])

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from spatial_audio_framework_tpu_torch.models import ambi_bin, ambi_dec
+from spatial_audio_framework_tpu_torch.models import (ambi_bin, ambi_dec,
+                                                     binauraliser)
 from spatial_audio_framework_tpu_torch.ops import afstft_kernels as tak
 from spatial_audio_framework_tpu_torch.utils import presets
 
@@ -27,6 +28,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _home(name):
+    """The module that declares the kernel entry ``name`` and its plain
+    version: the binauraliser's taps beside the binauraliser."""
+    return binauraliser if name == "hrtf_taps_ri" else tak
 
 
 def _case(S, cin, cout, seed=0, per_stream=False, hybrid=True):
@@ -79,13 +86,13 @@ def test_cuda_path_never_calls_plain_version(cuda, monkeypatch):
     w = ambi_bin.weights_from_numpy(rng.standard_normal((133, 2, 4)),
                                     rng.standard_normal((133, 2, 4)), cuda)
     st = ambi_bin.init_state_batched(cfg, 2, cuda)
-    before = tak.render_full_ri.launches
+    before = tak.LAUNCHES["render_full_ri"]
     for _ in range(2):
         x = torch.from_numpy(
             rng.uniform(-1, 1, (2, 4, 512)).astype(np.float32)).to(cuda)
         y, st = ambi_bin.process_ri_batched(cfg, w, st, x)
     torch.cuda.synchronize()
-    assert tak.render_full_ri.launches == before + 2
+    assert tak.LAUNCHES["render_full_ri"] == before + 2
     assert bool(torch.isfinite(y).all())
 
 
@@ -249,16 +256,16 @@ def test_wide_render_takes_the_two_kernels(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in tak.KERNELS:
-        monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    for name in tak.LAUNCHES:
+        monkeypatch.setattr(_home(name), f"{name}_reference", refuse)
+    before = dict(tak.LAUNCHES)
     st = ambi_dec.init_state_batched(cfg, 2, 22, cuda)
     for x, yp in zip(xs, ys_plain):
         y, st = ambi_dec.process_ri_batched(cfg, w, st, x)
         torch.cuda.synchronize()
         assert (y - yp).abs().max().item() <= TOL
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
-    assert ran == {n: 2 * (n in _WIDE_ROUTE) for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
+    assert ran == {n: 2 * (n in _WIDE_ROUTE) for n in tak.LAUNCHES}
 
 
 def test_wide_render_at_the_benchmark_cells_rows(cuda, monkeypatch):
@@ -280,7 +287,7 @@ def test_wide_render_at_the_benchmark_cells_rows(cuda, monkeypatch):
         raise AssertionError("the CUDA path took the mix's plain version")
 
     monkeypatch.setattr(tak, "wide_mix_ri_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in _WIDE_ROUTE}
+    before = {n: tak.LAUNCHES[n] for n in _WIDE_ROUTE}
     for x in xs:
         yk, st_k = ambi_dec.process_ri_batched(cfg, w, st_k, x)
         yp, st_p = ambi_dec.process_ri_batched(cfg, w, st_p, x, fused=False)
@@ -291,7 +298,7 @@ def test_wide_render_at_the_benchmark_cells_rows(cuda, monkeypatch):
                 / yp.abs().max()).item() <= 2e-5
         assert torch.equal(st_k.in_tail, st_p.in_tail)
         del yk, yp
-    assert {n: getattr(tak, n).launches - before[n]
+    assert {n: tak.LAUNCHES[n] - before[n]
             for n in _WIDE_ROUTE} == dict.fromkeys(_WIDE_ROUTE, 2)
 
 
@@ -335,11 +342,11 @@ def test_wide_mix_matches_plain_version(cuda, S, cin, cout, H, complex_m,
     rng = np.random.default_rng(S * cin + H)
     (sre, sim), Mre, Mim = _wide_inputs(rng, S, cin, cout, H, complex_m,
                                         per_stream, hybrid, cuda)
-    before = tak.wide_mix_ri.launches
+    before = tak.LAUNCHES["wide_mix_ri"]
     got = tak.wide_mix_ri(sre, sim, Mre, Mim, hybrid=hybrid)
     ref = tak.wide_mix_ri_reference(sre, sim, Mre, Mim, hybrid=hybrid)
     torch.cuda.synchronize()
-    assert tak.wide_mix_ri.launches == before + 1
+    assert tak.LAUNCHES["wide_mix_ri"] == before + 1
     assert got.shape == ref.shape == (S * cout, H, 2 * (133 if hybrid
                                                         else 129))
     scale = ref.abs().max().item()
@@ -352,7 +359,7 @@ def test_wide_mix_raises_on_what_it_does_not_take(cuda):
     rng = np.random.default_rng(3)
     (sre, sim), Mre, Mim = _wide_inputs(rng, 2, 16, 22, 4, True, False,
                                         True, cuda)
-    before = tak.wide_mix_ri.launches
+    before = tak.LAUNCHES["wide_mix_ri"]
     with pytest.raises(ValueError, match="rows"):
         tak.wide_mix_ri(sre[:-1], sim[:-1], Mre, Mim)       # S·cin rows
     with pytest.raises(ValueError, match="shape"):
@@ -371,7 +378,7 @@ def test_wide_mix_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tak.wide_mix_ri(sre[..., :65].contiguous(), sim[..., :65]
                         .contiguous(), Mre[:69], Mim[:69])
-    assert tak.wide_mix_ri.launches == before
+    assert tak.LAUNCHES["wide_mix_ri"] == before
 
 
 def test_new_kernels_raise_for_hop_other_than_128(cuda):
@@ -597,13 +604,13 @@ def test_two_pass_route_never_calls_plain_version(cuda, monkeypatch, hybrid):
              "render_full_ri", "synthesis_back_ri")
     for name in names:
         monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in names}
+    before = {n: tak.LAUNCHES[n] for n in names}
     st = tri.init_state_batched(bank, 2, 25, 2, cuda)
     for x, yp in zip(xs, ys_plain):
         y, st = tri.render_tf_matrix_ri(bank, st, x, M[0], M[1])
         torch.cuda.synchronize()
         assert (y - yp).abs().max().item() <= TOL
-    ran = {n: getattr(tak, n).launches - before[n] for n in names}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in names}
     pair = (("analysis_front_dg_ri", "render_decode_synthesis_dg_ri")
             if hybrid else ("analysis_front_ri", "render_decode_synthesis_ri"))
     assert ran == {n: 2 if n in pair else 0 for n in names}
@@ -633,7 +640,7 @@ def test_hop64_render_takes_the_plain_path(cuda):
     bank = AfSTFT(hop=64, hybrid=True)
     rng = np.random.default_rng(12)
     M = _u(rng, (2, 3, bank.n_bands, 2, 4), cuda)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    before = dict(tak.LAUNCHES)
     st_k = st_p = tri.init_state_batched(bank, 3, 4, 2, cuda)
     for _ in range(2):
         x = _u(rng, (3, 4, 6 * 64), cuda)
@@ -642,7 +649,7 @@ def test_hop64_render_takes_the_plain_path(cuda):
                                            fused=False)
         assert torch.equal(yk, yp) and torch.equal(st_k.ola_tail,
                                                    st_p.ola_tail)
-    assert {n: getattr(tak, n).launches for n in tak.KERNELS} == before
+    assert dict(tak.LAUNCHES) == before
 
 
 @pytest.fixture(scope="module")
@@ -688,17 +695,17 @@ def test_binauraliser_routes_match_plain_path(cuda, binauraliser_weights,
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in tak.KERNELS:
-        monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    for name in tak.LAUNCHES:
+        monkeypatch.setattr(_home(name), f"{name}_reference", refuse)
+    before = dict(tak.LAUNCHES)
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     for yk, yp in zip(ys_k, ys_p):
         assert (yk - yp).abs().max().item() <= TOL
     assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
     assert ran == {n: 2 if n in pair + ("hrtf_taps_ri",) else 0
-                   for n in tak.KERNELS}
+                   for n in tak.LAUNCHES}
 
 
 # -- hrtf_taps_ri: the binauraliser's taps from its directions --------------
@@ -780,8 +787,8 @@ def test_hrtf_taps_kernel_matches_plain_version(cuda, binauraliser_weights,
     dirs[0, :min(n_src, len(_TAP_EDGE_DIRS))] = torch.tensor(
         _TAP_EDGE_DIRS[:n_src])
     ypr = _u(rng, (S, 3), "cpu") * np.pi
-    got = tak.hrtf_taps_ri(cfg, w, dirs.to(cuda), ypr.to(cuda))
-    ref = tak.hrtf_taps_ri(cfg, _on_cpu(w), dirs, ypr)
+    got = binauraliser.hrtf_taps_ri(cfg, w, dirs.to(cuda), ypr.to(cuda))
+    ref = binauraliser.hrtf_taps_ri(cfg, _on_cpu(w), dirs, ypr)
     got = got.cpu()
     assert got.shape == ref.shape == (S, n_src, 2, 4, 129)
     keep = torch.ones((S, n_src), dtype=torch.bool)
@@ -810,11 +817,13 @@ def test_hrtf_taps_bad_directions_on_card(cuda, binauraliser_weights, mode):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            got = tak.hrtf_taps_ri(cfg, binauraliser_weights, bad_c, ypr_c)
+            got = binauraliser.hrtf_taps_ri(cfg, binauraliser_weights,
+                                            bad_c, ypr_c)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         got = got.cpu()
-        ref = tak.hrtf_taps_ri(cfg, _on_cpu(binauraliser_weights), bad, ypr)
+        ref = binauraliser.hrtf_taps_ri(
+            cfg, _on_cpu(binauraliser_weights), bad, ypr)
         assert torch.equal(got.isnan(), ref.isnan())
         assert (got - ref).nan_to_num().abs().max().item() <= 1e-6 * (
             ref.nan_to_num().abs().max().item())
@@ -844,7 +853,7 @@ def test_head_tracked_binauraliser_block_never_waits(cuda,
     def refuse(*args, **kwargs):
         raise AssertionError("a tensor was made from host data per block")
 
-    before = tak.hrtf_taps_ri.launches
+    before = tak.LAUNCHES["hrtf_taps_ri"]
     torch.cuda.synchronize()
     with monkeypatch.context() as m:
         for name in ("from_numpy", "tensor", "as_tensor"):
@@ -857,7 +866,7 @@ def test_head_tracked_binauraliser_block_never_waits(cuda,
                     yprs[i])
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    assert tak.hrtf_taps_ri.launches == before + 2
+    assert tak.LAUNCHES["hrtf_taps_ri"] == before + 2
     assert bool(torch.isfinite(y).all())
 
 
@@ -940,9 +949,9 @@ def test_new_model_routes_match_plain_path(cuda, monkeypatch, model, n_src,
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in tak.KERNELS:
-        monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    for name in tak.LAUNCHES:
+        monkeypatch.setattr(_home(name), f"{name}_reference", refuse)
+    before = dict(tak.LAUNCHES)
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     for yk, yp in zip(ys_k, ys_p):
@@ -950,8 +959,8 @@ def test_new_model_routes_match_plain_path(cuda, monkeypatch, model, n_src,
         assert bool(torch.isfinite(yk).all())
         assert (yk - yp).abs().max().item() <= TOL
     assert (st_k.ola_tail - st_p.ola_tail).abs().max().item() <= TOL
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
-    assert ran == {n: 2 if n in pair else 0 for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
+    assert ran == {n: 2 if n in pair else 0 for n in tak.LAUNCHES}
 
 
 def test_binauraliser_nf_warm_chunk_builds_nothing_from_host_data(
@@ -1069,17 +1078,17 @@ def test_array2sh_route_matches_plain_path(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for name in tak.KERNELS:
-        monkeypatch.setattr(tak, f"{name}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    for name in tak.LAUNCHES:
+        monkeypatch.setattr(_home(name), f"{name}_reference", refuse)
+    before = dict(tak.LAUNCHES)
     ys_k, st_k = run(True)
     torch.cuda.synchronize()
     for yk, yp in zip(ys_k, ys_p):
         assert yk.shape == (3, 25, yk.shape[-1])
         assert (yk - yp).abs().max().item() <= TOL * max(
             1.0, yp.abs().max().item())
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
-    assert ran == {n: 2 * (n in _WIDE_ROUTE) for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
+    assert ran == {n: 2 * (n in _WIDE_ROUTE) for n in tak.LAUNCHES}
 
 
 def test_ambi_dec_binaural_preview_takes_the_one_pass_kernel(cuda):
@@ -1092,14 +1101,14 @@ def test_ambi_dec_binaural_preview_takes_the_one_pass_kernel(cuda):
     assert w.M_im is not None and w.M_re.shape == (133, 2, 16)
     rng = np.random.default_rng(4)
     x = _u(rng, (2, 16, 9 * 128), cuda)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    before = dict(tak.LAUNCHES)
     yk, _ = ambi_dec.process_ri_batched(
         cfg, w, ambi_dec.init_state_batched(cfg, 2, 22, cuda), x)
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
     yp, _ = ambi_dec.process_ri_batched(
         cfg, w, ambi_dec.init_state_batched(cfg, 2, 22, cuda), x,
         fused=False)
-    assert ran == {n: int(n == "render_full_ri") for n in tak.KERNELS}
+    assert ran == {n: int(n == "render_full_ri") for n in tak.LAUNCHES}
     assert yk.shape == (2, 2, 9 * 128)
     assert (yk - yp).abs().max().item() <= TOL
 
@@ -1154,9 +1163,9 @@ def test_head_tracked_block_never_waits_for_the_device(cuda, monkeypatch,
             finally:
                 torch.cuda.set_sync_debug_mode("default")
 
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    before = dict(tak.LAUNCHES)
     got = run(cuda, no_host_data)
-    assert {n: getattr(tak, n).launches for n in tak.KERNELS} == before
+    assert dict(tak.LAUNCHES) == before
     ref = run("cpu", contextlib.nullcontext)
     assert bool(torch.isfinite(got).all())
     assert (got - ref).abs().max().item() <= TOL * max(
@@ -1312,13 +1321,13 @@ def test_analyser_route_matches_plain_path(cuda, monkeypatch, name):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for k in tak.KERNELS:
-        monkeypatch.setattr(tak, f"{k}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    for k in tak.LAUNCHES:
+        monkeypatch.setattr(_home(k), f"{k}_reference", refuse)
+    before = dict(tak.LAUNCHES)
     fused = run(True)
     torch.cuda.synchronize()
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
-    assert ran == {n: 2 * (n in kernels) for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
+    assert ran == {n: 2 * (n in kernels) for n in tak.LAUNCHES}
     for k, p in zip(fused, plain):
         assert k.shape == p.shape and bool(torch.isfinite(k).all())
         if name == "sldoa" and k.shape[-1:] == (2,) and k.ndim == 5:
@@ -1401,9 +1410,9 @@ def test_dirass_on_card_matches_the_cpu(cuda, mode):
             out.append(p.cpu())
         return torch.stack(out), [t.cpu() for t in st[2:]]
 
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    before = dict(tak.LAUNCHES)
     got, got_st = run(cuda)
-    assert {n: getattr(tak, n).launches for n in tak.KERNELS} == before
+    assert dict(tak.LAUNCHES) == before
     ref, ref_st = run("cpu")
     assert bool(torch.isfinite(got).all())
     if mode != "nearest":
@@ -1500,14 +1509,14 @@ def test_batched_hades_spreader_route_matches_plain_path(cuda, monkeypatch,
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA path took a plain version")
 
-    for k in tak.KERNELS:
-        monkeypatch.setattr(tak, f"{k}_reference", refuse)
-    before = {n: getattr(tak, n).launches for n in tak.KERNELS}
+    for k in tak.LAUNCHES:
+        monkeypatch.setattr(_home(k), f"{k}_reference", refuse)
+    before = dict(tak.LAUNCHES)
     fused = run(True)
     torch.cuda.synchronize()
-    ran = {n: getattr(tak, n).launches - before[n] for n in tak.KERNELS}
+    ran = {n: tak.LAUNCHES[n] - before[n] for n in tak.LAUNCHES}
     assert ran == {n: 2 * (n in ("analysis_front_ri", "synthesis_back_ri"))
-                   for n in tak.KERNELS}
+                   for n in tak.LAUNCHES}
     for (k, tol), (p, _) in zip(fused, plain):
         assert k.shape == p.shape and bool(torch.isfinite(k).all())
         scale = max(1.0, p.abs().max().item())
@@ -1629,11 +1638,11 @@ def test_stream_runner_launches_render_full_ri_once_per_frame(cuda, order,
         -1, 1, (S * nsh, n_frames * frame_size)).astype(np.float32)
     runner = StreamRunner(torch_frame_fn(make(), S * nsh, frame_size, cuda),
                           S * nsh, S * 2, frame_size)
-    tak.render_full_ri.launches = 0
+    tak.LAUNCHES["render_full_ri"] = 0
     y = np.concatenate([runner.process_block(x[:, s:s + 480])
                         for s in range(0, x.shape[1], 480)], axis=1)
     done = x.shape[1] // frame_size
-    assert tak.render_full_ri.launches == done == runner.clock.frames
+    assert tak.LAUNCHES["render_full_ri"] == done == runner.clock.frames
     assert runner.read_s > 0.0
     direct = make()
     ref = np.concatenate([direct(torch.from_numpy(
@@ -1684,14 +1693,14 @@ def test_render_signal_never_waits_and_equals_a_hand_loop(cuda):
     render_signal(proc, ambi_bin.init_state_batched(cfg, S, device=cuda),
                   x[..., :2048], 1024)                       # warm
     st0 = ambi_bin.init_state_batched(cfg, S, device=cuda)
-    tak.render_full_ri.launches = 0
+    tak.LAUNCHES["render_full_ri"] = 0
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         y, _ = render_signal(proc, st0, x, 1024)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert tak.render_full_ri.launches == 4
+    assert tak.LAUNCHES["render_full_ri"] == 4
     st, outs = ambi_bin.init_state_batched(cfg, S, device=cuda), []
     for b in range(4):
         o, st = proc(st, x[..., b * 1024:(b + 1) * 1024])

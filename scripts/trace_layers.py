@@ -16,7 +16,9 @@ calls, host ms (inclusive) and device ms a block; the device ms a block of
 every operation (to check that the root spans hold them all); per layer
 the host ms a block less the nested spans (``<layer>.host_ns``),
 ``ops.state_bytes`` and ``ops.spectra_bytes`` (the wide route's spectra
-between its two kernels) a block, and each kernel's launches a block
+between its two kernels) a block, ``kernels.frames`` (the frames the
+one-pass render kernel folds and transforms) a block, and each kernel's
+launches a block
 (``kernels.<entry>.launches``, from the kernel layer's
 ``afstft_kernels.LAUNCHES``).  Needs a CUDA card.
 """
@@ -82,6 +84,7 @@ def trace_cell(name: str, config: dict, mix: dict, blocks: int, seed: int,
                          for k in LAYERS},
         "state_bytes": counts.get("ops.state_bytes", 0) / blocks,
         "spectra_bytes": counts.get("ops.spectra_bytes", 0) / blocks,
+        "frames": counts.get("kernels.frames", 0) / blocks,
         "launches": {f"kernels.{k}.launches": (v - launched[k]) / blocks
                      for k, v in sorted(ak.LAUNCHES.items())
                      if v > launched[k]},

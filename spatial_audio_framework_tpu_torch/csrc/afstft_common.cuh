@@ -350,6 +350,103 @@ __device__ __forceinline__ float2 window_pair(const float* win, int ws,
                                           i);
 }
 
+// The fold of a chain of K frames of one parity, j, j + 2, ..., j + 2(K-1):
+// v[c] is fold_lane's v of frame j + 2c.  Each hop row j + 2t + p
+// (t = 0 .. K + 3) is read once and serves every frame c of the chain with
+// m = t - c in 0..4, and win(m, r) is called once a chain, where K frames
+// folded one by one read 5K hop rows and call win 5K times a register.
+// The window pairs slide through K registers: at step t, w[c] is window
+// hop m = t - c of frame c.  Each frame sums its products in the order of
+// m, so v is fold_lane's bit for bit.
+template <int K, class Win>
+__device__ __forceinline__ void fold_chain(float2 (&v)[K][4],
+                                           const float* hops, int hs, int j,
+                                           int lane, Win win) {
+  constexpr int M = TOTAL_HOPS / 2;
+  const int p = lane & 1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = 2 * (fft_in_index(lane, r) & (HOP / 2 - 1));
+    float2 w[K];
+    float a[K], b[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) a[c] = b[c] = 0.f;
+#pragma unroll
+    for (int t = 0; t < K + M - 1; ++t) {
+#pragma unroll
+      for (int c = K - 1; c > 0; --c) w[c] = w[c - 1];
+      if (t < M) w[0] = win(t, r);
+      const float2 h =
+          *reinterpret_cast<const float2*>(hops + (j + 2 * t + p) * hs + i);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (t - c < 0 || t - c >= M) continue;
+        a[c] += h.x * w[c].x;
+        b[c] += h.y * w[c].y;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < K; ++c) v[c][r] = make_float2(a[c], b[c]);
+  }
+}
+
+// rdft256 of the K frames of a chain: each twiddle of the FFT's stages is
+// read once and serves every frame (the split's four are read a frame:
+// held across the chain they cost more registers than their reads save);
+// the shuffles and the arithmetic are rdft256's, frame by frame.
+// out(c, v[c], nyq) takes frame c's bins as rdft256 leaves them (bit for
+// bit) as soon as its split is done, before the next frame's.
+template <int K, class Out>
+__device__ __forceinline__ void rdft256_chain(float2 (&v)[K][4],
+                                              const float2* tw, int lane,
+                                              Out out) {
+  auto twiddle = [&](int step) {  // fft_twiddle<false> on every frame
+    float2 w[3];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) w[q - 1] = tw[step * q];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+#pragma unroll
+      for (int q = 1; q < 4; ++q) v[c][q] = cmul(v[c][q], w[q - 1]);
+  };
+#pragma unroll
+  for (int c = 0; c < K; ++c) fft_radix2_lanes(v[c], lane);
+  twiddle(32 * (lane & 1));
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    fft_dft4<false>(v[c]);
+    fft_swap_bit<0, 1>(v[c], lane);
+    fft_swap_bit<1, 2>(v[c], lane);
+  }
+  twiddle(8 * (lane & 7));
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    fft_dft4<false>(v[c]);
+    fft_swap_bit<0, 3>(v[c], lane);
+    fft_swap_bit<1, 4>(v[c], lane);
+  }
+  twiddle(2 * lane);
+#pragma unroll
+  for (int c = 0; c < K; ++c) fft_dft4<false>(v[c]);
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    float2 w[4], p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = tw[lane + 32 * r];
+    fft_partners(v[c], p, lane);
+    const float nyq = v[c][0].x - v[c][0].y;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float er = 0.5f * (v[c][r].x + p[r].x);
+      const float ei = 0.5f * (v[c][r].y - p[r].y);
+      const float dr = v[c][r].x - p[r].x, di = v[c][r].y + p[r].y;
+      v[c][r] = make_float2(er + 0.5f * (w[r].x * di + w[r].y * dr),
+                            ei - 0.5f * (w[r].x * dr - w[r].y * di));
+    }
+    out(c, v[c], nyq);
+  }
+}
+
 // Hybrid-FIR context of one band from its spectra at hops h, h+2, h+4 and
 // h+6: g = c1 (s[h+6] - s[h]) + c2 (s[h+4] - s[h+2]), as (re, im).
 __device__ __forceinline__ float2 hybrid_context(float2 f0, float2 f2,

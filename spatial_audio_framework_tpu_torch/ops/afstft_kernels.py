@@ -72,7 +72,7 @@ from spatial_audio_framework_tpu_torch.ops.afstft import (_COEFF1, _COEFF2,
 from spatial_audio_framework_tpu_torch.ops.fft import (_fft256_twiddles,
                                                        _rdft_mats)
 from spatial_audio_framework_tpu_torch.ops.precision import fp32_matmul
-from spatial_audio_framework_tpu_torch.utils.profiling import spanned
+from spatial_audio_framework_tpu_torch.utils.profiling import count, spanned
 
 _G_BANDS = 16   # lanes carried for the hybrid-FIR context g (the B taps are
                 # nonzero only in uniform bands 1..4)
@@ -80,6 +80,9 @@ _NT = _TOTAL_HOPS - 1   # overlap-add tail hops
 _TAIL_HOPS = _NT + 6    # the renderers' input tail: 9 framing + 6 hybrid hops
 _KERNEL_HOP = 128       # the kernel's fixed hop
 _KERNEL_MAX_CH_PRODUCT = 128
+# render_full_ri.cu: output hops a tile (SHORT_TILE for blocks of at most
+# that many hops, else LONG_TILE) and ears a pass over the input channels
+_FULL_SHORT_TILE, _FULL_LONG_TILE, _FULL_EARS = 8, 32, 2
 
 # the launches of each kernel entry point, counted whether or not a profiler
 # records; :func:`kernel` adds an entry as it declares it
@@ -595,6 +598,16 @@ def render_decode_synthesis_dg_ri(dre: torch.Tensor, dim_: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def render_full_frames(S: int, cin: int, cout: int, H: int) -> int:
+    """The frames :func:`render_full_ri`'s kernel folds and transforms in
+    a call of H hops: each tile of hops h0 .. h0 + tile − 1 (the tile set by
+    H, as the kernel's C entry sets it) needs min(tile, H − h0) + 6 frames,
+    for each stream, input channel and pass over the ears."""
+    tile = _FULL_SHORT_TILE if H <= _FULL_SHORT_TILE else _FULL_LONG_TILE
+    per_row = sum(min(tile, H - h0) + 6 for h0 in range(0, H, tile))
+    return S * cin * -(-cout // _FULL_EARS) * per_row
+
+
 def render_full_ri_reference(in_tail: torch.Tensor, x: torch.Tensor,
                              ola_tail: torch.Tensor, taps: torch.Tensor,
                              low_delay: bool = False, hybrid: bool = True,
@@ -647,6 +660,7 @@ def render_full_ri(in_tail: torch.Tensor, x: torch.Tensor,
     if S < 1 or H < 1:
         raise ValueError(f"render_full_ri: needs S >= 1 and H >= 1 hops "
                          f"(got S={S}, x length {x.shape[2]})")
+    count("kernels.frames", render_full_frames(S, cin, cout, H))
     k = device_consts(hop, low_delay, x.device)
     frames = torch.empty((S, cout, H, 2 * hop), dtype=torch.float32,
                          device=x.device)

@@ -169,9 +169,12 @@ def count(name: str, n: int) -> None:
 def counters() -> Dict[str, int]:
     """The counters: each span layer's ``<layer>.host_ns``,
     ``ops.state_bytes`` (the bytes the ops layer copies to carry state or
-    to lay inputs out for a kernel) and ``ops.spectra_bytes`` (the spectra
-    the wide route writes between its two kernels).  The kernels' launches
-    are counted where the kernels are declared, not here."""
+    to lay inputs out for a kernel), ``ops.spectra_bytes`` (the spectra
+    the wide route writes between its two kernels) and ``kernels.frames``
+    (the frames the one-pass render kernel folds and transforms, from the
+    shapes of each call: streams × input channels × passes over the ears ×
+    the frames of each hop tile).  The kernels' launches are counted where
+    the kernels are declared, not here."""
     with _lock:
         return dict(_counts)
 

@@ -456,6 +456,11 @@ def test_fft_front_dg_matches_plain_version(cuda, rows, H, low_delay):
     (2, 4, 5, 9, {"per_stream": True}),
     (2, 4, 11, 33, {}),    # six ear passes
     (1, 4, 11, 9, {"per_stream": True, "low_delay": True}),
+    (2, 16, 2, 8, {}),     # the runtime's frame: one short tile
+    (2, 16, 2, 65, {}),    # a last long tile of one hop
+    (3, 16, 2, 7, {}),     # an odd frame count (13)
+    (2, 4, 5, 8, {"per_stream": True}),           # three ear passes
+    (1, 16, 2, 8, {"low_delay": True}),
 ])
 def test_cluster_render_matches_plain_version(cuda, S, cin, cout, H,
                                               options):
@@ -478,12 +483,13 @@ def test_cluster_render_matches_plain_version(cuda, S, cin, cout, H,
         kt = rt = torch.cat([kt, x], dim=-1)[..., H * 128:].contiguous()
 
 
-def test_cluster_render_is_deterministic(cuda):
+@pytest.mark.parametrize("H", [64, 8])
+def test_cluster_render_is_deterministic(cuda, H):
     """The cluster's blocks sum their spectra in rank order: two launches
-    on the same inputs agree bit for bit."""
+    on the same inputs agree bit for bit, on long tiles and on short."""
     rng = np.random.default_rng(5)
     taps = _taps(rng, 4, 16, 2, False, True, cuda)
-    args = (_u(rng, (4, 16, 15 * 128), cuda), _u(rng, (4, 16, 64 * 128), cuda),
+    args = (_u(rng, (4, 16, 15 * 128), cuda), _u(rng, (4, 16, H * 128), cuda),
             _u(rng, (4, 2, 9, 128), cuda), taps)
     y1, t1 = tak.render_full_ri(*args)
     y2, t2 = tak.render_full_ri(*args)

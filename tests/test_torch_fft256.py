@@ -564,3 +564,128 @@ def test_render_kernel_layout_vs_plain_render(H, cin, cout, form, low_delay,
     assert gy.shape == tuple(ry.shape) and gt.shape == tuple(rt.shape)
     assert np.abs(gy - ry.numpy()).max() <= TOL * scale
     assert np.abs(gt - rt.numpy()).max() <= TOL * scale
+
+
+# ---------------------------------------------------------------------------
+# The one-pass render's frame stage (csrc/render_full_ri.cu, fold_chain in
+# afstft_common.cuh): the tile follows H, a tile folds only the frames its
+# hops need, each warp walks a run of frames of one parity in chains
+# ---------------------------------------------------------------------------
+
+F_SHORT_TILE, F_LONG_TILE = 8, 32   # output hops a tile (short: H <= 8)
+F_WARPS, F_CHAIN = 8, 2             # warps a block; frames a chain
+F_HOPS = [1, 7, 8, 32, 33, 64, 65]
+
+
+def full_tiles(H):
+    """The C entry's tiles for a block of H hops → [(h0, nf)], nf the
+    frames the tile needs: its output hops + 6."""
+    tile = F_SHORT_TILE if H <= F_SHORT_TILE else F_LONG_TILE
+    return [(h0, min(tile, H - h0) + 6) for h0 in range(0, H, tile)]
+
+
+def full_chains(nf):
+    """The frame stage's walk → per warp, its chains of frames: warp w
+    takes the u-th (u = w >> 1) of four runs of the frames of parity w & 1,
+    the runs as equal as they come, in chains of up to F_CHAIN frames."""
+    runs = F_WARPS // 2
+    walk = []
+    for w in range(F_WARPS):
+        par, u = w & 1, w >> 1
+        n = (nf + 1 - par) // 2
+        q0, q1 = u * n // runs, (u + 1) * n // runs
+        walk.append([[2 * q + par for q in range(q, min(q + F_CHAIN, q1))]
+                     for q in range(q0, q1, F_CHAIN)])
+    return walk
+
+
+def fold_chain_products(j, k, p):
+    """fold_chain's products for a chain of k frames from frame j, at lane
+    parity p, in the order they are summed → {frame: [(hop row, window
+    hop)]}; each hop row j + 2t + p is read once (t = 0 .. k + 3)."""
+    out = {j + 2 * c: [] for c in range(k)}
+    for t in range(k + 4):
+        for c in range(k):
+            if 0 <= t - c < 5:
+                out[j + 2 * c].append((j + 2 * t + p, 2 * (t - c) + p))
+    return out
+
+
+def fold_chain_lanes(hops, win, j, k):
+    """fold_chain's arithmetic on a row's hops (float32, as fold_lane_frames)
+    → the k frames' FFT inputs, (k, 32, 4)."""
+    lane, r = LANE[:, None], np.arange(4)[None, :]
+    p, i = lane & 1, 2 * (fft_in_index(lane, r) % 64)
+    a = np.zeros((k, 32, 4), np.float32)
+    b = np.zeros((k, 32, 4), np.float32)
+    for t in range(k + 4):
+        q = j + 2 * t + p
+        h_even, h_odd = hops[q, i], hops[q, i + 1]
+        for c in range(k):
+            m = t - c
+            if 0 <= m < 5:
+                a[c] = a[c] + h_even * win[2 * m + p, i]
+                b[c] = b[c] + h_odd * win[2 * m + p, i + 1]
+    return (a + 1j * b).astype(np.complex64)
+
+
+@pytest.mark.parametrize("H", F_HOPS)
+def test_full_frame_walk_folds_each_needed_frame_once(H):
+    """Every frame 0 .. nf - 1 of each tile folded exactly once, none past
+    nf (the padded frames), each chain of one parity, no hop row past the
+    nf + 9 the tile loads, and the warps' shares within one frame of each
+    other's per parity."""
+    for h0, nf in full_tiles(H):
+        assert nf == min(H - h0, F_LONG_TILE) + 6
+        walk = full_chains(nf)
+        folded = [j for chains in walk for ch in chains for j in ch]
+        assert sorted(folded) == list(range(nf))
+        for w, chains in enumerate(walk):
+            for ch in chains:
+                assert 1 <= len(ch) <= F_CHAIN
+                assert all(j % 2 == w % 2 for j in ch)
+                assert ch == list(range(ch[0], ch[0] + 2 * len(ch), 2))
+                rows = [q for p in (0, 1) for prods in
+                        fold_chain_products(ch[0], len(ch), p).values()
+                        for q, _ in prods]
+                assert max(rows) < nf + 9
+        for par in (0, 1):
+            sizes = [sum(map(len, walk[w])) for w in range(par, F_WARPS, 2)]
+            assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("H", F_HOPS)
+def test_full_frame_chain_products_are_fold_lanes(H):
+    """Each frame's (hop row, window hop) products in a chain are
+    fold_lane's, in fold_lane's order (m = 0 .. 4)."""
+    for _, nf in full_tiles(H):
+        for chains in full_chains(nf):
+            for ch in chains:
+                for p in (0, 1):
+                    got = fold_chain_products(ch[0], len(ch), p)
+                    for j in ch:
+                        assert got[j] == [(j + 2 * m + p, 2 * m + p)
+                                          for m in range(5)]
+
+
+@pytest.mark.parametrize("low_delay", [False, True])
+def test_full_frame_chains_equal_fold_lane_bit_for_bit(low_delay):
+    """fold_chain's arithmetic on a row of 15 + 64 hops, over the walk of
+    both long tiles, equals fold_lane's frame by frame, bit for bit (the
+    same products summed in the same order)."""
+    rng = np.random.default_rng(9)
+    row = rng.uniform(-1, 1, (15 + 64) * 128).astype(np.float32)
+    w_ana = tak.device_consts(128, low_delay,
+                              torch.device("cpu"))["w_ana"].numpy()
+    hops, win = row.reshape(-1, 128), w_ana.reshape(10, 128)
+    ref = fold_lane_frames(row, w_ana, 64 + 6)
+    seen = 0
+    for h0, nf in full_tiles(64):
+        for chains in full_chains(nf):
+            for ch in chains:
+                got = fold_chain_lanes(hops[h0:h0 + nf + 9], win, ch[0],
+                                       len(ch))
+                for c, j in enumerate(ch):
+                    assert np.array_equal(got[c], ref[h0 + j])
+                    seen += 1
+    assert seen == 2 * 38

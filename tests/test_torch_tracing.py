@@ -173,6 +173,46 @@ def test_state_bytes_by_hand(name, hops):
     assert "ops.state_bytes" not in profiling.counters()
 
 
+@pytest.mark.parametrize("S,cin,cout,H,want", [
+    (1024, 16, 2, 8, 229_376),         # rt1024: one short tile, 14 frames
+    (1024, 16, 2, 64, 1_245_184),      # batch1024: two long tiles of 38
+    (2, 4, 5, 8, 2 * 4 * 3 * 14),      # three passes over five ears
+    (1, 16, 11, 65, 16 * 6 * (38 + 38 + 7)),  # six passes; a last tile of
+                                              # one hop
+    (3, 16, 2, 7, 3 * 16 * 13),
+    (1, 4, 1, 1, 4 * 7),
+])
+def test_render_full_frames_by_hand(S, cin, cout, H, want):
+    """``kernels.frames``: the frames the one-pass kernel folds and
+    transforms, a tile's output hops + 6 for each stream, input channel and
+    pass over two ears."""
+    assert ak.render_full_frames(S, cin, cout, H) == want
+
+
+@pytest.mark.parametrize("cout,H", [(2, 8), (2, 64), (5, 8)])
+def test_render_full_frames_counted_by_the_kernels_wrapper(cout, H):
+    """The kernel's wrapper counts ``kernels.frames`` from the shapes
+    while a profiler records, and nothing otherwise.  It runs on the CPU
+    here up to the launch, which only a card makes."""
+    prepare = ak.render_full_ri.__wrapped__.__wrapped__
+    rng = np.random.default_rng(3)
+    cin = 4
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+
+    taps = ak.decode_taps(u(133, cout, cin), u(133, cout, cin)).contiguous()
+    args = (u(S, cin, TAIL_HOPS * HOP), u(S, cin, H * HOP),
+            u(S, cout, 9, HOP), taps)
+    profiling.reset_counters()
+    prepare(*args)
+    assert "kernels.frames" not in profiling.counters()
+    _profiled(lambda: prepare(*args))
+    assert profiling.counters()["kernels.frames"] == ak.render_full_frames(
+        S, cin, cout, H)
+    profiling.reset_counters()
+
+
 def test_host_ns_is_self_time_by_layer():
     """Each layer's ``host_ns`` is its spans' host time less the spans
     nested in them: the three layers add up to the entry's span."""
